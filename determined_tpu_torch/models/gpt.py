@@ -1,0 +1,464 @@
+"""GPT: decoder-only transformer — the serving slice of the port.
+
+Port of ``determined_tpu/models/gpt.py``: the same ``GPTConfig`` fields
+and defaults, the same parameter names and shapes as the reference's
+``GPT.init`` (stacked ``blocks.*`` ``[L, ...]``, ``wqkv`` ``[L, d, 3, H,
+Dh]``, ``wo`` ``[L, H, Dh, d]``, tied ``tok_embed``), so one numpy
+parameter tree feeds both packages (``load_jax_params``).
+
+Matmuls run in the compute dtype (``config.dtype``, bf16 by default) over
+fp32 master parameters, with fp32 layernorm statistics; attention goes
+through ``ops.flash_attention`` (packed prefill, gather decode, ``apply``)
+and ``ops.paged_attention`` (paged decode) — CUDA kernels on the card,
+their plain versions on the CPU.
+
+This slice serves: ``apply`` (the single-device dense forward),
+``prefill_kv`` and ``decode_kv`` (``kernel="paged"`` or ``"gather"``) are
+forward-only and run under ``torch.no_grad()``. Mixture of experts,
+pipeline stages, the zigzag layout, remat and the loss belong to later
+slices; their config fields are carried for parity, and a config that
+turns MoE, pipelining or zigzag on is refused at construction.
+
+The three methods drop the reference's leading ``params`` argument: the
+module owns its parameters.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from determined_tpu_torch._device import resolve_device
+from determined_tpu_torch.models.base import Model
+from determined_tpu_torch.ops.flash_attention import (
+    fit_block,
+    flash_attention,
+)
+from determined_tpu_torch.ops.paged_attention import paged_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50304  # GPT-2's 50257 padded up to a multiple of 128
+    n_layers: int = 12
+    n_heads: int = 12
+    d_model: int = 768
+    d_ff: int = 3072
+    seq_len: int = 1024
+    dtype: Any = torch.bfloat16        # compute dtype
+    param_dtype: Any = torch.float32   # master params
+    tie_embeddings: bool = True
+    # The reference's remaining knobs, carried for config parity. This
+    # slice reads flash_block_q/k (the plain version's K/V blocking) and
+    # attn_window, and refuses MoE, pipeline stages and the zigzag
+    # layout; the training and multi-device slices read the rest.
+    remat: bool = True
+    remat_attention: bool = False
+    scan_unroll: int = 1
+    layer_loop: str = "auto"
+    attn_impl: str = "auto"
+    flash_block_q: int = 1024
+    flash_block_k: int = 1024
+    flash_autotune: bool = False
+    attn_window: Optional[int] = None
+    z_loss: float = 1e-4
+    fused_loss: bool = False
+    sequence_layout: str = "contiguous"
+    pipeline_stages: int = 1
+    num_microbatches: int = 0
+    pipeline_schedule: str = "gpipe"
+    pipeline_virtual_stages: int = 2
+    n_experts: int = 0
+    capacity_factor: float = 1.25
+
+    @property
+    def head_dim(self) -> int:
+        assert self.d_model % self.n_heads == 0
+        return self.d_model // self.n_heads
+
+
+def small() -> GPTConfig:
+    return GPTConfig()  # 124M-class (GPT-2 small)
+
+
+def medium() -> GPTConfig:
+    return GPTConfig(n_layers=24, n_heads=16, d_model=1024, d_ff=4096)
+
+
+def tiny(seq_len: int = 128) -> GPTConfig:
+    """Test-sized config."""
+    return GPTConfig(
+        vocab_size=256, n_layers=2, n_heads=4, d_model=64, d_ff=256,
+        seq_len=seq_len, remat=False,
+    )
+
+
+def _layernorm(x: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """fp32 statistics (eps 1e-5), cast back to x's (compute) dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + 1e-5)
+    return (y * scale + bias).to(x.dtype)
+
+
+#: Parameters the forward casts to the compute dtype (layernorm scales
+#: and biases stay fp32, as in the reference).
+_COMPUTE_PARAMS = (
+    "tok_embed", "pos_embed", "head", "blocks.wqkv", "blocks.bqkv",
+    "blocks.wo", "blocks.bo", "blocks.wi", "blocks.bi", "blocks.wo_mlp",
+    "blocks.bo_mlp",
+)
+
+
+class GPT(Model):
+    """Decoder-only LM over [B, S] int tokens. Parameters are created on
+    ``device`` (CUDA unless the caller passes ``device="cpu"``) from a
+    seeded ``torch.Generator``: normal(0.02), with the residual
+    projections (``wo``, ``wo_mlp``) at 0.02/sqrt(2L), as the reference's
+    ``GPT.init``."""
+
+    def __init__(self, config: GPTConfig,
+                 device: Optional[Union[str, torch.device]] = None,
+                 *, seed: int = 0) -> None:
+        super().__init__()
+        c = config
+        if c.n_experts:
+            raise NotImplementedError(
+                "mixture-of-experts GPT is not ported yet (later slice)"
+            )
+        if c.pipeline_stages > 1:
+            raise NotImplementedError(
+                "pipeline-parallel GPT is not ported yet (multi-device slice)"
+            )
+        if c.sequence_layout != "contiguous":
+            raise NotImplementedError(
+                f"sequence_layout {c.sequence_layout!r} needs ring attention "
+                "(multi-device slice)"
+            )
+        self.config = c
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        pd = c.param_dtype
+        d, f, h, hd, n_l = c.d_model, c.d_ff, c.n_heads, c.head_dim, c.n_layers
+        res_std = 0.02 / (2 * n_l) ** 0.5
+
+        def normal(shape, std):
+            t = torch.empty(shape, dtype=pd, device=dev)
+            return nn.Parameter(t.normal_(0.0, std, generator=gen))
+
+        def full(shape, value):
+            return nn.Parameter(torch.full(shape, value, dtype=pd, device=dev))
+
+        self.tok_embed = normal((c.vocab_size, d), 0.02)
+        self.pos_embed = normal((c.seq_len, d), 0.02)
+        self.blocks = nn.ParameterDict({
+            "ln1_scale": full((n_l, d), 1.0),
+            "ln1_bias": full((n_l, d), 0.0),
+            "wqkv": normal((n_l, d, 3, h, hd), 0.02),
+            "bqkv": full((n_l, 3, h, hd), 0.0),
+            "wo": normal((n_l, h, hd, d), res_std),
+            "bo": full((n_l, d), 0.0),
+            "ln2_scale": full((n_l, d), 1.0),
+            "ln2_bias": full((n_l, d), 0.0),
+            "wi": normal((n_l, d, f), 0.02),
+            "bi": full((n_l, f), 0.0),
+            "wo_mlp": normal((n_l, f, d), res_std),
+            "bo_mlp": full((n_l, d), 0.0),
+        })
+        self.lnf_scale = full((d,), 1.0)
+        self.lnf_bias = full((d,), 0.0)
+        if not c.tie_embeddings:
+            self.head = normal((d, c.vocab_size), 0.02)
+        #: the optional serving copy: compute-dtype casts made once
+        #: (cache_compute_weights), keyed by parameter name.
+        self._compute: Dict[str, torch.Tensor] = {}
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embed.device
+
+    # -- compute-dtype weights ---------------------------------------------
+    def cache_compute_weights(self) -> None:
+        """Make the serving copy: every parameter the forward casts to the
+        compute dtype is cast ONCE here and reused by every call — the
+        same ``.astype(c.dtype)`` the reference applies per call, so the
+        numbers are unchanged. A snapshot: parameters changed afterwards
+        need another call (``load_jax_params`` makes one itself)."""
+        self._compute.clear()
+        dtype = self.config.dtype
+        params = dict(self.named_parameters())
+        for name in _COMPUTE_PARAMS:
+            p = params.get(name)
+            if p is not None and p.dtype != dtype:
+                self._compute[name] = p.detach().to(dtype)
+
+    def _cw(self, name: str) -> torch.Tensor:
+        """Whole parameter `name` in the compute dtype."""
+        t = self._compute.get(name)
+        if t is not None:
+            return t
+        return self.get_parameter(name).detach().to(self.config.dtype)
+
+    def _bw(self, name: str, i: int) -> torch.Tensor:
+        """Layer i of stacked block parameter `name`, compute dtype."""
+        t = self._compute.get(f"blocks.{name}")
+        if t is not None:
+            return t[i]
+        return self.blocks[name][i].detach().to(self.config.dtype)
+
+    # -- pieces of a block ---------------------------------------------------
+    def _qkv(self, x: torch.Tensor, i: int):
+        """ln1 + fused QKV projection → q, k, v [B, S, H, Dh] (views of
+        one [B, S, 3, H, Dh] tensor)."""
+        c = self.config
+        h = _layernorm(x, self.blocks["ln1_scale"][i], self.blocks["ln1_bias"][i])
+        qkv = (
+            torch.matmul(h, self._bw("wqkv", i).reshape(c.d_model, -1))
+            + self._bw("bqkv", i).reshape(-1)
+        ).view(*x.shape[:-1], 3, c.n_heads, c.head_dim)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+    def _out_proj(self, o: torch.Tensor, i: int) -> torch.Tensor:
+        """einsum("bshk,hkd->bsd", o, wo) without the bias."""
+        c = self.config
+        return torch.matmul(
+            o.reshape(*o.shape[:2], c.n_heads * c.head_dim),
+            self._bw("wo", i).reshape(c.n_heads * c.head_dim, c.d_model),
+        )
+
+    def _mlp_half(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        h = _layernorm(x, self.blocks["ln2_scale"][i], self.blocks["ln2_bias"][i])
+        m = torch.matmul(h, self._bw("wi", i)) + self._bw("bi", i)
+        # jax.nn.gelu defaults to the tanh approximation.
+        m = F.gelu(m, approximate="tanh")
+        m = torch.matmul(m, self._bw("wo_mlp", i)) + self._bw("bo_mlp", i)
+        return x + m
+
+    def _embed(self, tokens: torch.Tensor,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self._cw("tok_embed")[tokens.long()]
+        pe = self._cw("pos_embed")
+        if positions is not None:
+            return x + pe[positions.long()]
+        return x + pe[: tokens.shape[1]]
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        w_out = (
+            self._cw("tok_embed").t() if self.config.tie_embeddings
+            else self._cw("head")
+        )
+        return torch.matmul(_layernorm(x, self.lnf_scale, self.lnf_bias), w_out)
+
+    # -- forward ---------------------------------------------------------------
+    @torch.no_grad()
+    def apply(self, tokens: torch.Tensor,
+              positions: Optional[torch.Tensor] = None,
+              segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens [B, S] int → logits [B, S, V] (compute dtype): embed,
+        each block's attention half + MLP half, final layernorm + head."""
+        c = self.config
+        tokens = tokens.to(self.device)
+        s = tokens.shape[1]
+        bq = fit_block(s, c.flash_block_q)
+        bk = fit_block(s, c.flash_block_k)
+        x = self._embed(tokens, positions)
+        for i in range(c.n_layers):
+            q, k, v = self._qkv(x, i)
+            o = flash_attention(
+                q, k, v, causal=True, block_q=bq, block_k=bk,
+                window=c.attn_window, segment_ids=segment_ids,
+            )
+            o = self._out_proj(o, i) + self._bw("bo", i)
+            x = x + o
+            x = self._mlp_half(x, i)
+        return self._head(x)
+
+    @torch.no_grad()
+    def prefill_kv(
+        self,
+        tokens: torch.Tensor,
+        positions: torch.Tensor,
+        segment_ids: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Packed prefill that also returns every layer's K/V.
+
+        tokens [B, S] int — prompts packed back to back per row
+        (batch_inference.pack_sequences layout); positions [B, S] — each
+        token's position within its own document; segment_ids [B, S] — 1,
+        2, ... per document, 0 on padding.
+
+        → (logits [B, S, V] compute dtype, k [L, B, S, H, Dh],
+        v [L, B, S, H, Dh] compute dtype).
+        """
+        c = self.config
+        s = tokens.shape[1]
+        x = self._embed(tokens, positions)
+        bq = fit_block(s, c.flash_block_q)
+        bk = fit_block(s, c.flash_block_k)
+        ks, vs = [], []
+        for i in range(c.n_layers):
+            q, k, v = self._qkv(x, i)
+            ks.append(k)
+            vs.append(v)
+            o = flash_attention(
+                q, k, v, causal=True, block_q=bq, block_k=bk,
+                segment_ids=segment_ids,
+            )
+            x = x + self._out_proj(o, i) + self._bw("bo", i)
+            x = self._mlp_half(x, i)
+        return self._head(x), torch.stack(ks), torch.stack(vs)
+
+    @torch.no_grad()
+    def decode_kv(
+        self,
+        last_tokens: torch.Tensor,
+        lengths: torch.Tensor,
+        active: torch.Tensor,
+        cache_k: torch.Tensor,
+        cache_v: torch.Tensor,
+        page_table: torch.Tensor,
+        *,
+        q_pad: int = 1,
+        kernel: str = "gather",
+        block_h: Optional[int] = None,
+        interpret: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One iteration-level decode step over the paged KV cache.
+
+        last_tokens [B] int — the token each slot processes (it sits at
+        position lengths[b]); lengths [B] int — tokens already cached;
+        active [B] bool — live slots; cache_k/cache_v [L, n_pages,
+        page_size, H, Dh] — the page pool (page 0 is the scratch page);
+        page_table [B, P] int — each slot's pages in order.
+
+        → (logits [B, V] fp32 for the NEXT token, cache_k, cache_v). The
+        processed token's K/V is written into the pool at its position
+        BEFORE attention (inactive rows write the scratch page). The pool
+        is updated in place (``index_put_``) — the counterpart of the
+        reference's donated buffers — and returned for signature parity.
+
+        ``kernel="paged"`` reads K/V through the page table
+        (ops/paged_attention); ``"gather"`` gathers each slot's pages
+        contiguous and runs flash attention at causal +
+        ``kv_offset = S_max − 1`` with segment ids trimming the dead tail.
+        ``q_pad`` pads the query rows (rows past 0 are dropped).
+        """
+        c = self.config
+        if kernel not in ("paged", "gather"):
+            raise ValueError(
+                f"decode_kv kernel must be 'paged' or 'gather', "
+                f"got {kernel!r}"
+            )
+        n_layers, _n_pages, page_size, h, hd = cache_k.shape
+        b = last_tokens.shape[0]
+        n_page_slots = page_table.shape[1]
+        s_max = n_page_slots * page_size
+        lengths = lengths.long()
+        active = active.bool()
+        positions = torch.clamp(lengths, 0, c.seq_len - 1)
+        x = self._embed(last_tokens[:, None], positions[:, None])  # [B, 1, D]
+        rows = torch.arange(b, device=lengths.device)
+        widx = page_table.long()[
+            rows, torch.clamp(lengths // page_size, max=n_page_slots - 1)
+        ]
+        widx = torch.where(active, widx, 0)
+        woff = lengths % page_size
+        qpad = max(1, int(q_pad))
+        if kernel == "gather":
+            kv_pos = torch.arange(s_max, device=lengths.device)[None, :]
+            kv_seg = ((kv_pos <= lengths[:, None]) & active[:, None]).to(torch.int32)
+            q_seg = torch.where(active, 1, 2).to(torch.int32)[:, None]
+            if qpad > 1:
+                q_seg = torch.cat(
+                    [q_seg, torch.full((b, qpad - 1), 2, dtype=torch.int32,
+                                       device=q_seg.device)], dim=1,
+                )
+            bq = fit_block(qpad, 128)
+            bk = fit_block(s_max, c.flash_block_k)
+            pt_flat = page_table.long()
+        else:
+            # the kernel's int32 operands, converted once for all layers
+            pt32, len32, act32 = (
+                t.to(torch.int32).contiguous()
+                for t in (page_table, lengths, active)
+            )
+        for i in range(n_layers):
+            q, k_new, v_new = self._qkv(x, i)
+            cache_k[i].index_put_((widx, woff), k_new[:, 0])
+            cache_v[i].index_put_((widx, woff), v_new[:, 0])
+            if qpad > 1:
+                q = torch.cat(
+                    [q, torch.zeros((b, qpad - 1, h, hd), dtype=q.dtype,
+                                    device=q.device)], dim=1,
+                )
+            if kernel == "paged":
+                o = paged_attention(
+                    q, cache_k[i], cache_v[i], pt32, len32, act32,
+                    block_h=block_h, interpret=interpret,
+                )[:, :1]
+            else:
+                k_full = cache_k[i][pt_flat].reshape(b, s_max, h, hd)
+                v_full = cache_v[i][pt_flat].reshape(b, s_max, h, hd)
+                o = flash_attention(
+                    q, k_full, v_full, causal=True, kv_offset=s_max - 1,
+                    segment_ids=q_seg, kv_segment_ids=kv_seg,
+                    block_q=bq, block_k=bk,
+                )[:, :1]
+            x = x + self._out_proj(o, i) + self._bw("bo", i)
+            x = self._mlp_half(x, i)
+        logits = self._head(x)  # [B, 1, V]
+        return logits[:, 0].float(), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Weight carry-over from the JAX package
+# ---------------------------------------------------------------------------
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
+def load_jax_params(model: GPT, tree: Dict[str, Any], *,
+                    serving_copy: bool = False) -> GPT:
+    """Fill `model`'s parameters from the reference's parameter pytree,
+    given as nested dicts of numpy arrays (``jax.device_get(params)``).
+
+    Every key and every shape is checked before anything is written:
+    a key missing on either side raises ``KeyError``, a shape mismatch
+    ``ValueError``. ``serving_copy`` then makes the compute-dtype copy
+    (``GPT.cache_compute_weights``); without it any earlier copy is
+    dropped, so the forward casts the new values per call."""
+    flat = dict(_flatten(tree))
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(flat))
+    unexpected = sorted(set(flat) - set(params))
+    if missing or unexpected:
+        raise KeyError(
+            f"parameter tree does not match {type(model).__name__}: "
+            f"missing {missing}, unexpected {unexpected}"
+        )
+    arrays = {}
+    for name, p in params.items():
+        arr = np.asarray(flat[name], dtype=np.float32)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(
+                f"parameter {name}: shape {tuple(arr.shape)} != "
+                f"{tuple(p.shape)}"
+            )
+        arrays[name] = arr
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(torch.tensor(arrays[name]))
+    model._compute.clear()
+    if serving_copy:
+        model.cache_compute_weights()
+    return model

@@ -11,12 +11,18 @@ script exits non-zero without the final result line:
 
 1. device — refuse to run without CUDA; print the card's name and power
    limit; disable TF32 so fp32 means fp32.
-2. build  — compile both CUDA kernels from ``determined_tpu_torch/ops/
-   csrc`` with nvcc (one process per source, started together).
+2. build  — compile the four CUDA kernels from ``determined_tpu_torch/
+   ops/csrc`` with nvcc (one process per source, started together).
 3. kernels — each kernel against its plain PyTorch version on the same
-   inputs, at the serving slice's shapes, in bf16 (o atol/rtol 2e-2, lse
-   atol 1e-3) and fp32 (atol 1e-5); kernel, plain and library (SDPA)
-   times with the bound (max of FLOPs / peak and bytes / 3.35 TB/s).
+   inputs, in bf16 (o and gradients atol/rtol 2e-2, lse atol 1e-3) and
+   fp32 (atol 1e-5; the mono backward sums dq with fp32 atomics in no
+   fixed order, hence also rtol 1e-5 there); kernel, plain and library
+   (SDPA) times with the bound (max of FLOPs / peak and bytes /
+   3.35 TB/s). The flash forward and paged kernels run at the serving
+   shapes; the mono pair at (B 2, S 1024, causal), (B 2, S 512,
+   non-causal) and with a nonzero lse cotangent, and is timed at the
+   train phase's shape (B 8, S 1024, H 12, D 64, causal, bf16) against
+   SDPA's forward and, on a retained graph, SDPA's backward alone.
 4. engine — GPT-2-small at full width (bf16, seeded random weights)
    behind ``build_engine``: 8 requests, then 4 late joiners while the
    first are mid-decode; every request must finish with reason
@@ -28,6 +34,23 @@ script exits non-zero without the final result line:
    full-context ``apply`` over prompt + generated must argmax-predict
    every emitted token except where its top-2 margin is below 1e-4, and
    the two kernels' streams must agree up to the first such near-tie.
+6. train — GPT-2-small at full width and depth, bf16 over fp32 master
+   parameters, ``remat=False``, batch 8 × seq 1024 of one seeded batch,
+   through ``Trainer(trial).fit(max_length=Batch(7),
+   report_period=Batch(1))`` under ``chain(clip_by_global_norm(1.0),
+   adamw(3e-4))``: every loss finite, the last below the first, and per
+   step exactly 12 ``flash_fwd_mono`` and 12 ``flash_bwd_mono`` launches
+   and no ``flash_fwd`` launch; median step ms after two warm-up steps,
+   tokens/s, MFU (``train_flops_per_token`` against 989 TFLOP/s bf16
+   dense) and peak device memory.
+7. train-parity — one fp32 loss + gradient of GPT-2-small's width with 2
+   layers, batch 1 × seq 1024, from the same parameters, on the card
+   (the kernels) and on the CPU (the plain path): loss within 1e-5
+   relative, grad_norm within 1e-4 relative, and every gradient leaf
+   within 1e-4 of its own largest magnitude (fp32 on both sides; the
+   sums run in other orders — cuBLAS, the kernels' tiles and fp32
+   atomics against the CPU's — which moves results by ~1e-6 relative; a
+   wrong mask, scale or missing term moves them by O(1)).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -44,6 +67,12 @@ FLASH_SOURCE = "determined_tpu_torch/ops/csrc/flash_fwd.cu"
 FLASH_REPLACES = "determined_tpu/ops/flash_attention.py:236"
 PAGED_SOURCE = "determined_tpu_torch/ops/csrc/paged_attention.cu"
 PAGED_REPLACES = "determined_tpu/ops/paged_attention.py:114"
+MONO_FWD_SOURCE = "determined_tpu_torch/ops/csrc/flash_fwd_mono.cu"
+MONO_FWD_REPLACES = "determined_tpu/ops/flash_attention.py:438"
+MONO_BWD_SOURCE = "determined_tpu_torch/ops/csrc/flash_bwd_mono.cu"
+MONO_BWD_REPLACES = "determined_tpu/ops/flash_attention.py:461"
+PEAK_BF16 = 989e12
+TRAIN_STEPS = 7
 ENGINE_CFG = {
     "model": "small", "page_size": 128, "num_pages": 65,
     "max_pages_per_request": 8, "max_batch_size": 8, "prefill_rows": 4,
@@ -229,6 +258,89 @@ class Smoke:
         self.report("kernels", f"paged_attention {name} {str(dtype)[6:]}", rec)
         return rec
 
+    # -- phase 3: the mono pair (training attention) ----------------------------
+    def mono_case(self, name, dtype, *, b, s, causal, dlse, seed=0,
+                  timed=False):
+        import torch
+        import torch.nn.functional as F
+
+        from determined_tpu_torch.ops import flash_attention as tfa
+
+        h, d = 12, 64
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        qkv = self.randn((b, s, 3, h, d), dtype, gen)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # as GPT passes them
+        do = self.randn((b, s, h, d), dtype, gen)
+        dl = (torch.randn((b, s, h), generator=gen, device=self.dev)
+              if dlse else None)
+        o_k, lse_k = tfa.flash_fwd_mono(q, k, v, causal=causal)
+        o_p, lse_p = tfa.flash_fwd_mono_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        self.check(f"{name} fwd", dtype, o_k, o_p, lse_k, lse_p)
+        delta = (do.float() * o_p.float()).sum(-1)
+        bwd_args = (q, k, v, do, lse_p, delta, dl)
+        g_k = tfa.flash_bwd_mono(*bwd_args, causal=causal)
+        g_p = tfa.flash_bwd_mono_plain(*bwd_args, causal=causal)
+        torch.cuda.synchronize()
+        for which, gk, gp in zip(("dq", "dk", "dv"), g_k, g_p):
+            if dtype == torch.bfloat16:
+                torch.testing.assert_close(gk.float(), gp.float(), atol=2e-2,
+                                           rtol=2e-2, msg=f"{name}: {which}")
+            else:
+                torch.testing.assert_close(gk, gp, atol=1e-5, rtol=1e-5,
+                                           msg=f"{name}: {which}")
+        fwd_err = float((o_k.float() - o_p.float()).abs().max())
+        bwd_err = max(float((gk.float() - gp.float()).abs().max())
+                      for gk, gp in zip(g_k, g_p))
+        tag = f"{name} {str(dtype)[6:]}"
+        if not timed:
+            self.report("kernels", f"flash_fwd_mono {tag}",
+                        dict(max_abs_err=fwd_err))
+            self.report("kernels", f"flash_bwd_mono {tag}",
+                        dict(max_abs_err=bwd_err))
+            return None, None
+        live = b * h * (s * (s + 1) // 2 if causal else s * s)
+        item = q.element_size()
+        qkv_bytes = 3 * q.numel() * item
+        rows = 4 * b * s * h  # one fp32 per (b, query, head)
+        fwd_bound = self.bound(4.0 * d * live, qkv_bytes + o_k.numel() * item
+                               + rows, dtype)
+        bwd_bound = self.bound(
+            10.0 * d * live,
+            qkv_bytes + do.numel() * item + (3 if dlse else 2) * rows
+            + 3 * q.numel() * item, dtype)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        recs = []
+        for kernel, plain, library, (bound_ms, bound_by), err in (
+            (lambda: tfa.flash_fwd_mono(q, k, v, causal=causal),
+             lambda: tfa.flash_fwd_mono_plain(q, k, v, causal=causal),
+             lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                    is_causal=causal),
+             fwd_bound, fwd_err),
+            (lambda: tfa.flash_bwd_mono(*bwd_args, causal=causal),
+             lambda: tfa.flash_bwd_mono_plain(*bwd_args, causal=causal),
+             self.sdpa_backward(qh, kh, vh, do, causal),
+             bwd_bound, bwd_err),
+        ):
+            recs.append(dict(
+                ms=self.time_ms(kernel), plain_ms=self.time_ms(plain, iters=5),
+                library_ms=self.time_ms(library), bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err,
+            ))
+        self.report("kernels", f"flash_fwd_mono {tag}", recs[0])
+        self.report("kernels", f"flash_bwd_mono {tag}", recs[1])
+        return recs
+
+    def sdpa_backward(self, qh, kh, vh, do, causal):
+        """SDPA's backward alone: autograd.grad over a retained graph."""
+        import torch
+        import torch.nn.functional as F
+
+        xs = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+        out = F.scaled_dot_product_attention(*xs, is_causal=causal)
+        doh = do.transpose(1, 2).contiguous()
+        return lambda: torch.autograd.grad(out, xs, doh, retain_graph=True)
+
     def check(self, name, dtype, o_k, o_p, lse_k=None, lse_p=None):
         torch = self.torch
         if dtype == torch.bfloat16:
@@ -380,6 +492,110 @@ class Smoke:
         self.report("greedy", "gpt2-small fp32 paged vs gather", rec)
 
 
+    # -- phase 6: training at full width ------------------------------------------
+    def train_phase(self):
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch import core
+        from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.trainer import Batch, Trainer
+        from determined_tpu_torch.trainer.profile import RepeatedBatchTrial
+
+        snapshots = []
+
+        class CountedTrial(RepeatedBatchTrial):
+            """Snapshots the launch counters as each step takes its batch."""
+
+            def build_training_data(self):
+                for batch in super().build_training_data():
+                    snapshots.append({n: k.launches
+                                      for n, k in _build.KERNELS.items()})
+                    yield batch
+
+        b, s = 8, 1024
+        trial = CountedTrial(b, s)
+        ctx = core._dummy_init()
+        trainer = Trainer(trial, ctx)  # the card, by default
+        cfg = trainer.model.config
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        trainer.fit(max_length=Batch(TRAIN_STEPS), report_period=Batch(1))
+        launches = {n: k.launches for n, k in _build.KERNELS.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        snapshots.append(launches)
+        reports = [m for g, _, m in ctx.train._reported if g == "training"]
+        assert len(reports) == TRAIN_STEPS, reports
+        losses = [m.get("loss", float("nan")) for m in reports]
+        assert all(np.isfinite(losses)), losses
+        assert losses[-1] < losses[0], losses
+        n_layers = cfg.n_layers
+        for i, (before, after) in enumerate(zip(snapshots, snapshots[1:])):
+            step = {n: after[n] - before[n] for n in after}
+            assert step["flash_fwd_mono"] == n_layers, (i, step)
+            assert step["flash_bwd_mono"] == n_layers, (i, step)
+            assert step["flash_fwd"] == 0, (i, step)
+        step_ms = float(np.median(
+            [1e3 / m["batches_per_second"] for m in reports[2:]]))
+        tokens_per_s = b * s / (step_ms / 1e3)
+        rec = dict(
+            steps=TRAIN_STEPS, batch=b, seq=s, loss_first=losses[0],
+            loss_last=losses[-1], grad_norm_last=reports[-1]["grad_norm"],
+            step_ms_median=step_ms, tokens_per_s=tokens_per_s,
+            mfu=tokens_per_s * cfg.train_flops_per_token() / PEAK_BF16,
+            max_memory_allocated_gb=peak_gb,
+            flash_fwd_mono_launches=launches["flash_fwd_mono"],
+            flash_bwd_mono_launches=launches["flash_bwd_mono"],
+            flash_fwd_launches=launches["flash_fwd"],
+        )
+        self.report("train", "gpt2-small bf16 remat=False", rec)
+        del trainer
+        torch.cuda.empty_cache()
+        return launches
+
+    # -- phase 7: one fp32 step, card against CPU ----------------------------------
+    def train_parity_phase(self):
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch.models import gpt
+        from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.trainer import optim
+
+        cfg = dataclasses.replace(gpt.small(), n_layers=2,
+                                  dtype=torch.float32, remat=False)
+        cpu = gpt.GPT(cfg, device="cpu", seed=1)
+        card = gpt.GPT(cfg, device=self.dev)
+        card.load_state_dict(cpu.state_dict())
+        tokens = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, size=(1, cfg.seq_len)).astype(np.int32)
+        mono = (_build.FLASH_FWD_MONO, _build.FLASH_BWD_MONO)
+        before = [k.launches for k in mono]
+        out = {}
+        for where, model in (("card", card), ("cpu", cpu)):
+            loss, _ = model.loss({"tokens": torch.from_numpy(tokens)})
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            out[where] = (float(loss.detach()), float(optim.global_norm(grads)),
+                          [g.detach().cpu() for g in grads])
+        assert [k.launches - n for k, n in zip(mono, before)] == [2, 2], (
+            "the card's step did not go through the mono kernels")
+        (loss_c, norm_c, g_c), (loss_p, norm_p, g_p) = out["card"], out["cpu"]
+        assert abs(loss_c - loss_p) <= 1e-5 * abs(loss_p), (loss_c, loss_p)
+        assert abs(norm_c - norm_p) <= 1e-4 * norm_p, (norm_c, norm_p)
+        worst = 0.0
+        for (name, _), gc, gp in zip(card.named_parameters(), g_c, g_p):
+            scale = float(gp.abs().max())
+            err = float((gc - gp).abs().max())
+            assert err <= 1e-4 * scale, (name, err, scale)
+            worst = max(worst, err / scale if scale else 0.0)
+        self.report("train-parity", "gpt2-small-width L2 fp32 card vs cpu",
+                    dict(loss_card=loss_c, loss_cpu=loss_p,
+                         grad_norm_card=norm_c, grad_norm_cpu=norm_p,
+                         leaves=len(g_c), worst_leaf_rel_err=worst))
+
+
 def main() -> int:
     import torch
 
@@ -425,16 +641,32 @@ def main() -> int:
                                         ragged=False)
         smoke.paged_case("ragged-qlens", dtype, q_rows=8, ragged=True,
                          seed=1)
+    for dtype in (bf16, fp32):
+        smoke.mono_case("causal", dtype, b=2, s=1024, causal=True,
+                        dlse=False)
+        smoke.mono_case("full", dtype, b=2, s=512, causal=False, dlse=False,
+                        seed=1)
+        smoke.mono_case("causal-dlse", dtype, b=2, s=1024, causal=True,
+                        dlse=True, seed=2)
+    mono_fwd, mono_bwd = smoke.mono_case("train", bf16, b=8, s=1024,
+                                         causal=True, dlse=False, seed=3,
+                                         timed=True)
 
-    # -- phase 4 and 5: the main path ----------------------------------------------
+    # -- phases 4 to 7: the main paths -----------------------------------------------
     launches = smoke.engine_phase()
     smoke.greedy_phase()
+    launches.update({n: v for n, v in smoke.train_phase().items()
+                     if n in ("flash_fwd_mono", "flash_bwd_mono")})
+    smoke.train_parity_phase()
 
     kernels = []
     for name, source, replaces, rec in (
         ("flash_fwd", FLASH_SOURCE, FLASH_REPLACES, flash[bf16]),
         ("paged_attention", PAGED_SOURCE, PAGED_REPLACES, paged[bf16]),
+        ("flash_fwd_mono", MONO_FWD_SOURCE, MONO_FWD_REPLACES, mono_fwd),
+        ("flash_bwd_mono", MONO_BWD_SOURCE, MONO_BWD_REPLACES, mono_bwd),
     ):
+        assert launches[name] > 0, f"{name} never launched on its main path"
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

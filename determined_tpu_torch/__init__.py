@@ -7,11 +7,15 @@ kernel on its paths with a CUDA kernel written for Hopper (``sm_90a``).
 It imports ``torch`` and ``numpy`` only — never ``jax`` and nothing from
 ``determined_tpu``.
 
-Ported so far (the serving slice): ``ops.flash_attention`` (blocked
+Ported so far: the serving slice — ``ops.flash_attention`` (blocked
 forward), ``ops.paged_attention`` (paged decode), ``models.gpt`` (GPT
 forward, packed prefill, paged/gather decode), ``batch_inference``
 (packing), and ``serving`` (config, page pool, continuous-batching engine,
-``build_engine``).
+``build_engine``) — and the training slice at the monolithic shapes —
+``ops.flash_attention`` (mono forward and fused backward, autograd),
+``models.attention``, ``models.gpt`` (loss), ``trainer`` (``TorchTrial``,
+``Trainer.fit``, the optax chain, the non-finite guard) and ``core``
+(off-cluster contexts).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise ``CudaUnavailableError``.

@@ -1,4 +1,4 @@
-"""Models of the port (the serving slice: GPT)."""
+"""Models of the port: GPT (serving and training)."""
 from determined_tpu_torch.models.gpt import (  # noqa: F401
     GPT,
     GPTConfig,

@@ -1,4 +1,4 @@
-"""GPT: decoder-only transformer — the serving slice of the port.
+"""GPT: decoder-only transformer — serving and training on one device.
 
 Port of ``determined_tpu/models/gpt.py``: the same ``GPTConfig`` fields
 and defaults, the same parameter names and shapes as the reference's
@@ -8,24 +8,37 @@ parameter tree feeds both packages (``load_jax_params``).
 
 Matmuls run in the compute dtype (``config.dtype``, bf16 by default) over
 fp32 master parameters, with fp32 layernorm statistics; attention goes
-through ``ops.flash_attention`` (packed prefill, gather decode, ``apply``)
-and ``ops.paged_attention`` (paged decode) — CUDA kernels on the card,
-their plain versions on the CPU.
+through ``ops.flash_attention`` (by way of ``models.attention`` in the
+full-sequence forward; directly in packed prefill and gather decode) and
+``ops.paged_attention`` (paged decode) — CUDA kernels on the card, their
+plain versions on the CPU.
 
-This slice serves: ``apply`` (the single-device dense forward),
-``prefill_kv`` and ``decode_kv`` (``kernel="paged"`` or ``"gather"``) are
-forward-only and run under ``torch.no_grad()``. Mixture of experts,
-pipeline stages, the zigzag layout, remat and the loss belong to later
-slices; their config fields are carried for parity, and a config that
-turns MoE, pipelining or zigzag on is refused at construction.
+Serving: ``apply`` is the full-sequence forward without a graph.
+``prefill_kv`` and ``decode_kv`` (``kernel="paged"`` or ``"gather"``),
+the engine's methods, run under ``torch.no_grad()`` on detached
+compute-dtype casts (or the serving copy, ``cache_compute_weights``).
 
-The three methods drop the reference's leading ``params`` argument: the
-module owns its parameters.
+Training: ``loss`` (next-token cross-entropy with ``loss_mask``, packed
+``segment_ids``, pre-shifted ``targets`` and ``z_loss``; metrics
+``loss``, ``accuracy``, ``tokens``) and ``eval_metrics`` run the
+differentiable trunk: the live fp32 parameters are cast to the compute
+dtype inside the graph on every call, so an optimizer step is seen at
+once. ``remat=True`` recomputes each MLP half in the backward
+(``torch.utils.checkpoint``, saving the matmul outputs, as the
+reference's ``_remat_policy``); attention stays outside the remat
+boundary. The chunked loss (``fused_loss``), rematted attention
+(``remat_attention``, or ``layer_loop="auto"`` past 16k tokens), mixture
+of experts, pipeline stages and the zigzag layout belong to later slices
+and are refused by name.
+
+The methods drop the reference's leading ``params`` argument: the module
+owns its parameters.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, Optional, Tuple, Union
+import functools
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,7 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from determined_tpu_torch._device import resolve_device
-from determined_tpu_torch.models.base import Model
+from determined_tpu_torch.models import attention as attn_mod
+from determined_tpu_torch.models.base import Metrics, Model
 from determined_tpu_torch.ops.flash_attention import (
     fit_block,
     flash_attention,
@@ -52,10 +66,11 @@ class GPTConfig:
     dtype: Any = torch.bfloat16        # compute dtype
     param_dtype: Any = torch.float32   # master params
     tie_embeddings: bool = True
-    # The reference's remaining knobs, carried for config parity. This
-    # slice reads flash_block_q/k (the plain version's K/V blocking) and
-    # attn_window, and refuses MoE, pipeline stages and the zigzag
-    # layout; the training and multi-device slices read the rest.
+    # The reference's remaining knobs, carried for config parity. The
+    # port reads remat, layer_loop (only to refuse rematted attention),
+    # attn_impl, flash_block_q/k, attn_window and z_loss, and refuses
+    # remat_attention, fused_loss, MoE, pipeline stages and the zigzag
+    # layout; the multi-device slice reads the rest.
     remat: bool = True
     remat_attention: bool = False
     scan_unroll: int = 1
@@ -79,6 +94,26 @@ class GPTConfig:
     def head_dim(self) -> int:
         assert self.d_model % self.n_heads == 0
         return self.d_model // self.n_heads
+
+    def n_params(self) -> int:
+        d, f, l, v, s = (self.d_model, self.d_ff, self.n_layers,
+                         self.vocab_size, self.seq_len)
+        attn = 4 * d * d + (3 * d + d)
+        if self.n_experts:
+            e = self.n_experts
+            mlp = d * e + e * (d * f + f) + e * (f * d) + d
+        else:
+            mlp = 2 * d * f + f + d
+        per_block = attn + mlp + 4 * d
+        embed = v * d + s * d
+        head = 0 if self.tie_embeddings else d * v
+        return l * per_block + embed + head + 2 * d
+
+    def train_flops_per_token(self) -> float:
+        """fwd+bwd FLOPs/token: 6·N_matmul + 12·L·D·S (PaLM convention)."""
+        d, f, l, v = self.d_model, self.d_ff, self.n_layers, self.vocab_size
+        matmul_params = l * (4 * d * d + 2 * d * f) + d * v
+        return 6.0 * matmul_params + 12.0 * l * d * self.seq_len
 
 
 def small() -> GPTConfig:
@@ -107,13 +142,49 @@ def _layernorm(x: torch.Tensor, scale: torch.Tensor,
     return (y * scale + bias).to(x.dtype)
 
 
-#: Parameters the forward casts to the compute dtype (layernorm scales
-#: and biases stay fp32, as in the reference).
-_COMPUTE_PARAMS = (
-    "tok_embed", "pos_embed", "head", "blocks.wqkv", "blocks.bqkv",
-    "blocks.wo", "blocks.bo", "blocks.wi", "blocks.bi", "blocks.wo_mlp",
-    "blocks.bo_mlp",
-)
+#: Block parameters the forward casts to the compute dtype, and those it
+#: keeps fp32 (layernorm scales and biases, as in the reference).
+_BLOCK_COMPUTE = ("wqkv", "bqkv", "wo", "bo", "wi", "bi", "wo_mlp", "bo_mlp")
+_BLOCK_FP32 = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
+_COMPUTE_PARAMS = ("tok_embed", "pos_embed", "head",
+                   *(f"blocks.{n}" for n in _BLOCK_COMPUTE))
+
+#: Matmul outputs the remat policy saves (the reference's
+#: dots_with_no_batch_dims_saveable); the rest of an MLP half — layernorm,
+#: bias adds, gelu — is recomputed in the backward.
+_REMAT_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _remat_context():
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+    )
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in _REMAT_SAVED:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _aligned_token_sums(logits: torch.Tensor, targets: torch.Tensor,
+                        mask: torch.Tensor):
+    """Objective SUMS (nll, z, correct, n) over fp32 logits ALIGNED with
+    targets (position i predicts targets[i])."""
+    lse = torch.logsumexp(logits, dim=-1)
+    target_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
+    nll_sum = ((lse - target_logit) * mask).sum()
+    z_sum = (lse.square() * mask).sum()
+    acc_sum = ((logits.argmax(dim=-1) == targets) * mask).sum()
+    return nll_sum, z_sum, acc_sum, mask.sum()
+
+
+def _next_token_sums(logits: torch.Tensor, tokens: torch.Tensor,
+                     mask: torch.Tensor):
+    """Classic in-model shift: position i predicts token i+1."""
+    return _aligned_token_sums(logits[:, :-1], tokens[:, 1:], mask[:, 1:])
 
 
 class GPT(Model):
@@ -199,85 +270,94 @@ class GPT(Model):
                 self._compute[name] = p.detach().to(dtype)
 
     def _cw(self, name: str) -> torch.Tensor:
-        """Whole parameter `name` in the compute dtype."""
+        """Whole parameter `name` in the compute dtype (serving)."""
         t = self._compute.get(name)
         if t is not None:
             return t
         return self.get_parameter(name).detach().to(self.config.dtype)
 
     def _bw(self, name: str, i: int) -> torch.Tensor:
-        """Layer i of stacked block parameter `name`, compute dtype."""
+        """Layer i of stacked block parameter `name`, compute dtype
+        (serving)."""
         t = self._compute.get(f"blocks.{name}")
         if t is not None:
             return t[i]
         return self.blocks[name][i].detach().to(self.config.dtype)
 
+    def _serving_layer(self, i: int) -> Dict[str, torch.Tensor]:
+        """Layer i's weights for the serving methods (no graph)."""
+        w = {n: self._bw(n, i) for n in _BLOCK_COMPUTE}
+        w.update({n: self.blocks[n][i] for n in _BLOCK_FP32})
+        return w
+
+    def _train_layers(self) -> List[Dict[str, torch.Tensor]]:
+        """Every layer's weights cast from the live parameters INSIDE the
+        graph (one cast per stacked parameter, then per-layer views): the
+        training forward's gradients reach the fp32 masters."""
+        c = self.config
+        cols = {n: self.blocks[n].to(c.dtype).unbind(0) for n in _BLOCK_COMPUTE}
+        cols.update({n: self.blocks[n].unbind(0) for n in _BLOCK_FP32})
+        return [{n: cols[n][i] for n in cols} for i in range(c.n_layers)]
+
     # -- pieces of a block ---------------------------------------------------
-    def _qkv(self, x: torch.Tensor, i: int):
+    def _qkv(self, x: torch.Tensor, w: Dict[str, torch.Tensor]):
         """ln1 + fused QKV projection → q, k, v [B, S, H, Dh] (views of
         one [B, S, 3, H, Dh] tensor)."""
         c = self.config
-        h = _layernorm(x, self.blocks["ln1_scale"][i], self.blocks["ln1_bias"][i])
+        h = _layernorm(x, w["ln1_scale"], w["ln1_bias"])
         qkv = (
-            torch.matmul(h, self._bw("wqkv", i).reshape(c.d_model, -1))
-            + self._bw("bqkv", i).reshape(-1)
+            torch.matmul(h, w["wqkv"].reshape(c.d_model, -1))
+            + w["bqkv"].reshape(-1)
         ).view(*x.shape[:-1], 3, c.n_heads, c.head_dim)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
-    def _out_proj(self, o: torch.Tensor, i: int) -> torch.Tensor:
-        """einsum("bshk,hkd->bsd", o, wo) without the bias."""
+    def _out_proj(self, o: torch.Tensor, w: Dict[str, torch.Tensor]):
+        """einsum("bshk,hkd->bsd", o, wo) + bo."""
         c = self.config
         return torch.matmul(
             o.reshape(*o.shape[:2], c.n_heads * c.head_dim),
-            self._bw("wo", i).reshape(c.n_heads * c.head_dim, c.d_model),
-        )
+            w["wo"].reshape(c.n_heads * c.head_dim, c.d_model),
+        ) + w["bo"]
 
-    def _mlp_half(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        h = _layernorm(x, self.blocks["ln2_scale"][i], self.blocks["ln2_bias"][i])
-        m = torch.matmul(h, self._bw("wi", i)) + self._bw("bi", i)
+    def _mlp_half(self, x: torch.Tensor,
+                  w: Dict[str, torch.Tensor]) -> torch.Tensor:
+        h = _layernorm(x, w["ln2_scale"], w["ln2_bias"])
+        m = torch.matmul(h, w["wi"]) + w["bi"]
         # jax.nn.gelu defaults to the tanh approximation.
         m = F.gelu(m, approximate="tanh")
-        m = torch.matmul(m, self._bw("wo_mlp", i)) + self._bw("bo_mlp", i)
+        m = torch.matmul(m, w["wo_mlp"]) + w["bo_mlp"]
         return x + m
 
-    def _embed(self, tokens: torch.Tensor,
+    def _embed(self, tok: torch.Tensor, pos: torch.Tensor,
+               tokens: torch.Tensor,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self._cw("tok_embed")[tokens.long()]
-        pe = self._cw("pos_embed")
+        x = tok[tokens.long()]
         if positions is not None:
-            return x + pe[positions.long()]
-        return x + pe[: tokens.shape[1]]
+            return x + pos[positions.long()]
+        return x + pos[: tokens.shape[1]]
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, x: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(_layernorm(x, self.lnf_scale, self.lnf_bias), w_out)
+
+    def _serving_embed(self, tokens, positions=None):
+        return self._embed(self._cw("tok_embed"), self._cw("pos_embed"),
+                           tokens, positions)
+
+    def _serving_head(self, x: torch.Tensor) -> torch.Tensor:
         w_out = (
             self._cw("tok_embed").t() if self.config.tie_embeddings
             else self._cw("head")
         )
-        return torch.matmul(_layernorm(x, self.lnf_scale, self.lnf_bias), w_out)
+        return self._head(x, w_out)
 
-    # -- forward ---------------------------------------------------------------
+    # -- serving forward -------------------------------------------------------
     @torch.no_grad()
     def apply(self, tokens: torch.Tensor,
               positions: Optional[torch.Tensor] = None,
               segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """tokens [B, S] int → logits [B, S, V] (compute dtype): embed,
-        each block's attention half + MLP half, final layernorm + head."""
-        c = self.config
-        tokens = tokens.to(self.device)
-        s = tokens.shape[1]
-        bq = fit_block(s, c.flash_block_q)
-        bk = fit_block(s, c.flash_block_k)
-        x = self._embed(tokens, positions)
-        for i in range(c.n_layers):
-            q, k, v = self._qkv(x, i)
-            o = flash_attention(
-                q, k, v, causal=True, block_q=bq, block_k=bk,
-                window=c.attn_window, segment_ids=segment_ids,
-            )
-            o = self._out_proj(o, i) + self._bw("bo", i)
-            x = x + o
-            x = self._mlp_half(x, i)
-        return self._head(x)
+        """tokens [B, S] int → logits [B, S, V] (compute dtype): the
+        training forward without a graph, on the live parameters."""
+        return self.forward(tokens.to(self.device), positions, segment_ids)
 
     @torch.no_grad()
     def prefill_kv(
@@ -298,21 +378,22 @@ class GPT(Model):
         """
         c = self.config
         s = tokens.shape[1]
-        x = self._embed(tokens, positions)
+        x = self._serving_embed(tokens, positions)
         bq = fit_block(s, c.flash_block_q)
         bk = fit_block(s, c.flash_block_k)
         ks, vs = [], []
         for i in range(c.n_layers):
-            q, k, v = self._qkv(x, i)
+            w = self._serving_layer(i)
+            q, k, v = self._qkv(x, w)
             ks.append(k)
             vs.append(v)
             o = flash_attention(
                 q, k, v, causal=True, block_q=bq, block_k=bk,
                 segment_ids=segment_ids,
             )
-            x = x + self._out_proj(o, i) + self._bw("bo", i)
-            x = self._mlp_half(x, i)
-        return self._head(x), torch.stack(ks), torch.stack(vs)
+            x = x + self._out_proj(o, w)
+            x = self._mlp_half(x, w)
+        return self._serving_head(x), torch.stack(ks), torch.stack(vs)
 
     @torch.no_grad()
     def decode_kv(
@@ -362,7 +443,7 @@ class GPT(Model):
         lengths = lengths.long()
         active = active.bool()
         positions = torch.clamp(lengths, 0, c.seq_len - 1)
-        x = self._embed(last_tokens[:, None], positions[:, None])  # [B, 1, D]
+        x = self._serving_embed(last_tokens[:, None], positions[:, None])
         rows = torch.arange(b, device=lengths.device)
         widx = page_table.long()[
             rows, torch.clamp(lengths // page_size, max=n_page_slots - 1)
@@ -389,7 +470,8 @@ class GPT(Model):
                 for t in (page_table, lengths, active)
             )
         for i in range(n_layers):
-            q, k_new, v_new = self._qkv(x, i)
+            w = self._serving_layer(i)
+            q, k_new, v_new = self._qkv(x, w)
             cache_k[i].index_put_((widx, woff), k_new[:, 0])
             cache_v[i].index_put_((widx, woff), v_new[:, 0])
             if qpad > 1:
@@ -410,10 +492,111 @@ class GPT(Model):
                     segment_ids=q_seg, kv_segment_ids=kv_seg,
                     block_q=bq, block_k=bk,
                 )[:, :1]
-            x = x + self._out_proj(o, i) + self._bw("bo", i)
-            x = self._mlp_half(x, i)
-        logits = self._head(x)  # [B, 1, V]
+            x = x + self._out_proj(o, w)
+            x = self._mlp_half(x, w)
+        logits = self._serving_head(x)  # [B, 1, V]
         return logits[:, 0].float(), cache_k, cache_v
+
+    # -- training forward --------------------------------------------------------
+    def _check_trainable(self) -> None:
+        c = self.config
+        if c.fused_loss:
+            raise NotImplementedError(
+                "fused_loss (the chunked cross-entropy kernel) is not ported "
+                "yet (later slice); set fused_loss=False"
+            )
+        if c.remat_attention or (c.layer_loop == "auto" and c.seq_len > 16384):
+            raise NotImplementedError(
+                "remat_attention (attention inside the remat boundary, also "
+                "implied by layer_loop='auto' past 16384 tokens) is not "
+                "ported yet (later slice)"
+            )
+
+    def _attn_half(self, x: torch.Tensor, w: Dict[str, torch.Tensor],
+                   segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+        c = self.config
+        q, k, v = self._qkv(x, w)
+        o = attn_mod.attention(
+            q, k, v, causal=True, impl=c.attn_impl,
+            block_q=c.flash_block_q, block_k=c.flash_block_k,
+            layout=c.sequence_layout, window=c.attn_window,
+            segment_ids=segment_ids,
+        )
+        return x + self._out_proj(o, w)
+
+    def _forward_trunk(self, tokens: torch.Tensor,
+                       positions: Optional[torch.Tensor] = None,
+                       segment_ids: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """Embed + blocks → pre-final-layernorm [B, S, D] in the compute
+        dtype, differentiable in every parameter."""
+        c = self.config
+        tok = self.tok_embed.to(c.dtype)
+        x = self._embed(tok, self.pos_embed.to(c.dtype), tokens, positions)
+        mlp = self._mlp_half
+        if c.remat and torch.is_grad_enabled():
+            mlp = functools.partial(
+                torch.utils.checkpoint.checkpoint, self._mlp_half,
+                use_reentrant=False, context_fn=_remat_context,
+            )
+        for w in self._train_layers():
+            x = mlp(self._attn_half(x, w, segment_ids), w)
+        return x
+
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The differentiable forward: tokens [B, S] int → logits
+        [B, S, V] in the compute dtype."""
+        c = self.config
+        x = self._forward_trunk(tokens, positions, segment_ids)
+        w_out = (self.tok_embed.t() if c.tie_embeddings else self.head)
+        return self._head(x, w_out.to(c.dtype))
+
+    def loss(self, batch: Dict[str, Any],
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, Metrics]:
+        """batch: ``tokens`` [B, S] int; optional ``loss_mask`` [B, S]
+        (1.0 = count this target position), ``segment_ids`` [B, S]
+        (packed documents, 0 = padding), ``positions`` and pre-shifted
+        ``targets`` [B, S] (position i predicts targets[i]). → (scalar
+        loss, {"loss", "accuracy", "tokens"}). No dropout: ``generator``
+        is unused."""
+        del generator
+        self._check_trainable()
+        c = self.config
+        dev = self.device
+
+        def get(key):
+            x = batch.get(key)
+            return None if x is None else torch.as_tensor(x, device=dev)
+
+        tokens = get("tokens").long()
+        targets, positions = get("targets"), get("positions")
+        segment_ids, mask = get("segment_ids"), get("loss_mask")
+        mask = (torch.ones(tokens.shape, dtype=torch.float32, device=dev)
+                if mask is None else mask.float())
+        if segment_ids is not None and targets is None:
+            # Packed documents with the in-model shift: a prediction that
+            # crosses a document boundary (the id changes) or lands on
+            # padding (id 0) does not count.
+            boundary = torch.cat([
+                torch.ones_like(mask[:, :1]),
+                (segment_ids[:, 1:] == segment_ids[:, :-1]).float(),
+            ], dim=1)
+            mask = mask * boundary * (segment_ids != 0)
+        logits = self.forward(tokens, positions, segment_ids).float()
+        if targets is not None:
+            sums = _aligned_token_sums(logits, targets, mask)
+        else:
+            sums = _next_token_sums(logits, tokens, mask)
+        nll_sum, z_sum, acc_sum, n_tok = sums
+        n = torch.clamp(n_tok, min=1.0)
+        loss = nll_sum / n
+        if c.z_loss:
+            loss = loss + c.z_loss * z_sum / n
+        acc = acc_sum / n
+        return loss, {"loss": loss, "accuracy": acc, "tokens": n_tok}
 
 
 # ---------------------------------------------------------------------------

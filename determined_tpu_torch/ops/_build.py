@@ -166,8 +166,19 @@ PAGED_ATTENTION = CudaKernel(
     [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
      _L, _L, _L, _F, _P],
 )
+FLASH_FWD_MONO = CudaKernel(
+    "flash_fwd_mono", "dtpu_flash_fwd_mono",
+    [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+     _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _P],
+)
+FLASH_BWD_MONO = CudaKernel(
+    "flash_bwd_mono", "dtpu_flash_bwd_mono",
+    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+     _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _P],
+)
 KERNELS: Dict[str, CudaKernel] = {
-    k.name: k for k in (FLASH_FWD, PAGED_ATTENTION)
+    k.name: k for k in (FLASH_FWD, PAGED_ATTENTION, FLASH_FWD_MONO,
+                        FLASH_BWD_MONO)
 }
 
 

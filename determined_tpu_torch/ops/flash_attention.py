@@ -1,7 +1,7 @@
-"""Flash attention forward: a hand-written CUDA kernel plus its plain
-PyTorch version.
+"""Flash attention: hand-written CUDA kernels plus their plain PyTorch
+versions, forward and backward.
 
-Port of ``determined_tpu/ops/flash_attention.py`` for the serving slice:
+Port of ``determined_tpu/ops/flash_attention.py``:
 
 - ``flash_attention`` / ``flash_attention_lse`` keep the reference's
   signature, ``[B, S, H, D]`` layout, masking model and validation errors.
@@ -10,20 +10,30 @@ Port of ``determined_tpu/ops/flash_attention.py`` for the serving slice:
   ``kv_offset`` after k positions — the bottom-aligned decode geometry),
   and ``segment_ids`` / ``kv_segment_ids`` (attention only within equal
   ids). A query row that matches no key gets o = 0 and lse ≈ −1e30.
-- On a CUDA tensor the wrapper launches ``csrc/flash_fwd.cu`` (the port of
-  the blocked Pallas ``_fwd_kernel``) or raises; on a CPU tensor it runs
-  ``_blockwise_fwd_ref``, the plain version: the reference's blockwise
-  online-softmax scan, in torch. There is no fallback between the two.
-- Forward only: this slice serves. On a CUDA tensor that requires grad the
-  wrapper raises ``NotImplementedError``; the backward kernels come with
-  the training slice.
+- Both outputs are differentiable (``_FlashLse``, the counterpart of the
+  reference's ``_flash_lse`` custom_vjp): the backward takes (do, dlse), a
+  missing cotangent counts as zeros, and segment ids get no gradient.
+- On CUDA tensors the forward launches ``csrc/flash_fwd_mono.cu`` (port of
+  ``_fwd_kernel_mono``) exactly when the reference's ``_mono_ok`` holds —
+  block == seq, s_q·s_k <= 2^21, no window, segment ids or kv_offset —
+  and ``csrc/flash_fwd.cu`` (port of the blocked ``_fwd_kernel``)
+  otherwise. The backward launches ``csrc/flash_bwd_mono.cu`` (port of
+  ``_bwd_kernel_mono``) at mono shapes and raises ``NotImplementedError``
+  for any other: the blocked backward kernels come with a later slice.
+- On CPU tensors forward and backward run the reference's CPU path, the
+  blockwise online-softmax scan and its backward (``_blockwise_fwd_ref``,
+  ``_blockwise_bwd_ref``). ``_mono_fwd_plain`` / ``_mono_bwd_plain`` are
+  the mono kernels' dense formulas, bf16 roundings included: what the
+  mono wrappers run on CPU tensors and what the card's kernels are held
+  against. There is no fallback from a kernel to a plain version.
 
-``block_q`` / ``block_k`` keep the reference's meaning for validation and
-for the plain version's K/V blocking; the CUDA kernel picks its own tiles.
+``block_q`` / ``block_k`` keep the reference's meaning for validation, for
+the mono dispatch and for the plain version's K/V blocking; the CUDA
+kernels pick their own tiles.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,8 +41,10 @@ from determined_tpu_torch.ops import _build
 
 NEG_INF = float(-1e30)  # finite mask value; true -inf breaks m-subtraction
 
-#: The CUDA kernel's library handle; ``FLASH_FWD.launches`` counts launches.
+#: The CUDA kernels' library handles; ``.launches`` counts launches.
 FLASH_FWD = _build.FLASH_FWD
+FLASH_FWD_MONO = _build.FLASH_FWD_MONO
+FLASH_BWD_MONO = _build.FLASH_BWD_MONO
 
 
 def fit_block(seq: int, want: int) -> int:
@@ -50,7 +62,7 @@ def fit_block(seq: int, want: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Plain version: the reference's blockwise scan, in torch
+# Plain versions: the reference's blockwise scan and its backward, in torch
 # ---------------------------------------------------------------------------
 def _ref_block_mask(rows, cols, *, causal, window, kv_offset, qseg, kseg_j):
     """[.., s_q, bk] bool mask (or None). `rows` is [s_q] LOCAL q indices,
@@ -71,6 +83,19 @@ def _ref_block_mask(rows, cols, *, causal, window, kv_offset, qseg, kseg_j):
     return mask
 
 
+def _block_mask(j, block_k, rows, *, causal, window, kv_offset, segs):
+    """The mask of K/V block j, or None when nothing is masked."""
+    if not (causal or window is not None or segs is not None):
+        return None
+    cols = torch.arange(j * block_k, (j + 1) * block_k, device=rows.device)
+    return _ref_block_mask(
+        rows, cols, causal=causal, window=window, kv_offset=kv_offset,
+        qseg=segs[0] if segs is not None else None,
+        kseg_j=(segs[1][:, j * block_k:(j + 1) * block_k]
+                if segs is not None else None),
+    )
+
+
 def _blockwise_fwd_ref(q, k, v, *, scale, causal, block_k, window=None,
                        kv_offset=0, segs=None):
     """q/k/v [BH, S, D] (+ segs ([BH, Sq], [BH, Sk]) fp32) → (o [BH, Sq, D]
@@ -78,38 +103,27 @@ def _blockwise_fwd_ref(q, k, v, *, scale, causal, block_k, window=None,
     fp32 scores, probabilities and accumulator."""
     bh, s_q, d = q.shape
     s_k = k.shape[1]
-    nk = s_k // block_k
     dev = q.device
     q32 = q.float()
     rows = torch.arange(s_q, device=dev)
-    qseg = kseg = None
-    if segs is not None:
-        qseg, kseg = segs
-    masked = causal or window is not None or segs is not None
     m = torch.full((bh, s_q), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((bh, s_q), dtype=torch.float32, device=dev)
     acc = torch.zeros((bh, s_q, d), dtype=torch.float32, device=dev)
-    for j in range(nk):
+    for j in range(s_k // block_k):
         sl = slice(j * block_k, (j + 1) * block_k)
-        k_j = k[:, sl].float()
-        v_j = v[:, sl].float()
-        s = torch.einsum("bqd,bkd->bqk", q32, k_j) * scale
-        mask = None
-        if masked:
-            cols = torch.arange(j * block_k, (j + 1) * block_k, device=dev)
-            mask = _ref_block_mask(
-                rows, cols, causal=causal, window=window,
-                kv_offset=kv_offset, qseg=qseg,
-                kseg_j=kseg[:, sl] if kseg is not None else None,
-            )
+        s = torch.einsum("bqd,bkd->bqk", q32, k[:, sl].float()) * scale
+        mask = _block_mask(j, block_k, rows, causal=causal, window=window,
+                           kv_offset=kv_offset, segs=segs)
+        if mask is not None:
             s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
-        if masked:
+        if mask is not None:
             p = torch.where(mask, p, 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bqk,bkd->bqd", p, v_j)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqk,bkd->bqd", p, v[:, sl].float())
         m = m_new
     l_safe = torch.where(l == 0.0, 1.0, l)
     o = (acc / l_safe[..., None]).to(q.dtype)
@@ -117,38 +131,138 @@ def _blockwise_fwd_ref(q, k, v, *, scale, causal, block_k, window=None,
     return o, lse
 
 
+def _blockwise_bwd_ref(q, k, v, o, lse, do, *, scale, causal, block_k,
+                       dlse=None, window=None, kv_offset=0, segs=None):
+    """Flash backward: recompute per-block p from lse; O(S·block) memory.
+    q/k/v/o/do [BH, S, D], lse (+ dlse) [BH, Sq] → (dq, dk, dv) in the
+    inputs' dtypes. All arithmetic is fp32."""
+    bh, s_q, d = q.shape
+    s_k = k.shape[1]
+    rows = torch.arange(s_q, device=q.device)
+    q32 = q.float()
+    do32 = do.float()
+    delta = (do32 * o.float()).sum(dim=-1)  # [BH, Sq]
+    if dlse is not None:
+        # The lse cotangent folds into the same p∘(·) term as delta.
+        delta = delta - dlse.float()
+    dq = torch.zeros((bh, s_q, d), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for j in range(s_k // block_k):
+        sl = slice(j * block_k, (j + 1) * block_k)
+        k_j = k[:, sl].float()
+        v_j = v[:, sl].float()
+        s = torch.einsum("bqd,bkd->bqk", q32, k_j) * scale
+        mask = _block_mask(j, block_k, rows, causal=causal, window=window,
+                           kv_offset=kv_offset, segs=segs)
+        if mask is not None:
+            s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - lse[..., None])
+        if mask is not None:
+            # all-masked rows carry lse ≈ NEG_INF: exp(s − lse) would
+            # resurrect their masked entries as 1.
+            p = torch.where(mask, p, 0.0)
+        dvs.append(torch.einsum("bqk,bqd->bkd", p, do32))
+        dp = torch.einsum("bqd,bkd->bqk", do32, v_j)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bqk,bkd->bqd", ds, k_j)
+        dks.append(torch.einsum("bqk,bqd->bkd", ds, q32))
+    dk = torch.cat(dks, dim=1) if dks else torch.zeros_like(k, dtype=torch.float32)
+    dv = torch.cat(dvs, dim=1) if dvs else torch.zeros_like(v, dtype=torch.float32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel wrapper
+# Plain versions of the mono kernels: the dense formulas
+# ---------------------------------------------------------------------------
+def _causal_mask(s_q, s_k, device):
+    rows = torch.arange(s_q, device=device)[:, None]
+    return rows >= torch.arange(s_k, device=device)[None, :]
+
+
+def _mono_fwd_plain(q, k, v, *, scale, causal):
+    """``_fwd_kernel_mono``: q/k/v [BH, S, D] → (o [BH, Sq, D] in q's
+    dtype, lse [BH, Sq] fp32). Plain softmax over the whole row in fp32;
+    p is rounded to v's dtype before the p·v product."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        s = torch.where(_causal_mask(q.shape[1], k.shape[1], q.device), s,
+                        NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)  # masked entries underflow to exactly 0
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    acc = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float())
+    o = (acc / l_safe).to(q.dtype)
+    return o, (m + torch.log(l_safe))[..., 0]
+
+
+def _mono_bwd_plain(q, k, v, do, lse, delta, dlse, *, scale, causal):
+    """``_bwd_kernel_mono``: q/k/v/do [BH, S, D] in the compute dtype,
+    lse/delta/dlse [BH, Sq] fp32 → (dq, dk, dv) in the inputs' dtypes. p
+    is rounded to do's dtype before pᵀ·do, ds to q's dtype before ds·k and
+    dsᵀ·q; every product accumulates in fp32."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        s = torch.where(_causal_mask(q.shape[1], k.shape[1], q.device), s,
+                        NEG_INF)
+    p = torch.exp(s - lse[..., None])  # masked → 0
+    do32 = do.float()
+    dv = torch.einsum("bqk,bqd->bkd", p.to(do.dtype).float(), do32)
+    dp = torch.einsum("bqd,bkd->bqk", do32, v.float())
+    ds = (p * (dp - delta[..., None] + dlse[..., None]) * scale).to(q.dtype)
+    dq = torch.einsum("bqk,bkd->bqd", ds.float(), k.float())
+    dk = torch.einsum("bqk,bqd->bkd", ds.float(), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _fold(x):
+    """[B, S, H, ...] → [B·H, S, ...]."""
+    b, s, h = x.shape[:3]
+    return x.transpose(1, 2).reshape(b * h, s, *x.shape[3:])
+
+
+def _unfold(x, b, h):
+    """[B·H, S, ...] → [B, S, H, ...]."""
+    return x.reshape(b, h, *x.shape[1:]).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 def _last_dim_contiguous(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
-def _flash_fwd_cuda(q, k, v, *, scale, causal, window, kv_offset,
-                    segment_ids, kv_segment_ids):
-    """q/k/v [B, S, H, D] CUDA tensors (any strides with D contiguous) →
-    (o [B, Sq, H, D] in q's dtype, lse [B, Sq, H] fp32)."""
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward-only in the serving slice; "
-            "the backward kernels come with the training slice (call under "
-            "torch.no_grad() or detach the inputs)"
-        )
+def _kernel_inputs(q, k, v):
+    """Check q/k/v [B, S, H, D] for the CUDA kernels → (dtype code, q, k,
+    v with the head dim contiguous)."""
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(
             f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}"
         )
     if not (q.device == k.device == v.device):
         raise ValueError("q/k/v must be on one device")
-    b, s_q, h, d = q.shape
-    s_k = k.shape[1]
+    d = q.shape[-1]
     if d not in _build.HEAD_DIMS:
         raise ValueError(
             f"head_dim {d} not supported by the CUDA kernel "
             f"(one of {_build.HEAD_DIMS})"
         )
     code = _build.dtype_code(q.dtype)
-    q, k, v = (_last_dim_contiguous(x) for x in (q, k, v))
+    return code, *(_last_dim_contiguous(x) for x in (q, k, v))
+
+
+def _strides(*xs):
+    return [s for x in xs for s in (x.stride(0), x.stride(1), x.stride(2))]
+
+
+def _flash_fwd_cuda(q, k, v, *, scale, causal, window, kv_offset,
+                    segment_ids, kv_segment_ids):
+    """Blocked kernel: q/k/v [B, S, H, D] CUDA tensors (any strides with D
+    contiguous) → (o [B, Sq, H, D] in q's dtype, lse [B, Sq, H] fp32)."""
+    code, q, k, v = _kernel_inputs(q, k, v)
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
     qseg = kseg = None
     if segment_ids is not None:
         qseg = segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
@@ -162,31 +276,139 @@ def _flash_fwd_cuda(q, k, v, *, scale, causal, window, kv_offset,
         qseg.data_ptr() if qseg is not None else None,
         kseg.data_ptr() if kseg is not None else None,
         o.data_ptr(), lse.data_ptr(), b, h, s_q, s_k,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        o.stride(0), o.stride(1), o.stride(2),
+        *_strides(q, k, v, o),
         int(causal), int(window or 0), int(kv_offset), float(scale),
         _build.stream_ptr(q.device),
     )
     return o, lse
 
 
+def _flash_fwd_mono_cuda(q, k, v, *, scale, causal):
+    """Mono kernel: q/k/v [B, S, H, D] CUDA tensors (any strides with D
+    contiguous) → (o [B, Sq, H, D] in q's dtype, lse [B, Sq, H] fp32)."""
+    code, q, k, v = _kernel_inputs(q, k, v)
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    o = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, s_q, h), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    FLASH_FWD_MONO.launch(
+        code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, h, s_q, s_k, *_strides(q, k, v, o),
+        int(causal), float(scale), _build.stream_ptr(q.device),
+    )
+    return o, lse
+
+
+def _flash_bwd_mono_cuda(q, k, v, do, lse, delta, dlse, *, scale, causal):
+    """Mono backward kernel: q/k/v/do [B, S, H, D] CUDA tensors, lse/delta
+    (+ dlse, None = zeros) [B, Sq, H] fp32 → (dq, dk, dv) [B, S, H, D] in
+    q's dtype. dq is summed in an fp32 workspace by atomics, then cast."""
+    code, q, k, v = _kernel_inputs(q, k, v)
+    do = _last_dim_contiguous(do.to(q.dtype))
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    if dlse is not None:
+        dlse = dlse.float().contiguous()
+    dq32 = torch.zeros((b, s_q, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, s_k, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dk.numel() and dq32.numel():
+        FLASH_BWD_MONO.launch(
+            code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            dlse.data_ptr() if dlse is not None else None,
+            dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s_q, s_k,
+            *_strides(q, k, v, do), int(causal), float(scale),
+            _build.stream_ptr(q.device),
+        )
+    return dq32.to(q.dtype), dk, dv
+
+
+def flash_fwd_mono(q, k, v, *, causal: bool = True,
+                   scale: Optional[float] = None):
+    """The mono forward at the kernel level, q/k/v [B, S, H, D] → (o, lse
+    [B, Sq, H]): the CUDA kernel on CUDA tensors, ``_mono_fwd_plain`` on
+    CPU tensors."""
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if q.is_cuda:
+        return _flash_fwd_mono_cuda(q, k, v, scale=scale, causal=causal)
+    return flash_fwd_mono_plain(q, k, v, causal=causal, scale=scale)
+
+
+def flash_fwd_mono_plain(q, k, v, *, causal: bool = True,
+                         scale: Optional[float] = None):
+    """``flash_fwd_mono``'s plain version on any device."""
+    b, _, h, d = q.shape
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    o, lse = _mono_fwd_plain(_fold(q), _fold(k), _fold(v), scale=scale,
+                             causal=causal)
+    return _unfold(o, b, h), _unfold(lse, b, h)
+
+
+def flash_bwd_mono(q, k, v, do, lse, delta, dlse=None, *,
+                   causal: bool = True, scale: Optional[float] = None):
+    """The mono backward at the kernel level: q/k/v/do [B, S, H, D],
+    lse/delta/dlse [B, Sq, H] fp32 (dlse None = zeros) → (dq, dk, dv): the
+    CUDA kernel on CUDA tensors, ``_mono_bwd_plain`` on CPU tensors."""
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if q.is_cuda:
+        return _flash_bwd_mono_cuda(q, k, v, do, lse, delta, dlse,
+                                    scale=scale, causal=causal)
+    return flash_bwd_mono_plain(q, k, v, do, lse, delta, dlse,
+                                causal=causal, scale=scale)
+
+
+def flash_bwd_mono_plain(q, k, v, do, lse, delta, dlse=None, *,
+                         causal: bool = True, scale: Optional[float] = None):
+    """``flash_bwd_mono``'s plain version on any device."""
+    b, _, h, d = q.shape
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    if dlse is None:
+        dlse = torch.zeros_like(lse)
+    grads = _mono_bwd_plain(
+        _fold(q), _fold(k), _fold(v), _fold(do), _fold(lse), _fold(delta),
+        _fold(dlse.float()), scale=scale, causal=causal,
+    )
+    return tuple(_unfold(g, b, h) for g in grads)
+
+
 # ---------------------------------------------------------------------------
-# Skip accounting (bench/reporting)
+# Dispatch and skip accounting
 # ---------------------------------------------------------------------------
-#: Largest s_q*s_k of the reference's single-tile kernel (``_mono_ok``);
-#: kept so ``block_skip_stats`` reports the reference's grid exactly.
+#: Largest s_q*s_k of the reference's single-tile kernels (``_mono_ok``).
 _MONO_MAX_SCORES = 2 ** 21
 
 
 def _mono_ok(s_q, s_k, block_q, block_k, *, window=None, has_segments=False,
              kv_offset=0) -> bool:
+    """The reference's mono predicate: on CUDA it picks the mono kernels
+    (forward and backward) over the blocked ones."""
     return (
         block_q == s_q and block_k == s_k
         and s_q * s_k <= _MONO_MAX_SCORES
         and window is None and not has_segments and kv_offset == 0
     )
+
+
+def _check_cuda_backward(s_q, s_k, block_q, block_k, *, window=None,
+                         has_segments=False, kv_offset=0) -> None:
+    """The CUDA backward exists for the mono shapes only; refuse the rest
+    by name (never a plain or library fallback)."""
+    if not _mono_ok(s_q, s_k, block_q, block_k, window=window,
+                    has_segments=has_segments, kv_offset=kv_offset):
+        raise NotImplementedError(
+            "flash_attention's CUDA backward covers the monolithic shapes "
+            "only (block == seq, s_q*s_k <= 2^21, no window, segment ids or "
+            f"kv_offset); got s=({s_q}, {s_k}), blocks=({block_q}, "
+            f"{block_k}), window={window}, segment_ids={has_segments}, "
+            f"kv_offset={kv_offset}. Packed-document, windowed and "
+            "seq > block training need the blocked backward kernels "
+            "(the blocked-backward slice)"
+        )
 
 
 def block_skip_stats(s_q: int, s_k: int, block_q: int, block_k: int, *,
@@ -218,6 +440,104 @@ def block_skip_stats(s_q: int, s_k: int, block_q: int, block_k: int, *,
                 ok = ok and last_k >= first_q - (window - 1)
             live += int(ok)
     return live, nq * nk
+
+
+# ---------------------------------------------------------------------------
+# Forward/backward routing and the autograd Function
+# ---------------------------------------------------------------------------
+class _Opts(NamedTuple):
+    """The non-tensor arguments of one attention call."""
+    use_kernel: bool
+    scale: float
+    causal: bool
+    block_q: int
+    block_k: int
+    window: Optional[int]
+    kv_offset: int
+
+    def mono(self, s_q, s_k, has_segments) -> bool:
+        return _mono_ok(s_q, s_k, self.block_q, self.block_k,
+                        window=self.window, has_segments=has_segments,
+                        kv_offset=self.kv_offset)
+
+
+def _fold_segs(qseg, kseg, h):
+    """[B, S] ids → the plain versions' ([BH, Sq], [BH, Sk]) fp32 pair."""
+    if qseg is None:
+        return None
+
+    def fold(seg):
+        b, s = seg.shape
+        return seg.float()[:, None, :].expand(b, h, s).reshape(b * h, s)
+
+    return fold(qseg), fold(kseg)
+
+
+def _flash_core(q, k, v, qseg, kseg, opts: _Opts):
+    """→ (o [B, Sq, H, D], lse [B, Sq, H] fp32), no autograd."""
+    b, s_q, h, _ = q.shape
+    s_k = k.shape[1]
+    if opts.use_kernel:
+        if opts.mono(s_q, s_k, qseg is not None):
+            return _flash_fwd_mono_cuda(q, k, v, scale=opts.scale,
+                                        causal=opts.causal)
+        return _flash_fwd_cuda(
+            q, k, v, scale=opts.scale, causal=opts.causal,
+            window=opts.window, kv_offset=opts.kv_offset,
+            segment_ids=qseg, kv_segment_ids=kseg,
+        )
+    o, lse = _blockwise_fwd_ref(
+        _fold(q), _fold(k), _fold(v), scale=opts.scale, causal=opts.causal,
+        block_k=opts.block_k, window=opts.window, kv_offset=opts.kv_offset,
+        segs=_fold_segs(qseg, kseg, h),
+    )
+    return _unfold(o, b, h), _unfold(lse, b, h)
+
+
+def _flash_bwd(q, k, v, o, lse, do, dlse, qseg, kseg, opts: _Opts):
+    """→ (dq, dk, dv) [B, S, H, D]: the mono kernel on CUDA (other shapes
+    refused), the blockwise backward on CPU."""
+    b, s_q, h, _ = q.shape
+    s_k = k.shape[1]
+    if opts.use_kernel:
+        _check_cuda_backward(
+            s_q, s_k, opts.block_q, opts.block_k, window=opts.window,
+            has_segments=qseg is not None, kv_offset=opts.kv_offset,
+        )
+        # delta = Σ do·o in fp32, outside the kernel (as the reference).
+        delta = (do.float() * o.float()).sum(dim=-1)
+        return _flash_bwd_mono_cuda(q, k, v, do, lse, delta, dlse,
+                                    scale=opts.scale, causal=opts.causal)
+    grads = _blockwise_bwd_ref(
+        _fold(q), _fold(k), _fold(v), _fold(o), _fold(lse), _fold(do),
+        scale=opts.scale, causal=opts.causal, block_k=opts.block_k,
+        dlse=None if dlse is None else _fold(dlse), window=opts.window,
+        kv_offset=opts.kv_offset, segs=_fold_segs(qseg, kseg, h),
+    )
+    return tuple(_unfold(g, b, h) for g in grads)
+
+
+class _FlashLse(torch.autograd.Function):
+    """Differentiable (o, lse): the lse cotangent feeds the ds term of the
+    backward (ring attention's partial-softmax merge differentiates
+    through it). Segment ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qseg, kseg, opts):
+        o, lse = _flash_core(q, k, v, qseg, kseg, opts)
+        ctx.save_for_backward(q, k, v, o, lse, qseg, kseg)
+        ctx.opts = opts
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse, qseg, kseg = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, dlse, qseg, kseg,
+                                ctx.opts)
+        return dq, dk, dv, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -263,14 +583,14 @@ def flash_attention_lse(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """flash_attention that also returns the log-sum-exp per query.
 
-    q/k/v: [B, S, H, D] → (o [B, Sq, H, D], lse [B, Sq, H] fp32).
-    window: sliding-window size W (requires causal) — query position p
-    attends key positions in (p − W, p]. segment_ids / kv_segment_ids:
-    [B, Sq] / [B, Sk] int ids; kv_segment_ids defaults to segment_ids
-    (requires s_q == s_k). kv_offset: query row r sits at absolute
-    position kv_offset + r in the key frame.
+    q/k/v: [B, S, H, D] → (o [B, Sq, H, D], lse [B, Sq, H] fp32), both
+    differentiable. window: sliding-window size W (requires causal) —
+    query position p attends key positions in (p − W, p]. segment_ids /
+    kv_segment_ids: [B, Sq] / [B, Sk] int ids; kv_segment_ids defaults to
+    segment_ids (requires s_q == s_k). kv_offset: query row r sits at
+    absolute position kv_offset + r in the key frame.
 
-    Launches the CUDA kernel on CUDA tensors, the plain version on CPU
+    Launches the CUDA kernels on CUDA tensors, the plain version on CPU
     tensors.
     """
     return _lse(
@@ -336,28 +656,10 @@ def _lse(q, k, v, use_kernel, *, causal=True, scale=None, block_q=512,
         kv_seg = check_seg(
             kv_segment_ids if kv_segment_ids is not None else segment_ids, s_k
         )
-
-    if use_kernel:
-        return _flash_fwd_cuda(
-            q, k, v, scale=scale, causal=causal, window=window,
-            kv_offset=kv_offset, segment_ids=segment_ids,
-            kv_segment_ids=kv_seg,
-        )
-
-    def fold(x):
-        return x.transpose(1, 2).reshape(b * h, x.shape[1], d)
-
-    def fold_seg(seg, s):
-        seg = seg.to(torch.float32)
-        return seg[:, None, :].expand(b, h, s).reshape(b * h, s)
-
-    segs = None
-    if segment_ids is not None:
-        segs = (fold_seg(segment_ids, s_q), fold_seg(kv_seg, s_k))
-    o, lse = _blockwise_fwd_ref(
-        fold(q), fold(k), fold(v), scale=scale, causal=causal,
-        block_k=block_k, window=window, kv_offset=kv_offset, segs=segs,
-    )
-    o = o.reshape(b, h, s_q, d).transpose(1, 2)
-    lse = lse.reshape(b, h, s_q).transpose(1, 2)
-    return o, lse
+    opts = _Opts(bool(use_kernel), float(scale), bool(causal), block_q,
+                 block_k, window, int(kv_offset))
+    if torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad
+    ):
+        return _FlashLse.apply(q, k, v, segment_ids, kv_seg, opts)
+    return _flash_core(q, k, v, segment_ids, kv_seg, opts)

@@ -1,15 +1,19 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: every head dim the kernels are built for, both dtypes, the masking
 contract (causal, window, kv_offset, segment ids), odd page sizes,
-ragged q_lens up to the 16-row limit, strided inputs, and the wrappers'
-refusals. Marked ``cuda``; each test skips without a CUDA device. On the
-chip (the root and tests/ conftests import JAX, which that machine does
-not have)::
+ragged q_lens up to the 16-row limit, strided inputs, the mono forward
+and backward (causal or not, ragged tiles, a nonzero lse cotangent), the
+gradient routing of flash_attention_lse, and the wrappers' refusals.
+Marked ``cuda``; each test skips without a CUDA device. On the chip (the
+root and tests/ conftests import JAX, which that machine does not
+have)::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: fp32 atol 1e-5 (same arithmetic, other summation order);
-bf16 o atol/rtol 2e-2 (one bf16 rounding of the output), lse atol 1e-3.
+Tolerances: fp32 atol 1e-5 (same arithmetic, other summation order; the
+mono backward adds dq over key tiles with fp32 atomics in no fixed order,
+hence rtol 1e-5 there); bf16 o and gradients atol/rtol 2e-2 (bf16
+roundings of p, ds and the outputs), lse atol 1e-3.
 """
 import importlib
 
@@ -110,8 +114,11 @@ def test_paged_kernel_matches_plain(dev, dtype, head_dim, page_size, q_rows):
 
 def test_kernel_refusals(dev):
     q = torch.randn((1, 8, 2, 64), device=dev)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(q.requires_grad_(), q, q)
+    segs = torch.ones((1, 8), dtype=torch.int32, device=dev)
+    qg = q.clone().requires_grad_()
+    o = tfa.flash_attention(qg, q, q, segment_ids=segs)  # blocked forward
+    with pytest.raises(NotImplementedError, match="blocked-backward slice"):
+        o.sum().backward()
     q48 = torch.randn((1, 8, 2, 48), device=dev)
     with pytest.raises(ValueError, match="head_dim 48"):
         tfa.flash_attention(q48, q48, q48)
@@ -131,7 +138,70 @@ def test_kernel_refusals(dev):
 
 def test_launch_counters_count_launches(dev):
     q = torch.randn((1, 64, 2, 64), device=dev)
-    before = tfa.FLASH_FWD.launches
-    tfa.flash_attention(q, q, q)
+    kernels = (tfa.FLASH_FWD, tfa.FLASH_FWD_MONO, tfa.FLASH_BWD_MONO)
+    before = [k.launches for k in kernels]
+    tfa.flash_attention(q, q, q, block_q=32, block_k=32)  # blocked
     tfa.flash_attention_lse_plain(q, q, q)
-    assert tfa.FLASH_FWD.launches == before + 1
+    qg = q.clone().requires_grad_()
+    tfa.flash_attention(qg, q, q).sum().backward()  # mono fwd + bwd
+    tfa.flash_fwd_mono_plain(q, q, q)
+    assert [k.launches - n for k, n in zip(kernels, before)] == [1, 1, 1]
+
+
+def _mono_inputs(dev, dtype, head_dim, s_q, s_k, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((2, max(s_q, s_k), 3, 3, head_dim), generator=gen,
+                      device=dev).to(dtype)
+    q = qkv[:, :s_q, 0]                # strided views, as GPT passes them
+    k, v = qkv[:, :s_k, 1], qkv[:, :s_k, 2]
+    do = torch.randn((2, s_q, 3, head_dim), generator=gen, device=dev)
+    dlse = torch.randn((2, s_q, 3), generator=gen, device=dev)
+    return q, k, v, do.to(dtype), dlse
+
+
+MONO_SHAPES = [(200, 200, True), (256, 256, True), (96, 300, False),
+               (128, 128, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("head_dim", [16, 64, 128])
+@pytest.mark.parametrize("s_q,s_k,causal", MONO_SHAPES)
+def test_mono_kernels_match_plain(dev, dtype, head_dim, s_q, s_k, causal):
+    q, k, v, do, dlse = _mono_inputs(dev, dtype, head_dim, s_q, s_k,
+                                     head_dim + s_q)
+    o_k, lse_k = tfa.flash_fwd_mono(q, k, v, causal=causal)
+    o_p, lse_p = tfa.flash_fwd_mono_plain(q, k, v, causal=causal)
+    _close(dtype, o_k, o_p)
+    _close(dtype, lse_k, lse_p, lse=True)
+    delta = (do.float() * o_p.float()).sum(-1)
+    for cot in (None, dlse):
+        got = tfa.flash_bwd_mono(q, k, v, do, lse_p, delta, cot,
+                                 causal=causal)
+        want = tfa.flash_bwd_mono_plain(q, k, v, do, lse_p, delta, cot,
+                                        causal=causal)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            if dtype == torch.float32:
+                torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+            else:
+                _close(dtype, g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_attention_grad_routes_through_mono(dev, dtype):
+    """autograd through flash_attention_lse at a mono shape launches the
+    mono kernels and agrees with the plain path's gradients."""
+    q, k, v, do, dlse = _mono_inputs(dev, dtype, 64, 256, 256, 3)
+    grads = []
+    for fn in (tfa.flash_attention_lse, tfa.flash_attention_lse_plain):
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        o, lse = fn(*xs, block_q=256, block_k=256)
+        torch.autograd.backward([o, lse], [do, dlse])
+        grads.append([x.grad for x in xs])
+    for g, w in zip(*grads):
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+        else:
+            _close(dtype, g, w)

@@ -121,18 +121,24 @@ def test_load_jax_params_rejects_mismatch(pair, fault):
 
 
 def test_serving_copy_keeps_the_numbers(pair):
-    """The bf16 serving copy is the per-call cast done once: logits are
-    bitwise those of the per-call path."""
+    """The bf16 serving copy is the per-call cast done once: the engine's
+    prefill (logits and K/V) is bitwise that of the per-call path, and of
+    the full-sequence forward."""
     _, _, _, tree = pair
     _, tcfg = _configs()
     cfg = tgpt.GPTConfig(**{**tcfg.__dict__, "dtype": torch.bfloat16})
     tokens = torch.from_numpy(
         np.random.default_rng(3).integers(0, 256, size=(1, 16)))
+    positions = torch.arange(16)[None]
+    segs = torch.ones((1, 16), dtype=torch.int32)
     per_call = tgpt.load_jax_params(tgpt.GPT(cfg, device="cpu"), tree)
     cached = tgpt.load_jax_params(tgpt.GPT(cfg, device="cpu"), tree,
                                   serving_copy=True)
     assert cached._compute and not per_call._compute
-    assert torch.equal(per_call.apply(tokens), cached.apply(tokens))
+    want = per_call.prefill_kv(tokens, positions, segs)
+    got = cached.prefill_kv(tokens, positions, segs)
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    assert torch.equal(got[0], cached.apply(tokens))
 
 
 def test_refuses_configs_of_later_slices():

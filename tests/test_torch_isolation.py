@@ -1,7 +1,8 @@
 """The port imports torch and numpy, never JAX and nothing of the JAX
 package: an AST scan of every module of determined_tpu_torch and of
-chip_smoke.py, plus a fresh interpreter that imports the serving package
-and finds no jax and no determined_tpu module loaded."""
+chip_smoke.py, plus a fresh interpreter that imports the serving,
+trainer and core packages and finds no jax and no determined_tpu module
+loaded."""
 import ast
 import subprocess
 import sys
@@ -41,7 +42,9 @@ def test_port_never_imports_jax(source):
         code = (
             "import sys, determined_tpu_torch.serving, "
             "determined_tpu_torch.ops.flash_attention, "
-            "determined_tpu_torch.ops.paged_attention\n"
+            "determined_tpu_torch.ops.paged_attention, "
+            "determined_tpu_torch.trainer, determined_tpu_torch.core, "
+            "determined_tpu_torch.trainer.profile\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))\n"

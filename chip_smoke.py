@@ -11,18 +11,32 @@ script exits non-zero without the final result line:
 
 1. device — refuse to run without CUDA; print the card's name and power
    limit; disable TF32 so fp32 means fp32.
-2. build  — compile the four CUDA kernels from ``determined_tpu_torch/
+2. build  — compile the seven CUDA kernels from ``determined_tpu_torch/
    ops/csrc`` with nvcc (one process per source, started together).
 3. kernels — each kernel against its plain PyTorch version on the same
    inputs, in bf16 (o and gradients atol/rtol 2e-2, lse atol 1e-3) and
-   fp32 (atol 1e-5; the mono backward sums dq with fp32 atomics in no
-   fixed order, hence also rtol 1e-5 there); kernel, plain and library
-   (SDPA) times with the bound (max of FLOPs / peak and bytes /
-   3.35 TB/s). The flash forward and paged kernels run at the serving
-   shapes; the mono pair at (B 2, S 1024, causal), (B 2, S 512,
-   non-causal) and with a nonzero lse cotangent, and is timed at the
-   train phase's shape (B 8, S 1024, H 12, D 64, causal, bf16) against
-   SDPA's forward and, on a retained graph, SDPA's backward alone.
+   fp32 (atol 1e-5; the mono and fused blocked backward sum dq with fp32
+   atomics in no fixed order, hence also rtol 1e-5 for every backward);
+   kernel, plain and library (SDPA) times with the bound (max of FLOPs /
+   peak and bytes / 3.35 TB/s). The flash forward and paged kernels run
+   at the serving shapes; the mono pair at (B 2, S 1024, causal), (B 2,
+   S 512, non-causal) and with a nonzero lse cotangent, and is timed at
+   the train phase's shape (B 8, S 1024, H 12, D 64, causal, bf16)
+   against SDPA's forward and, on a retained graph, SDPA's backward
+   alone. The blocked backward kernels — the fused ``flash_bwd_blocked``
+   and the two-pass ``flash_bwd_dq`` + ``flash_bwd_dkv`` — run
+   ``BLOCKED_CASES`` (causal at S 2048, a 256 window, packed segments,
+   kv_offset with s_q 512 and s_k 1024, a nonzero lse cotangent, all of
+   them at once), then the shapes the main paths give them, in bf16:
+   the packed phase's batch (B 8 × 1024, its ``pack_sequences`` segment
+   ids; ``flash_fwd`` too), and the long-context shapes (B 1, H 12, D
+   64, causal): ``flash_fwd`` and the fused kernel at S 16384 against
+   SDPA, the two passes and the fused kernel at S 32768. At the long
+   shapes the plain backward runs one head at a time (one [S, S] fp32
+   matrix per call); each kernel is held against it and timed beside it
+   on the same inputs, and both once more at S ``PLAIN_SEQ`` = 4096.
+   The ``max_abs_err`` of rows 4–6 in the kernels line comes from these
+   main-path shapes; every row names its ``shape``.
 4. engine — GPT-2-small at full width (bf16, seeded random weights)
    behind ``build_engine``: 8 requests, then 4 late joiners while the
    first are mid-decode; every request must finish with reason
@@ -50,7 +64,28 @@ script exits non-zero without the final result line:
    within 1e-4 of its own largest magnitude (fp32 on both sides; the
    sums run in other orders — cuBLAS, the kernels' tiles and fp32
    atomics against the CPU's — which moves results by ~1e-6 relative; a
-   wrong mask, scale or missing term moves them by O(1)).
+   wrong mask, scale or missing term moves them by O(1)). Three times:
+   plain tokens through the mono pair; a packed batch with
+   ``attn_window=256`` through ``flash_fwd`` and ``flash_bwd_blocked``;
+   the same with the partials cap at 0 through ``flash_bwd_dq`` and
+   ``flash_bwd_dkv``.
+8. train-long — the long-context rung (``trainer/profile.py``
+   ``RUNGS["long16k"]``: GPT-2-small at full width and depth, seq 16384,
+   batch 1, ``remat=True``, ``fused_loss=True``) for 3 steps: losses
+   finite and falling, per step exactly 12 ``flash_fwd`` and 12
+   ``flash_bwd_blocked`` launches and no other port kernel; step ms,
+   tokens/s, MFU, peak memory.
+9. train-32k — the long32k rung at full width with its depth cut to 2
+   layers (the blocked forward runs its products as fp32 FMAs, twice per
+   layer under rematted attention: at full depth one step would take
+   many seconds), 2 steps: rematted attention (``layer_loop="auto"`` past 16384
+   tokens), so per step 2 ``flash_fwd`` launches per layer (the forward
+   and its recompute) and one ``flash_bwd_dq`` and one ``flash_bwd_dkv``
+   per layer, nothing else.
+10. train-packed — ``gpt.small()`` at B 8 × 1024 on one repeated
+   ``pack_sequences`` batch of seeded random documents of 32–1024
+   tokens, 5 steps: the loss falls, per step 12 ``flash_fwd`` and 12
+   ``flash_bwd_blocked`` launches and no mono launch.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -71,14 +106,36 @@ MONO_FWD_SOURCE = "determined_tpu_torch/ops/csrc/flash_fwd_mono.cu"
 MONO_FWD_REPLACES = "determined_tpu/ops/flash_attention.py:438"
 MONO_BWD_SOURCE = "determined_tpu_torch/ops/csrc/flash_bwd_mono.cu"
 MONO_BWD_REPLACES = "determined_tpu/ops/flash_attention.py:461"
+BLOCKED_SOURCE = "determined_tpu_torch/ops/csrc/flash_bwd_blocked.cu"
+BLOCKED_REPLACES = "determined_tpu/ops/flash_attention.py:499"
+DQ_SOURCE = "determined_tpu_torch/ops/csrc/flash_bwd_dq.cu"
+DQ_REPLACES = "determined_tpu/ops/flash_attention.py:594"
+DKV_SOURCE = "determined_tpu_torch/ops/csrc/flash_bwd_dkv.cu"
+DKV_REPLACES = "determined_tpu/ops/flash_attention.py:651"
 PEAK_BF16 = 989e12
 TRAIN_STEPS = 7
+LONG_STEPS = 3        # long16k rung, full width and depth
+LONG32_STEPS = 2      # long32k rung, full width
+LONG32_LAYERS = 2     # depth cut of the 32k phase (see the docstring)
+PACKED_STEPS = 5      # packed documents, B=8 x 1024
+PLAIN_SEQ = 4096      # second long-context reading, plain backward on all heads
 ENGINE_CFG = {
     "model": "small", "page_size": 128, "num_pages": 65,
     "max_pages_per_request": 8, "max_batch_size": 8, "prefill_rows": 4,
     "prefill_seq": 512, "max_new_tokens": 64,
 }
 NEAR_TIE = 1e-4
+BLOCKED = ("flash_bwd_blocked", "flash_bwd_dq", "flash_bwd_dkv")
+#: The blocked backward kernels' grid on the card (B, H 12, D 64).
+BLOCKED_CASES = (
+    ("causal-s2048", dict(b=1, s_q=2048, s_k=2048)),
+    ("window256", dict(b=2, s_q=1024, s_k=1024, window=256, seed=1)),
+    ("packed", dict(b=2, s_q=1024, s_k=1024, segs=True, seed=2)),
+    ("kv-offset", dict(b=2, s_q=512, s_k=1024, kv_offset=512, seed=3)),
+    ("causal-dlse", dict(b=2, s_q=1024, s_k=1024, dlse=True, seed=4)),
+    ("all-masks-dlse", dict(b=2, s_q=512, s_k=1024, kv_offset=512,
+                            window=256, segs=True, dlse=True, seed=5)),
+)
 
 
 def card_line() -> str:
@@ -88,6 +145,19 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def packed_batch(b, s, seed, vocab):
+    """One ``pack_sequences`` batch [b, s] of seeded random documents of
+    32-1024 tokens below `vocab` (tokens, segment_ids, loss_mask)."""
+    import numpy as np
+
+    from determined_tpu_torch.batch_inference import pack_sequences
+
+    rng = np.random.default_rng(seed)
+    docs = (rng.integers(1, vocab, int(n)).tolist()
+            for n in rng.integers(32, 1025, size=100_000))
+    return next(pack_sequences(docs, s, b))
 
 
 class Smoke:
@@ -128,7 +198,10 @@ class Smoke:
 
     # -- phase 3: flash forward ------------------------------------------------
     def flash_case(self, name, dtype, *, b, s_q, s_k, kv_offset=0,
-                   window=None, segs=None, seed=0):
+                   window=None, segs=None, seed=0, block=512):
+        """flash_fwd against its plain version and SDPA. `segs`: None,
+        "packed" (seeded documents), "decode" (the gather-decode layout) or
+        an int32 [b, s_k] array of segment ids."""
         import numpy as np
         import torch
         import torch.nn.functional as F
@@ -142,7 +215,10 @@ class Smoke:
         k = self.randn((b, s_k, h, d), dtype, gen)
         v = self.randn((b, s_k, h, d), dtype, gen)
         qseg = kseg = None
-        if segs == "packed":
+        if segs is not None and not isinstance(segs, str):
+            qseg = kseg = torch.from_numpy(np.asarray(segs, np.int32)).to(
+                self.dev)
+        elif segs == "packed":
             ids = np.zeros((b, s_k), np.int32)
             for r in range(b):
                 n_docs = int(rng.integers(3, 6))
@@ -164,7 +240,7 @@ class Smoke:
             ).to(self.dev)
         kw = dict(causal=True, window=window, kv_offset=kv_offset,
                   segment_ids=qseg, kv_segment_ids=kseg,
-                  block_q=min(512, s_q), block_k=min(512, s_k))
+                  block_q=min(block, s_q), block_k=min(block, s_k))
         o_k, lse_k = tfa.flash_attention_lse(q, k, v, **kw)
         o_p, lse_p = tfa.flash_attention_lse_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -341,6 +417,200 @@ class Smoke:
         doh = do.transpose(1, 2).contiguous()
         return lambda: torch.autograd.grad(out, xs, doh, retain_graph=True)
 
+    # -- phase 3: the blocked backward kernels ----------------------------------
+    def blocked_inputs(self, dtype, *, b, s_q, s_k, kv_offset=0, window=None,
+                       segs=False, dlse=False, seed=0):
+        """q/k/v as strided views of one [B, S, 3, H, D] tensor (as GPT
+        passes them), do, lse/delta from the plain forward, an optional lse
+        cotangent and segment ids (`segs`: True for seeded documents of
+        32-512 tokens, or an int32 [b, s_k] array) → (positional args,
+        keyword args) of the kernel-level backward wrappers."""
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch.ops import flash_attention as tfa
+
+        h, d = 12, 64
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        qkv = self.randn((b, s_k, 3, h, d), dtype, gen)
+        q = qkv[:, s_k - s_q:, 0]
+        k, v = qkv[:, :, 1], qkv[:, :, 2]
+        do = self.randn((b, s_q, h, d), dtype, gen)
+        dl = (torch.randn((b, s_q, h), generator=gen, device=self.dev)
+              if dlse else None)
+        kw = dict(causal=True, window=window, kv_offset=kv_offset)
+        if segs is True:
+            rng = np.random.default_rng(seed)
+            ids = np.zeros((b, s_k), np.int32)
+            for r in range(b):
+                pos, doc = 0, 1
+                while pos < s_k:
+                    n = int(rng.integers(32, 513))
+                    ids[r, pos:pos + n] = doc
+                    pos, doc = pos + n, doc + 1
+            segs = ids
+        if segs is not False:
+            kseg = torch.from_numpy(np.asarray(segs, np.int32)).to(self.dev)
+            kw.update(segment_ids=kseg[:, s_k - s_q:], kv_segment_ids=kseg)
+        o, lse = tfa.flash_attention_lse_plain(
+            q, k, v, block_q=s_q, block_k=tfa.fit_block(s_k, 1024), **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        return (q, k, v, do, lse, delta, dl), kw
+
+    def blocked_run(self, name, args, kw):
+        """One blocked backward kernel on the card → (dq, dk, dv), None
+        where it computes nothing."""
+        from determined_tpu_torch.ops import flash_attention as tfa
+
+        if name == "flash_bwd_dq":
+            return tfa.flash_bwd_dq(*args, **kw), None, None
+        if name == "flash_bwd_dkv":
+            return (None, *tfa.flash_bwd_dkv(*args, **kw))
+        return tfa.flash_bwd_blocked(*args, **kw)
+
+    def hold_grads(self, what, dtype, got, want):
+        """Each gradient the kernel computed against the plain one (bf16
+        atol/rtol 2e-2, fp32 1e-5) → the largest difference."""
+        torch = self.torch
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+        err = 0.0
+        for which, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g is None:
+                continue
+            torch.testing.assert_close(g.float(), w.float(), atol=tol,
+                                       rtol=tol, msg=f"{what}: {which}")
+            err = max(err, float((g.float() - w.float()).abs().max()))
+        return err
+
+    def plain_by_head(self, args, kw):
+        """The dense plain backward one head at a time, so one [S, S] fp32
+        score matrix is live per call (1.1 GB at S 16384, 4.3 GB at 32768)
+        → (dq, dk, dv) of every head."""
+        import torch
+
+        from determined_tpu_torch.ops import flash_attention as tfa
+
+        parts = [
+            tfa.flash_bwd_blocked_plain(
+                *(None if x is None else x[:, :, i:i + 1] for x in args), **kw)
+            for i in range(args[0].shape[2])
+        ]
+        return tuple(torch.cat(g, dim=2) for g in zip(*parts))
+
+    def blocked_case(self, name, dtype, **shape):
+        """flash_bwd_blocked, and flash_bwd_dq + flash_bwd_dkv, against the
+        dense plain formula on the same inputs → largest differences."""
+        import torch
+
+        from determined_tpu_torch.ops import flash_attention as tfa
+
+        args, kw = self.blocked_inputs(dtype, **shape)
+        want = tfa.flash_bwd_blocked_plain(*args, **kw)
+        errs = {}
+        for kernel in BLOCKED:
+            got = self.blocked_run(kernel, args, kw)
+            torch.cuda.synchronize()
+            errs[kernel] = self.hold_grads(f"{kernel} {name}", dtype, got,
+                                           want)
+        self.report("kernels", f"blocked-backward {name} {str(dtype)[6:]}",
+                    {f"{k}_max_abs_err": v for k, v in errs.items()})
+        return errs
+
+    def long_timed(self, seq, kernels):
+        """`kernels` at a long-context training shape (B 1, H 12, D 64,
+        causal, bf16, seq `seq`), each held against its plain version on
+        the same inputs (the backward's dense formula one head at a time)
+        and timed beside it: flash_fwd and flash_bwd_blocked against SDPA's
+        forward and backward; flash_bwd_dq and flash_bwd_dkv with no
+        library time (no single library call computes one pass alone;
+        SDPA's whole backward is printed beside them). The same again at
+        PLAIN_SEQ, where the plain backward runs on all heads at once."""
+        import torch
+        import torch.nn.functional as F
+
+        from determined_tpu_torch.ops import flash_attention as tfa
+
+        bf16 = torch.bfloat16
+        h, d = 12, 64
+        item = 2
+        # FLOP per live pair / D, [B, S, H, D] outputs
+        work = {"flash_bwd_blocked": (10, 3), "flash_bwd_dq": (6, 1),
+                "flash_bwd_dkv": (8, 2)}
+        recs = {name: dict(shape=f"B1 S{seq} H12 D64 causal bf16", seq=seq)
+                for name in kernels}
+        for s in (seq, PLAIN_SEQ):
+            args, kw = self.blocked_inputs(bf16, b=1, s_q=s, s_k=s, seed=7)
+            q, k, v, do = args[:4]
+            live = h * s * (s + 1) // 2
+            big = s == seq
+            it, plain_it = (3, 1) if big else (10, 3)
+            blk = dict(causal=True, block_q=min(1024, s),
+                       block_k=min(1024, s))
+            if big:
+                plain_bwd = lambda: self.plain_by_head(args, kw)
+            else:
+                plain_bwd = lambda: tfa.flash_bwd_blocked_plain(*args, **kw)
+            want = plain_bwd() if kernels != ("flash_fwd",) else None
+            bwd_plain_ms = None
+            for name in kernels:
+                if name == "flash_fwd":
+                    kernel = lambda: tfa.flash_attention_lse(q, k, v, **blk)
+                    plain = lambda: tfa.flash_attention_lse_plain(q, k, v,
+                                                                  **blk)
+                    (o_k, lse_k), (o_p, lse_p) = kernel(), plain()
+                    torch.cuda.synchronize()
+                    self.check(f"flash_fwd long S{s}", bf16, o_k, o_p, lse_k,
+                               lse_p)
+                    err = float((o_k.float() - o_p.float()).abs().max())
+                    del o_k, lse_k, o_p, lse_p
+                    plain_ms = self.time_ms(plain, iters=plain_it, warmup=1)
+                    flops = 4.0 * d * live
+                    nbytes = 4 * q.numel() * item + 4 * s * h
+                else:
+                    per_pair, outs = work[name]
+                    kernel = lambda: self.blocked_run(name, args, kw)
+                    got = kernel()
+                    torch.cuda.synchronize()
+                    err = self.hold_grads(f"{name} long S{s}", bf16, got,
+                                          want)
+                    del got
+                    if bwd_plain_ms is None:  # one formula for all three
+                        bwd_plain_ms = self.time_ms(plain_bwd, iters=plain_it,
+                                                    warmup=0 if big else 1)
+                    plain_ms = bwd_plain_ms
+                    flops = per_pair * d * live
+                    # q, k, v, do and lse, delta read; the outputs written
+                    nbytes = (4 + outs) * q.numel() * item + 2 * 4 * s * h
+                ms = self.time_ms(kernel, iters=it, warmup=1)
+                rec = recs[name]
+                if not big:
+                    rec.update(plain_seq=s, ms_at_plain_seq=ms,
+                               plain_ms_at_plain_seq=plain_ms,
+                               max_abs_err_at_plain_seq=err)
+                    continue
+                bound_ms, bound_by = self.bound(flops, nbytes, bf16)
+                qh, kh, vh = (x.transpose(1, 2).contiguous()
+                              for x in (q, k, v))
+                if name == "flash_fwd":
+                    lib = lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, is_causal=True)
+                else:
+                    lib = self.sdpa_backward(qh, kh, vh, do, True)
+                sdpa_ms = self.time_ms(lib, iters=it, warmup=1)
+                del qh, kh, vh, lib
+                rec.update(
+                    ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=(sdpa_ms if name in ("flash_fwd",
+                                                    "flash_bwd_blocked")
+                                else None),
+                    sdpa_ms=sdpa_ms)
+            del args, q, k, v, do, want, plain_bwd
+            torch.cuda.empty_cache()
+        for name, rec in recs.items():
+            self.report("kernels", f"{name} long-context", rec)
+        return recs
+
     def check(self, name, dtype, o_k, o_p, lse_k=None, lse_p=None):
         torch = self.torch
         if dtype == torch.bfloat16:
@@ -492,29 +762,29 @@ class Smoke:
         self.report("greedy", "gpt2-small fp32 paged vs gather", rec)
 
 
-    # -- phase 6: training at full width ------------------------------------------
-    def train_phase(self):
+    # -- phases 6 and 8-10: training through Trainer.fit ---------------------------
+    def fit_counted(self, trial, steps):
+        """``Trainer(trial).fit`` for `steps` steps on the card, with the
+        launch counters set to 0 just before → (reports, per-step launch
+        counts, the run's launch counts, peak GB, config)."""
         import numpy as np
         import torch
 
         from determined_tpu_torch import core
         from determined_tpu_torch.ops import _build
         from determined_tpu_torch.trainer import Batch, Trainer
-        from determined_tpu_torch.trainer.profile import RepeatedBatchTrial
 
         snapshots = []
+        data = trial.build_training_data
 
-        class CountedTrial(RepeatedBatchTrial):
+        def counted():
             """Snapshots the launch counters as each step takes its batch."""
+            for batch in data():
+                snapshots.append({n: k.launches
+                                  for n, k in _build.KERNELS.items()})
+                yield batch
 
-            def build_training_data(self):
-                for batch in super().build_training_data():
-                    snapshots.append({n: k.launches
-                                      for n, k in _build.KERNELS.items()})
-                    yield batch
-
-        b, s = 8, 1024
-        trial = CountedTrial(b, s)
+        trial.build_training_data = counted
         ctx = core._dummy_init()
         trainer = Trainer(trial, ctx)  # the card, by default
         cfg = trainer.model.config
@@ -522,65 +792,180 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         for k in _build.KERNELS.values():
             k.launches = 0
-        trainer.fit(max_length=Batch(TRAIN_STEPS), report_period=Batch(1))
+        trainer.fit(max_length=Batch(steps), report_period=Batch(1))
         launches = {n: k.launches for n, k in _build.KERNELS.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         snapshots.append(launches)
         reports = [m for g, _, m in ctx.train._reported if g == "training"]
-        assert len(reports) == TRAIN_STEPS, reports
+        assert len(reports) == steps, reports
         losses = [m.get("loss", float("nan")) for m in reports]
         assert all(np.isfinite(losses)), losses
+        per_step = [{n: after[n] - before[n] for n in after}
+                    for before, after in zip(snapshots, snapshots[1:])]
+        del trainer
+        torch.cuda.empty_cache()
+        return reports, per_step, launches, peak_gb, cfg
+
+    def train_record(self, reports, launches, peak_gb, cfg, batch, seq,
+                     warm):
+        """Loss, step ms (median after `warm` steps), tokens/s, MFU and
+        peak memory of a fit, plus the port kernels' launches."""
+        import numpy as np
+
+        step_ms = float(np.median(
+            [1e3 / m["batches_per_second"] for m in reports[warm:]]))
+        tokens_per_s = batch * seq / (step_ms / 1e3)
+        return dict(
+            steps=len(reports), batch=batch, seq=seq, layers=cfg.n_layers,
+            loss_first=reports[0]["loss"], loss_last=reports[-1]["loss"],
+            grad_norm_last=reports[-1]["grad_norm"], step_ms_median=step_ms,
+            tokens_per_s=tokens_per_s,
+            mfu=tokens_per_s * cfg.train_flops_per_token() / PEAK_BF16,
+            max_memory_allocated_gb=peak_gb,
+            **{f"{n}_launches": v for n, v in launches.items() if v},
+        )
+
+    def train_phase(self):
+        from determined_tpu_torch.trainer.profile import RepeatedBatchTrial
+
+        b, s = 8, 1024
+        reports, per_step, launches, peak_gb, cfg = self.fit_counted(
+            RepeatedBatchTrial(b, s), TRAIN_STEPS)
+        losses = [m["loss"] for m in reports]
         assert losses[-1] < losses[0], losses
         n_layers = cfg.n_layers
-        for i, (before, after) in enumerate(zip(snapshots, snapshots[1:])):
-            step = {n: after[n] - before[n] for n in after}
+        for i, step in enumerate(per_step):
             assert step["flash_fwd_mono"] == n_layers, (i, step)
             assert step["flash_bwd_mono"] == n_layers, (i, step)
             assert step["flash_fwd"] == 0, (i, step)
-        step_ms = float(np.median(
-            [1e3 / m["batches_per_second"] for m in reports[2:]]))
-        tokens_per_s = b * s / (step_ms / 1e3)
-        rec = dict(
-            steps=TRAIN_STEPS, batch=b, seq=s, loss_first=losses[0],
-            loss_last=losses[-1], grad_norm_last=reports[-1]["grad_norm"],
-            step_ms_median=step_ms, tokens_per_s=tokens_per_s,
-            mfu=tokens_per_s * cfg.train_flops_per_token() / PEAK_BF16,
-            max_memory_allocated_gb=peak_gb,
-            flash_fwd_mono_launches=launches["flash_fwd_mono"],
-            flash_bwd_mono_launches=launches["flash_bwd_mono"],
-            flash_fwd_launches=launches["flash_fwd"],
-        )
-        self.report("train", "gpt2-small bf16 remat=False", rec)
-        del trainer
-        torch.cuda.empty_cache()
+        self.report("train", "gpt2-small bf16 remat=False",
+                    self.train_record(reports, launches, peak_gb, cfg, b, s,
+                                      warm=2))
+        return launches
+
+    def train_long_phase(self):
+        """The long16k rung at full width and depth: flash_fwd and the
+        fused blocked backward only."""
+        from determined_tpu_torch.trainer.profile import RUNGS, RepeatedBatchTrial
+
+        b, cfg = RUNGS["long16k"]
+        s = cfg.seq_len
+        reports, per_step, launches, peak_gb, cfg = self.fit_counted(
+            RepeatedBatchTrial(b, s, config=cfg), LONG_STEPS)
+        losses = [m["loss"] for m in reports]
+        assert losses[-1] < losses[0], losses
+        want = dict(flash_fwd=cfg.n_layers, flash_bwd_blocked=cfg.n_layers)
+        for i, step in enumerate(per_step):
+            got = {n: v for n, v in step.items() if v}
+            assert got == want, (i, step)
+        self.report("train-long", "gpt2-small bf16 long16k remat fused_loss",
+                    self.train_record(reports, launches, peak_gb, cfg, b, s,
+                                      warm=1))
+        return launches
+
+    def train_32k_phase(self):
+        """The long32k rung at full width, depth cut to LONG32_LAYERS:
+        rematted attention (two forwards per layer and step) and the
+        two-pass backward."""
+        from determined_tpu_torch.trainer.profile import RUNGS, RepeatedBatchTrial
+
+        b, cfg = RUNGS["long32k"]
+        cfg = dataclasses.replace(cfg, n_layers=LONG32_LAYERS)
+        s = cfg.seq_len
+        reports, per_step, launches, peak_gb, cfg = self.fit_counted(
+            RepeatedBatchTrial(b, s, config=cfg), LONG32_STEPS)
+        n = cfg.n_layers
+        want = dict(flash_fwd=2 * n, flash_bwd_dq=n, flash_bwd_dkv=n)
+        for i, step in enumerate(per_step):
+            got = {k: v for k, v in step.items() if v}
+            assert got == want, (i, step)
+        self.report("train-32k", f"gpt2-small-width L{n} bf16 long32k "
+                    "remat_attention fused_loss",
+                    self.train_record(reports, launches, peak_gb, cfg, b, s,
+                                      warm=1))
+        return launches
+
+    def train_packed_phase(self):
+        """gpt.small() on packed documents at B=8 x 1024: the blocked
+        forward and the fused blocked backward."""
+        from determined_tpu_torch.trainer.profile import RepeatedBatchTrial
+
+        b, s = 8, 1024
+        from determined_tpu_torch.models import gpt
+
+        trial = RepeatedBatchTrial(b, s, config=gpt.small())
+        batch = packed_batch(b, s, 3, trial.config.vocab_size)
+
+        def repeated():
+            while True:
+                yield batch
+
+        trial.build_training_data = repeated
+        reports, per_step, launches, peak_gb, cfg = self.fit_counted(
+            trial, PACKED_STEPS)
+        losses = [m["loss"] for m in reports]
+        assert losses[-1] < losses[0], losses
+        want = dict(flash_fwd=cfg.n_layers, flash_bwd_blocked=cfg.n_layers)
+        for i, step in enumerate(per_step):
+            got = {n: v for n, v in step.items() if v}
+            assert got == want, (i, step)
+        rec = self.train_record(reports, launches, peak_gb, cfg, b, s, warm=2)
+        rec["documents"] = int(batch["segment_ids"].max(axis=1).sum())
+        self.report("train-packed", "gpt2-small bf16 packed documents", rec)
         return launches
 
     # -- phase 7: one fp32 step, card against CPU ----------------------------------
-    def train_parity_phase(self):
+    def train_parity_phase(self, route="mono"):
+        """One fp32 loss + gradient of GPT-2-small's width with 2 layers,
+        batch 1 x seq 1024, on the card and on the CPU from the same
+        parameters. "mono": plain tokens through the mono pair; "fused" and
+        "two_pass": a packed batch with attn_window=256 through flash_fwd
+        and the fused blocked backward, or (the partials cap set to 0 for
+        the card's call) the dq and dk/dv passes."""
         import numpy as np
         import torch
 
         from determined_tpu_torch.models import gpt
         from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.ops import flash_attention as tfa
         from determined_tpu_torch.trainer import optim
 
         cfg = dataclasses.replace(gpt.small(), n_layers=2,
                                   dtype=torch.float32, remat=False)
+        if route == "mono":
+            batch = {"tokens": np.random.default_rng(1).integers(
+                0, cfg.vocab_size, size=(1, cfg.seq_len)).astype(np.int32)}
+            want = dict(flash_fwd_mono=2, flash_bwd_mono=2)
+        else:
+            cfg = dataclasses.replace(cfg, attn_window=256)
+            batch = packed_batch(1, cfg.seq_len, 5, cfg.vocab_size)
+            want = ({"flash_fwd": 2, "flash_bwd_blocked": 2}
+                    if route == "fused" else
+                    {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2})
         cpu = gpt.GPT(cfg, device="cpu", seed=1)
         card = gpt.GPT(cfg, device=self.dev)
         card.load_state_dict(cpu.state_dict())
-        tokens = np.random.default_rng(1).integers(
-            0, cfg.vocab_size, size=(1, cfg.seq_len)).astype(np.int32)
-        mono = (_build.FLASH_FWD_MONO, _build.FLASH_BWD_MONO)
-        before = [k.launches for k in mono]
+        cap = tfa._FUSED_BWD_PARTIALS_CAP
         out = {}
         for where, model in (("card", card), ("cpu", cpu)):
-            loss, _ = model.loss({"tokens": torch.from_numpy(tokens)})
-            grads = torch.autograd.grad(loss, list(model.parameters()))
+            before = {n: k.launches for n, k in _build.KERNELS.items()}
+            if where == "card" and route == "two_pass":
+                tfa._FUSED_BWD_PARTIALS_CAP = 0
+            try:
+                loss, _ = model.loss({k: torch.from_numpy(v)
+                                      for k, v in batch.items()})
+                grads = torch.autograd.grad(loss, list(model.parameters()))
+            finally:
+                tfa._FUSED_BWD_PARTIALS_CAP = cap
             out[where] = (float(loss.detach()), float(optim.global_norm(grads)),
                           [g.detach().cpu() for g in grads])
-        assert [k.launches - n for k, n in zip(mono, before)] == [2, 2], (
-            "the card's step did not go through the mono kernels")
+            if where == "card":
+                got = {n: k.launches - before[n]
+                       for n, k in _build.KERNELS.items()
+                       if k.launches != before[n]}
+                assert got == want, (
+                    f"the card's {route} step did not go through its "
+                    f"kernels: {got}")
         (loss_c, norm_c, g_c), (loss_p, norm_p, g_p) = out["card"], out["cpu"]
         assert abs(loss_c - loss_p) <= 1e-5 * abs(loss_p), (loss_c, loss_p)
         assert abs(norm_c - norm_p) <= 1e-4 * norm_p, (norm_c, norm_p)
@@ -590,7 +975,10 @@ class Smoke:
             err = float((gc - gp).abs().max())
             assert err <= 1e-4 * scale, (name, err, scale)
             worst = max(worst, err / scale if scale else 0.0)
-        self.report("train-parity", "gpt2-small-width L2 fp32 card vs cpu",
+        what = "gpt2-small-width L2 fp32 card vs cpu"
+        if route != "mono":
+            what += f" packed window256 {route}"
+        self.report("train-parity", what,
                     dict(loss_card=loss_c, loss_cpu=loss_p,
                          grad_norm_card=norm_c, grad_norm_cpu=norm_p,
                          leaves=len(g_c), worst_leaf_rel_err=worst))
@@ -651,20 +1039,60 @@ def main() -> int:
     mono_fwd, mono_bwd = smoke.mono_case("train", bf16, b=8, s=1024,
                                          causal=True, dlse=False, seed=3,
                                          timed=True)
+    for dtype in (bf16, fp32):
+        for name, shape in BLOCKED_CASES:
+            smoke.blocked_case(name, dtype, **shape)
+    # the shapes the main paths give the blocked kernels: the packed
+    # phase's batch, the long16k rung, the long32k rung (flash_bwd_blocked
+    # there too, beside the two passes the route picks)
+    from determined_tpu_torch.models import gpt
 
-    # -- phases 4 to 7: the main paths -----------------------------------------------
+    packed_ids = packed_batch(8, 1024, 3, gpt.small().vocab_size)[
+        "segment_ids"]
+    smoke.flash_case("packed-b8x1024", bf16, b=8, s_q=1024, s_k=1024,
+                     segs=packed_ids, block=1024)
+    packed_err = smoke.blocked_case("packed-b8x1024", bf16, b=8, s_q=1024,
+                                    s_k=1024, segs=packed_ids)
+    long16 = smoke.long_timed(16384, ("flash_fwd", "flash_bwd_blocked"))
+    long32 = smoke.long_timed(32768, ("flash_bwd_dq", "flash_bwd_dkv",
+                                      "flash_bwd_blocked"))
+    long_recs = {"flash_bwd_blocked": long16["flash_bwd_blocked"],
+                 "flash_bwd_dq": long32["flash_bwd_dq"],
+                 "flash_bwd_dkv": long32["flash_bwd_dkv"]}
+    long_recs["flash_bwd_blocked"]["max_abs_err"] = max(
+        long16["flash_bwd_blocked"]["max_abs_err"],
+        packed_err["flash_bwd_blocked"])
+
+    # -- phases 4 to 10: the main paths ----------------------------------------------
     launches = smoke.engine_phase()
     smoke.greedy_phase()
     launches.update({n: v for n, v in smoke.train_phase().items()
                      if n in ("flash_fwd_mono", "flash_bwd_mono")})
     smoke.train_parity_phase()
+    smoke.train_parity_phase("fused")
+    smoke.train_parity_phase("two_pass")
+    launches["flash_bwd_blocked"] = \
+        smoke.train_long_phase()["flash_bwd_blocked"]
+    launches.update({n: v for n, v in smoke.train_32k_phase().items()
+                     if n in ("flash_bwd_dq", "flash_bwd_dkv")})
+    smoke.train_packed_phase()
 
     kernels = []
-    for name, source, replaces, rec in (
-        ("flash_fwd", FLASH_SOURCE, FLASH_REPLACES, flash[bf16]),
-        ("paged_attention", PAGED_SOURCE, PAGED_REPLACES, paged[bf16]),
-        ("flash_fwd_mono", MONO_FWD_SOURCE, MONO_FWD_REPLACES, mono_fwd),
-        ("flash_bwd_mono", MONO_BWD_SOURCE, MONO_BWD_REPLACES, mono_bwd),
+    mono_shape = "B8 S1024 H12 D64 causal bf16"
+    for name, source, replaces, rec, shape in (
+        ("flash_fwd", FLASH_SOURCE, FLASH_REPLACES, flash[bf16],
+         "B4 S512 H12 D64 causal packed bf16"),
+        ("paged_attention", PAGED_SOURCE, PAGED_REPLACES, paged[bf16],
+         "B8 R1 H12 D64 8 pages of 128 bf16"),
+        ("flash_fwd_mono", MONO_FWD_SOURCE, MONO_FWD_REPLACES, mono_fwd,
+         mono_shape),
+        ("flash_bwd_mono", MONO_BWD_SOURCE, MONO_BWD_REPLACES, mono_bwd,
+         mono_shape),
+        *((name, source, replaces, long_recs[name], long_recs[name]["shape"])
+          for name, source, replaces in (
+              ("flash_bwd_blocked", BLOCKED_SOURCE, BLOCKED_REPLACES),
+              ("flash_bwd_dq", DQ_SOURCE, DQ_REPLACES),
+              ("flash_bwd_dkv", DKV_SOURCE, DKV_REPLACES))),
     ):
         assert launches[name] > 0, f"{name} never launched on its main path"
         kernels.append({
@@ -673,6 +1101,7 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "shape": shape,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -25,11 +25,16 @@ differentiable trunk: the live fp32 parameters are cast to the compute
 dtype inside the graph on every call, so an optimizer step is seen at
 once. ``remat=True`` recomputes each MLP half in the backward
 (``torch.utils.checkpoint``, saving the matmul outputs, as the
-reference's ``_remat_policy``); attention stays outside the remat
-boundary. The chunked loss (``fused_loss``), rematted attention
-(``remat_attention``, or ``layer_loop="auto"`` past 16k tokens), mixture
-of experts, pipeline stages and the zigzag layout belong to later slices
-and are refused by name.
+reference's ``_remat_policy``) and keeps attention outside the remat
+boundary; with rematted attention (``remat_attention``, or
+``layer_loop="auto"`` past 16384 tokens, as the reference) the whole
+block goes under the checkpoint, so the backward reruns the attention
+forward. ``layer_loop`` "scan" and "unroll" pick the reference's XLA loop
+style and change nothing here: the port always runs a Python loop over
+the layers. ``fused_loss=True`` computes the loss through the chunked
+cross-entropy (``ops/fused_cross_entropy.py``), which never materializes
+the ``[B, S, V]`` logits. Mixture of experts, pipeline stages and the
+zigzag layout belong to later slices and are refused by name.
 
 The methods drop the reference's leading ``params`` argument: the module
 owns its parameters.
@@ -52,6 +57,7 @@ from determined_tpu_torch.ops.flash_attention import (
     fit_block,
     flash_attention,
 )
+from determined_tpu_torch.ops.fused_cross_entropy import fused_next_token_sums
 from determined_tpu_torch.ops.paged_attention import paged_attention
 
 
@@ -67,10 +73,10 @@ class GPTConfig:
     param_dtype: Any = torch.float32   # master params
     tie_embeddings: bool = True
     # The reference's remaining knobs, carried for config parity. The
-    # port reads remat, layer_loop (only to refuse rematted attention),
-    # attn_impl, flash_block_q/k, attn_window and z_loss, and refuses
-    # remat_attention, fused_loss, MoE, pipeline stages and the zigzag
-    # layout; the multi-device slice reads the rest.
+    # port reads remat, remat_attention, layer_loop (only for the auto
+    # rematted attention past 16k tokens), attn_impl, flash_block_q/k,
+    # attn_window, z_loss and fused_loss, and refuses MoE, pipeline
+    # stages and the zigzag layout; the multi-device slice reads the rest.
     remat: bool = True
     remat_attention: bool = False
     scan_unroll: int = 1
@@ -498,20 +504,6 @@ class GPT(Model):
         return logits[:, 0].float(), cache_k, cache_v
 
     # -- training forward --------------------------------------------------------
-    def _check_trainable(self) -> None:
-        c = self.config
-        if c.fused_loss:
-            raise NotImplementedError(
-                "fused_loss (the chunked cross-entropy kernel) is not ported "
-                "yet (later slice); set fused_loss=False"
-            )
-        if c.remat_attention or (c.layer_loop == "auto" and c.seq_len > 16384):
-            raise NotImplementedError(
-                "remat_attention (attention inside the remat boundary, also "
-                "implied by layer_loop='auto' past 16384 tokens) is not "
-                "ported yet (later slice)"
-            )
-
     def _attn_half(self, x: torch.Tensor, w: Dict[str, torch.Tensor],
                    segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
         c = self.config
@@ -533,15 +525,24 @@ class GPT(Model):
         c = self.config
         tok = self.tok_embed.to(c.dtype)
         x = self._embed(tok, self.pos_embed.to(c.dtype), tokens, positions)
-        mlp = self._mlp_half
-        if c.remat and torch.is_grad_enabled():
-            mlp = functools.partial(
-                torch.utils.checkpoint.checkpoint, self._mlp_half,
-                use_reentrant=False, context_fn=_remat_context,
-            )
+        remat = c.remat and torch.is_grad_enabled()
+        checkpoint = functools.partial(
+            torch.utils.checkpoint.checkpoint, use_reentrant=False,
+            context_fn=_remat_context,
+        )
         for w in self._train_layers():
-            x = mlp(self._attn_half(x, w, segment_ids), w)
+            if remat and remat_attention(c):
+                x = checkpoint(self._block, x, w, segment_ids)
+            elif remat:
+                x = checkpoint(self._mlp_half,
+                               self._attn_half(x, w, segment_ids), w)
+            else:
+                x = self._block(x, w, segment_ids)
         return x
+
+    def _block(self, x: torch.Tensor, w: Dict[str, torch.Tensor],
+               segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+        return self._mlp_half(self._attn_half(x, w, segment_ids), w)
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
@@ -563,7 +564,6 @@ class GPT(Model):
         loss, {"loss", "accuracy", "tokens"}). No dropout: ``generator``
         is unused."""
         del generator
-        self._check_trainable()
         c = self.config
         dev = self.device
 
@@ -585,6 +585,11 @@ class GPT(Model):
                 (segment_ids[:, 1:] == segment_ids[:, :-1]).float(),
             ], dim=1)
             mask = mask * boundary * (segment_ids != 0)
+        if c.fused_loss:
+            # The reference also requires one pipeline stage and no
+            # experts; the constructor refuses both.
+            return self._loss_fused(tokens, targets, positions, mask,
+                                    segment_ids)
         logits = self.forward(tokens, positions, segment_ids).float()
         if targets is not None:
             sums = _aligned_token_sums(logits, targets, mask)
@@ -597,6 +602,32 @@ class GPT(Model):
             loss = loss + c.z_loss * z_sum / n
         acc = acc_sum / n
         return loss, {"loss": loss, "accuracy": acc, "tokens": n_tok}
+
+    def _loss_fused(self, tokens, targets, positions, mask, segment_ids):
+        """The loss through the chunked cross-entropy: the same objective
+        as the dense path, without the [B, S, V] logits."""
+        c = self.config
+        x = self._forward_trunk(tokens, positions, segment_ids)
+        hidden = _layernorm(x, self.lnf_scale, self.lnf_bias)
+        w_out = (self.tok_embed.t() if c.tie_embeddings else self.head)
+        if targets is None:
+            # the in-model shift: position i predicts token i+1
+            hidden = hidden[:, :-1]
+            targets = tokens[:, 1:]
+            mask = mask[:, 1:]
+        obj, _nll, _z, acc_sum, n_tok = fused_next_token_sums(
+            hidden, w_out.to(c.dtype), targets, mask, z_loss=c.z_loss or 0.0)
+        n = torch.clamp(n_tok, min=1.0)
+        loss = obj / n
+        return loss, {"loss": loss, "accuracy": acc_sum / n, "tokens": n_tok}
+
+
+def remat_attention(config: GPTConfig) -> bool:
+    """Whether attention goes inside the remat boundary: ``remat_attention``,
+    or ``layer_loop="auto"`` past 16384 tokens, where the reference found
+    the flash residuals that the split remat saves too large."""
+    return config.remat_attention or (
+        config.layer_loop == "auto" and config.seq_len > 16384)
 
 
 # ---------------------------------------------------------------------------

@@ -176,9 +176,21 @@ FLASH_BWD_MONO = CudaKernel(
     [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
      _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _F, _P],
 )
+#: The three blocked backward kernels share one C signature
+#: (``DTPU_BLOCKED_BWD_ARGS`` in ``csrc/blocked_bwd.cuh``); the 12 strides
+#: go as a pointer to a host array.
+_BLOCKED_BWD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _P, _I, _I, _I, _F, _P]
+FLASH_BWD_BLOCKED = CudaKernel(
+    "flash_bwd_blocked", "dtpu_flash_bwd_blocked", _BLOCKED_BWD_ARGS)
+FLASH_BWD_DQ = CudaKernel("flash_bwd_dq", "dtpu_flash_bwd_dq",
+                          _BLOCKED_BWD_ARGS)
+FLASH_BWD_DKV = CudaKernel("flash_bwd_dkv", "dtpu_flash_bwd_dkv",
+                           _BLOCKED_BWD_ARGS)
 KERNELS: Dict[str, CudaKernel] = {
     k.name: k for k in (FLASH_FWD, PAGED_ATTENTION, FLASH_FWD_MONO,
-                        FLASH_BWD_MONO)
+                        FLASH_BWD_MONO, FLASH_BWD_BLOCKED, FLASH_BWD_DQ,
+                        FLASH_BWD_DKV)
 }
 
 

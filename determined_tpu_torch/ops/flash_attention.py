@@ -17,15 +17,25 @@ Port of ``determined_tpu/ops/flash_attention.py``:
   ``_fwd_kernel_mono``) exactly when the reference's ``_mono_ok`` holds —
   block == seq, s_q·s_k <= 2^21, no window, segment ids or kv_offset —
   and ``csrc/flash_fwd.cu`` (port of the blocked ``_fwd_kernel``)
-  otherwise. The backward launches ``csrc/flash_bwd_mono.cu`` (port of
-  ``_bwd_kernel_mono``) at mono shapes and raises ``NotImplementedError``
-  for any other: the blocked backward kernels come with a later slice.
+  otherwise. The backward follows the reference's route (``_bwd_route``,
+  its ``_flash_bwd_pallas`` predicate): ``csrc/flash_bwd_mono.cu`` (port
+  of ``_bwd_kernel_mono``) when ``_mono_ok`` holds; else the fused
+  blocked kernel ``csrc/flash_bwd_blocked.cu`` (port of
+  ``_bwd_fused_blocked_kernel``) while the reference's dq partials
+  ``bh·nk·s_q·d·4`` bytes fit under ``_FUSED_BWD_PARTIALS_CAP``; else the
+  two-pass ``csrc/flash_bwd_dq.cu`` + ``csrc/flash_bwd_dkv.cu`` (ports of
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``). ``nk`` counts the
+  reference's key blocks (``block_k``), so the port runs the mono, fused
+  or two-pass backward exactly where the reference does.
 - On CPU tensors forward and backward run the reference's CPU path, the
   blockwise online-softmax scan and its backward (``_blockwise_fwd_ref``,
-  ``_blockwise_bwd_ref``). ``_mono_fwd_plain`` / ``_mono_bwd_plain`` are
-  the mono kernels' dense formulas, bf16 roundings included: what the
-  mono wrappers run on CPU tensors and what the card's kernels are held
-  against. There is no fallback from a kernel to a plain version.
+  ``_blockwise_bwd_ref``). ``_mono_fwd_plain`` and ``_blocked_bwd_plain``
+  are the kernels' dense formulas, bf16 roundings included (the mono
+  backward's is the blocked one without window, segments or offset):
+  what the kernel-level wrappers (``flash_fwd_mono``, ``flash_bwd_mono``,
+  ``flash_bwd_blocked``, ``flash_bwd_dq``, ``flash_bwd_dkv``) run on CPU
+  tensors and what the card's kernels are held against. There is no
+  fallback from a kernel to a plain version.
 
 ``block_q`` / ``block_k`` keep the reference's meaning for validation, for
 the mono dispatch and for the plain version's K/V blocking; the CUDA
@@ -33,6 +43,7 @@ kernels pick their own tiles.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -45,6 +56,9 @@ NEG_INF = float(-1e30)  # finite mask value; true -inf breaks m-subtraction
 FLASH_FWD = _build.FLASH_FWD
 FLASH_FWD_MONO = _build.FLASH_FWD_MONO
 FLASH_BWD_MONO = _build.FLASH_BWD_MONO
+FLASH_BWD_BLOCKED = _build.FLASH_BWD_BLOCKED
+FLASH_BWD_DQ = _build.FLASH_BWD_DQ
+FLASH_BWD_DKV = _build.FLASH_BWD_DKV
 
 
 def fit_block(seq: int, want: int) -> int:
@@ -196,16 +210,30 @@ def _mono_fwd_plain(q, k, v, *, scale, causal):
     return o, (m + torch.log(l_safe))[..., 0]
 
 
-def _mono_bwd_plain(q, k, v, do, lse, delta, dlse, *, scale, causal):
-    """``_bwd_kernel_mono``: q/k/v/do [BH, S, D] in the compute dtype,
-    lse/delta/dlse [BH, Sq] fp32 → (dq, dk, dv) in the inputs' dtypes. p
-    is rounded to do's dtype before pᵀ·do, ds to q's dtype before ds·k and
-    dsᵀ·q; every product accumulates in fp32."""
+def _blocked_bwd_plain(q, k, v, do, lse, delta, dlse, *, scale, causal,
+                       window=None, kv_offset=0, segs=None):
+    """The blocked backward kernels' formula (``_bwd_fused_blocked_kernel``,
+    and ``_bwd_dq_kernel`` + ``_bwd_dkv_kernel`` together), dense:
+    q/k/v/do [BH, S, D] in the compute dtype, lse/delta/dlse [BH, Sq]
+    fp32, segs None or the ([BH, Sq], [BH, Sk]) fp32 ids → (dq, dk, dv)
+    in the inputs' dtypes. p = exp(s − lse) is zeroed where masked (a row
+    with no live key carries lse ≈ NEG_INF, where exp would resurrect its
+    masked entries as 1); p is rounded to do's dtype before pᵀ·do, ds to
+    q's dtype before ds·k and dsᵀ·q; every product accumulates in fp32."""
+    s_q, s_k = q.shape[1], k.shape[1]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
-    if causal:
-        s = torch.where(_causal_mask(q.shape[1], k.shape[1], q.device), s,
-                        NEG_INF)
-    p = torch.exp(s - lse[..., None])  # masked → 0
+    mask = None
+    if causal or window is not None or segs is not None:
+        mask = _ref_block_mask(
+            torch.arange(s_q, device=q.device),
+            torch.arange(s_k, device=q.device), causal=causal, window=window,
+            kv_offset=kv_offset, qseg=None if segs is None else segs[0],
+            kseg_j=None if segs is None else segs[1],
+        )
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
     do32 = do.float()
     dv = torch.einsum("bqk,bqd->bkd", p.to(do.dtype).float(), do32)
     dp = torch.einsum("bqd,bkd->bqk", do32, v.float())
@@ -213,6 +241,13 @@ def _mono_bwd_plain(q, k, v, do, lse, delta, dlse, *, scale, causal):
     dq = torch.einsum("bqk,bkd->bqd", ds.float(), k.float())
     dk = torch.einsum("bqk,bqd->bkd", ds.float(), q.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _mono_bwd_plain(q, k, v, do, lse, delta, dlse, *, scale, causal):
+    """``_bwd_kernel_mono``: the blocked formula with the causal mask
+    alone (no window, segment ids or kv_offset)."""
+    return _blocked_bwd_plain(q, k, v, do, lse, delta, dlse, scale=scale,
+                              causal=causal)
 
 
 def _fold(x):
@@ -376,6 +411,149 @@ def flash_bwd_mono_plain(q, k, v, do, lse, delta, dlse=None, *,
     return tuple(_unfold(g, b, h) for g in grads)
 
 
+def _flash_bwd_blocked_cuda(kernel, q, k, v, do, lse, delta, dlse, qseg,
+                            kseg, *, scale, causal, window, kv_offset):
+    """One blocked backward kernel (``FLASH_BWD_BLOCKED``, ``_DQ`` or
+    ``_DKV``): q/k/v/do [B, S, H, D] CUDA tensors (any strides with D
+    contiguous), lse/delta (+ dlse, None = zeros) [B, Sq, H] fp32, segment
+    ids [B, Sq] / [B, Sk] or None → (dq, dk, dv) [B, S, H, D] in q's
+    dtype, None for what the kernel does not compute. The fused kernel
+    sums dq in an fp32 workspace by atomics, then casts."""
+    code, q, k, v = _kernel_inputs(q, k, v)
+    do = _last_dim_contiguous(do.to(q.dtype))
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    if dlse is not None:
+        dlse = dlse.float().contiguous()
+    if qseg is not None:
+        qseg = qseg.to(device=q.device, dtype=torch.int32).contiguous()
+        kseg = kseg.to(device=q.device, dtype=torch.int32).contiguous()
+    dq = dk = dv = None
+    if kernel is FLASH_BWD_BLOCKED:
+        dq = torch.zeros((b, s_q, h, d), dtype=torch.float32, device=q.device)
+    elif kernel is FLASH_BWD_DQ:
+        dq = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
+    if kernel is not FLASH_BWD_DQ:
+        dk = torch.empty((b, s_k, h, d), dtype=q.dtype, device=q.device)
+        dv = torch.empty_like(dk)
+    strides = (ctypes.c_longlong * 12)(*_strides(q, k, v, do))
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    kernel.launch(
+        code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), ptr(dlse), ptr(qseg), ptr(kseg),
+        ptr(dq), ptr(dk), ptr(dv), b, h, s_q, s_k, strides, int(causal),
+        int(window or 0), int(kv_offset), float(scale),
+        _build.stream_ptr(q.device),
+    )
+    if dq is not None:
+        dq = dq.to(q.dtype)
+    return dq, dk, dv
+
+
+def _blocked_bwd(kernel, q, k, v, do, lse, delta, dlse, *, causal, scale,
+                 window, kv_offset, segment_ids, kv_segment_ids):
+    """The kernel-level blocked backward: `kernel` on CUDA tensors, the
+    dense formula (``_blocked_bwd_plain``) when `kernel` is None or the
+    tensors lie on the CPU. → (dq, dk, dv), None where the kernel
+    computes nothing."""
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if segment_ids is not None and kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    if kernel is not None and q.is_cuda:
+        return _flash_bwd_blocked_cuda(
+            kernel, q, k, v, do, lse, delta, dlse, segment_ids,
+            kv_segment_ids, scale=scale, causal=causal, window=window,
+            kv_offset=kv_offset)
+    b, _, h, _ = q.shape
+    if dlse is None:
+        dlse = torch.zeros_like(lse)
+    grads = _blocked_bwd_plain(
+        _fold(q), _fold(k), _fold(v), _fold(do), _fold(lse), _fold(delta),
+        _fold(dlse.float()), scale=scale, causal=causal, window=window,
+        kv_offset=kv_offset, segs=_fold_segs(segment_ids, kv_segment_ids, h),
+    )
+    dq, dk, dv = (_unfold(g, b, h) for g in grads)
+    if kernel is FLASH_BWD_DQ:
+        return dq, None, None
+    if kernel is FLASH_BWD_DKV:
+        return None, dk, dv
+    return dq, dk, dv
+
+
+def flash_bwd_blocked(q, k, v, do, lse, delta, dlse=None, *,
+                      causal: bool = True, scale: Optional[float] = None,
+                      window: Optional[int] = None, kv_offset: int = 0,
+                      segment_ids: Optional[torch.Tensor] = None,
+                      kv_segment_ids: Optional[torch.Tensor] = None):
+    """The fused blocked backward at the kernel level: q/k/v/do
+    [B, S, H, D], lse/delta/dlse [B, Sq, H] fp32 (dlse None = zeros),
+    segment ids [B, Sq] / [B, Sk] (kv ids default to the q ids) → (dq, dk,
+    dv): ``csrc/flash_bwd_blocked.cu`` on CUDA tensors,
+    ``_blocked_bwd_plain`` on CPU tensors."""
+    return _blocked_bwd(FLASH_BWD_BLOCKED, q, k, v, do, lse, delta, dlse,
+                        causal=causal, scale=scale, window=window,
+                        kv_offset=kv_offset, segment_ids=segment_ids,
+                        kv_segment_ids=kv_segment_ids)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, dlse=None, *, causal: bool = True,
+                 scale: Optional[float] = None, window: Optional[int] = None,
+                 kv_offset: int = 0,
+                 segment_ids: Optional[torch.Tensor] = None,
+                 kv_segment_ids: Optional[torch.Tensor] = None):
+    """The two-pass backward's dq pass at the kernel level (arguments as
+    ``flash_bwd_blocked``) → dq: ``csrc/flash_bwd_dq.cu`` on CUDA tensors,
+    the dense formula on CPU tensors."""
+    return _blocked_bwd(FLASH_BWD_DQ, q, k, v, do, lse, delta, dlse,
+                        causal=causal, scale=scale, window=window,
+                        kv_offset=kv_offset, segment_ids=segment_ids,
+                        kv_segment_ids=kv_segment_ids)[0]
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, dlse=None, *,
+                  causal: bool = True, scale: Optional[float] = None,
+                  window: Optional[int] = None, kv_offset: int = 0,
+                  segment_ids: Optional[torch.Tensor] = None,
+                  kv_segment_ids: Optional[torch.Tensor] = None):
+    """The two-pass backward's dk/dv pass at the kernel level (arguments
+    as ``flash_bwd_blocked``) → (dk, dv): ``csrc/flash_bwd_dkv.cu`` on
+    CUDA tensors, the dense formula on CPU tensors."""
+    return _blocked_bwd(FLASH_BWD_DKV, q, k, v, do, lse, delta, dlse,
+                        causal=causal, scale=scale, window=window,
+                        kv_offset=kv_offset, segment_ids=segment_ids,
+                        kv_segment_ids=kv_segment_ids)[1:]
+
+
+def flash_bwd_blocked_plain(q, k, v, do, lse, delta, dlse=None, *,
+                            causal: bool = True,
+                            scale: Optional[float] = None,
+                            window: Optional[int] = None, kv_offset: int = 0,
+                            segment_ids: Optional[torch.Tensor] = None,
+                            kv_segment_ids: Optional[torch.Tensor] = None):
+    """``flash_bwd_blocked``'s plain version on any device."""
+    return _blocked_bwd(None, q, k, v, do, lse, delta, dlse, causal=causal,
+                        scale=scale, window=window, kv_offset=kv_offset,
+                        segment_ids=segment_ids,
+                        kv_segment_ids=kv_segment_ids)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, dlse=None, **kwargs):
+    """``flash_bwd_dq``'s plain version on any device."""
+    return flash_bwd_blocked_plain(q, k, v, do, lse, delta, dlse,
+                                   **kwargs)[0]
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, dlse=None, **kwargs):
+    """``flash_bwd_dkv``'s plain version on any device."""
+    return flash_bwd_blocked_plain(q, k, v, do, lse, delta, dlse,
+                                   **kwargs)[1:]
+
+
 # ---------------------------------------------------------------------------
 # Dispatch and skip accounting
 # ---------------------------------------------------------------------------
@@ -394,21 +572,25 @@ def _mono_ok(s_q, s_k, block_q, block_k, *, window=None, has_segments=False,
     )
 
 
-def _check_cuda_backward(s_q, s_k, block_q, block_k, *, window=None,
-                         has_segments=False, kv_offset=0) -> None:
-    """The CUDA backward exists for the mono shapes only; refuse the rest
-    by name (never a plain or library fallback)."""
-    if not _mono_ok(s_q, s_k, block_q, block_k, window=window,
-                    has_segments=has_segments, kv_offset=kv_offset):
-        raise NotImplementedError(
-            "flash_attention's CUDA backward covers the monolithic shapes "
-            "only (block == seq, s_q*s_k <= 2^21, no window, segment ids or "
-            f"kv_offset); got s=({s_q}, {s_k}), blocks=({block_q}, "
-            f"{block_k}), window={window}, segment_ids={has_segments}, "
-            f"kv_offset={kv_offset}. Packed-document, windowed and "
-            "seq > block training need the blocked backward kernels "
-            "(the blocked-backward slice)"
-        )
+#: The reference's cap on its fused blocked backward's dq partials
+#: (``[BH, nk, Sq, D]`` fp32 bytes); past it the two-pass kernels run.
+#: Read at call time, so a test or a run can force the two-pass route.
+_FUSED_BWD_PARTIALS_CAP = 1 << 30
+
+
+def _bwd_route(bh, s_q, s_k, d, block_q, block_k, *, window=None,
+               has_segments=False, kv_offset=0) -> str:
+    """The reference's backward route (``_flash_bwd_pallas``): "mono" when
+    ``_mono_ok`` holds; else "fused" while its dq partials
+    ``bh·nk·s_q·d·4`` bytes (nk = key blocks of ``block_k``) fit under
+    ``_FUSED_BWD_PARTIALS_CAP``; else "two_pass"."""
+    if _mono_ok(s_q, s_k, block_q, block_k, window=window,
+                has_segments=has_segments, kv_offset=kv_offset):
+        return "mono"
+    nk = -(-s_k // block_k)
+    if bh * nk * s_q * d * 4 <= _FUSED_BWD_PARTIALS_CAP:
+        return "fused"
+    return "two_pass"
 
 
 def block_skip_stats(s_q: int, s_k: int, block_q: int, block_k: int, *,
@@ -495,19 +677,27 @@ def _flash_core(q, k, v, qseg, kseg, opts: _Opts):
 
 
 def _flash_bwd(q, k, v, o, lse, do, dlse, qseg, kseg, opts: _Opts):
-    """→ (dq, dk, dv) [B, S, H, D]: the mono kernel on CUDA (other shapes
-    refused), the blockwise backward on CPU."""
-    b, s_q, h, _ = q.shape
+    """→ (dq, dk, dv) [B, S, H, D]: on CUDA the kernels of the
+    reference's route (``_bwd_route``), the blockwise backward on CPU."""
+    b, s_q, h, d = q.shape
     s_k = k.shape[1]
     if opts.use_kernel:
-        _check_cuda_backward(
-            s_q, s_k, opts.block_q, opts.block_k, window=opts.window,
-            has_segments=qseg is not None, kv_offset=opts.kv_offset,
-        )
+        route = _bwd_route(b * h, s_q, s_k, d, opts.block_q, opts.block_k,
+                           window=opts.window, has_segments=qseg is not None,
+                           kv_offset=opts.kv_offset)
         # delta = Σ do·o in fp32, outside the kernel (as the reference).
         delta = (do.float() * o.float()).sum(dim=-1)
-        return _flash_bwd_mono_cuda(q, k, v, do, lse, delta, dlse,
-                                    scale=opts.scale, causal=opts.causal)
+        if route == "mono":
+            return _flash_bwd_mono_cuda(q, k, v, do, lse, delta, dlse,
+                                        scale=opts.scale, causal=opts.causal)
+        args = (q, k, v, do, lse, delta, dlse, qseg, kseg)
+        kw = dict(scale=opts.scale, causal=opts.causal, window=opts.window,
+                  kv_offset=opts.kv_offset)
+        if route == "fused":
+            return _flash_bwd_blocked_cuda(FLASH_BWD_BLOCKED, *args, **kw)
+        dq = _flash_bwd_blocked_cuda(FLASH_BWD_DQ, *args, **kw)[0]
+        _, dk, dv = _flash_bwd_blocked_cuda(FLASH_BWD_DKV, *args, **kw)
+        return dq, dk, dv
     grads = _blockwise_bwd_ref(
         _fold(q), _fold(k), _fold(v), _fold(o), _fold(lse), _fold(do),
         scale=opts.scale, causal=opts.causal, block_k=opts.block_k,

@@ -1,12 +1,22 @@
 """Where a train step of the port spends its time, on the card.
 
-    python -m determined_tpu_torch.trainer.profile [--steps 5] [--batch 8]
+    python -m determined_tpu_torch.trainer.profile [--rung headline]
+        [--steps 5] [--batch B] [--seq S]
 
-Builds the headline training configuration — GPT-2-small at full width
-and depth (``gpt.small()``, bf16 compute over fp32 master parameters,
-``remat=False``), seeded random weights, one seeded batch of ``--batch``
-rows of ``--seq`` tokens, ``chain(clip_by_global_norm(1.0),
-adamw(3e-4))`` — behind the ``Trainer``, and runs its guarded step on
+Builds one of ``bench.py``'s training rungs (``RUNGS``) — GPT-2-small at
+full width and depth, bf16 compute over fp32 master parameters, seeded
+random weights, one seeded batch of ``--batch`` rows of ``--seq`` tokens
+(the rung's own by default), ``chain(clip_by_global_norm(1.0),
+adamw(3e-4))``:
+
+- ``headline``: ``remat=False``, batch 8 × seq 1024 (``bench.py``'s
+  headline rung runs batch 24);
+- ``long16k``: the long-context rung, ``remat=True``, ``fused_loss=True``,
+  batch 1 × seq 16384;
+- ``long32k``: the same fields at seq 32768, where ``layer_loop="auto"``
+  also rematerializes attention.
+
+It puts the model behind the ``Trainer`` and runs its guarded step on
 the calling thread: two warm-up steps, ``--steps`` timed with the
 profiler off (host clock around steps that end in a device sync), then
 ``--steps`` under ``torch.profiler``. Prints one JSON line: wall ms per
@@ -55,16 +65,30 @@ def _group(name: str) -> str:
     return "elementwise, reductions, copies"
 
 
+#: bench.py's training rungs: (batch, config). The headline mirrors
+#: ``bench.py``'s ``GPTConfig(remat=False)`` (at batch 8, not 24); the long
+#: rungs its ``long_ctx_mfu_at`` (``remat=True, fused_loss=True``, batch 1).
+RUNGS = {
+    "headline": (8, dataclasses.replace(gpt.small(), remat=False)),
+    "long16k": (1, dataclasses.replace(gpt.small(), seq_len=16384,
+                                       remat=True, fused_loss=True)),
+    "long32k": (1, dataclasses.replace(gpt.small(), seq_len=32768,
+                                       remat=True, fused_loss=True)),
+}
+
+
 class RepeatedBatchTrial(TorchTrial):
-    """GPT-2-small over one seeded batch of random tokens, repeated: a
-    train step at the headline shape with a loss that must fall."""
+    """GPT-2 over one seeded batch of random tokens, repeated: a train
+    step at a rung's shape with a loss that must fall. ``config``
+    (default: the headline rung's) keeps its fields; ``seq`` sets its
+    sequence length."""
 
     def __init__(self, batch: int = 8, seq: int = 1024, *,
                  config: Optional[gpt.GPTConfig] = None, seed: int = 0,
                  lr: float = 3e-4) -> None:
         super().__init__({"lr": lr})
-        self.config = dataclasses.replace(
-            config or gpt.small(), seq_len=seq, remat=False)
+        self.config = dataclasses.replace(config or RUNGS["headline"][1],
+                                          seq_len=seq)
         self.batch = batch
         self.seed = seed
 
@@ -94,15 +118,19 @@ def _device_us(evt) -> float:
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--rung", choices=sorted(RUNGS), default="headline")
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--top", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    trial = RepeatedBatchTrial(args.batch, args.seq)
+    rung_batch, rung_cfg = RUNGS[args.rung]
+    args.batch = args.batch or rung_batch
+    args.seq = args.seq or rung_cfg.seq_len
+    trial = RepeatedBatchTrial(args.batch, args.seq, config=rung_cfg)
     trainer = Trainer(trial)
     batch = trainer._put_batch(next(iter(trial.build_training_data())))
     for _ in range(2):  # warm-up: kernel builds, allocator, cuBLAS plans
@@ -143,7 +171,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = trial.config
     out = {
         "device": torch.cuda.get_device_name(0),
-        "config": "gpt2-small bf16 remat=False",
+        "rung": args.rung,
+        "config": f"gpt2-small bf16 remat={cfg.remat} "
+                  f"fused_loss={cfg.fused_loss} "
+                  f"remat_attention={gpt.remat_attention(cfg)}",
         "batch": args.batch, "seq": args.seq, "steps": args.steps,
         "loss": float(metrics["loss"]),
         "wall_ms_per_step": wall_ms,

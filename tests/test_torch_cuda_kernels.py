@@ -3,7 +3,10 @@ card: every head dim the kernels are built for, both dtypes, the masking
 contract (causal, window, kv_offset, segment ids), odd page sizes,
 ragged q_lens up to the 16-row limit, strided inputs, the mono forward
 and backward (causal or not, ragged tiles, a nonzero lse cotangent), the
-gradient routing of flash_attention_lse, and the wrappers' refusals.
+three blocked backward kernels (fused, dq pass, dk/dv pass) over causal /
+full × window × segment ids × kv_offset with a nonzero lse cotangent, the
+gradient routing of flash_attention_lse (mono, fused, two-pass), and the
+wrappers' refusals.
 Marked ``cuda``; each test skips without a CUDA device. On the chip (the
 root and tests/ conftests import JAX, which that machine does not
 have)::
@@ -117,8 +120,8 @@ def test_kernel_refusals(dev):
     segs = torch.ones((1, 8), dtype=torch.int32, device=dev)
     qg = q.clone().requires_grad_()
     o = tfa.flash_attention(qg, q, q, segment_ids=segs)  # blocked forward
-    with pytest.raises(NotImplementedError, match="blocked-backward slice"):
-        o.sum().backward()
+    o.sum().backward()  # the fused blocked backward takes segment ids
+    assert torch.isfinite(qg.grad).all()
     q48 = torch.randn((1, 8, 2, 48), device=dev)
     with pytest.raises(ValueError, match="head_dim 48"):
         tfa.flash_attention(q48, q48, q48)
@@ -138,14 +141,20 @@ def test_kernel_refusals(dev):
 
 def test_launch_counters_count_launches(dev):
     q = torch.randn((1, 64, 2, 64), device=dev)
-    kernels = (tfa.FLASH_FWD, tfa.FLASH_FWD_MONO, tfa.FLASH_BWD_MONO)
+    kernels = (tfa.FLASH_FWD, tfa.FLASH_FWD_MONO, tfa.FLASH_BWD_MONO,
+               tfa.FLASH_BWD_BLOCKED, tfa.FLASH_BWD_DQ, tfa.FLASH_BWD_DKV)
     before = [k.launches for k in kernels]
     tfa.flash_attention(q, q, q, block_q=32, block_k=32)  # blocked
     tfa.flash_attention_lse_plain(q, q, q)
     qg = q.clone().requires_grad_()
     tfa.flash_attention(qg, q, q).sum().backward()  # mono fwd + bwd
     tfa.flash_fwd_mono_plain(q, q, q)
-    assert [k.launches - n for k, n in zip(kernels, before)] == [1, 1, 1]
+    o = tfa.flash_attention(qg, q, q, block_q=32, block_k=32)
+    o.sum().backward()  # blocked fwd + fused blocked bwd
+    lse = torch.zeros((1, 64, 2), device=dev)
+    tfa.flash_bwd_blocked_plain(q, q, q, q, lse, lse)
+    assert [k.launches - n for k, n in zip(kernels, before)] == \
+        [2, 1, 1, 1, 0, 0]
 
 
 def _mono_inputs(dev, dtype, head_dim, s_q, s_k, seed):
@@ -200,6 +209,78 @@ def test_flash_attention_grad_routes_through_mono(dev, dtype):
         o, lse = fn(*xs, block_q=256, block_k=256)
         torch.autograd.backward([o, lse], [do, dlse])
         grads.append([x.grad for x in xs])
+    for g, w in zip(*grads):
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+        else:
+            _close(dtype, g, w)
+
+
+BLOCKED_MASKS = [  # causal, window, kv_offset, segments
+    (False, None, 0, False), (True, None, 0, False), (True, None, 0, True),
+    (True, 40, 0, False), (True, None, 70, True), (True, 50, 70, True),
+    (False, None, 70, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("head_dim", [16, 64, 128])
+@pytest.mark.parametrize("causal,window,kv_offset,segs", BLOCKED_MASKS)
+def test_blocked_backward_kernels_match_plain(dev, dtype, head_dim, causal,
+                                              window, kv_offset, segs):
+    """flash_bwd_blocked, flash_bwd_dq and flash_bwd_dkv against the dense
+    formula, on ragged tiles (s_k = 300) with strided inputs."""
+    rng = np.random.default_rng(head_dim + kv_offset + (window or 0))
+    s_k = 300
+    s_q = s_k - kv_offset
+    q, k, v, do, dlse = _mono_inputs(dev, dtype, head_dim, s_k, s_k,
+                                     head_dim + kv_offset)
+    q, do, dlse = q[:, kv_offset:], do[:, kv_offset:], dlse[:, kv_offset:]
+    kw = dict(causal=causal, window=window, kv_offset=kv_offset)
+    if segs:
+        kseg = torch.from_numpy(_packed(rng, 2, s_k)).to(dev)
+        kw.update(segment_ids=kseg[:, kv_offset:], kv_segment_ids=kseg)
+    o, lse = tfa.flash_attention_lse_plain(q, k, v, block_q=s_q,
+                                           block_k=s_k, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, dlse)
+    want = tfa.flash_bwd_blocked_plain(*args, **kw)
+    got = [tfa.flash_bwd_blocked(*args, **kw),
+           (tfa.flash_bwd_dq(*args, **kw), *tfa.flash_bwd_dkv(*args, **kw))]
+    for grads in got:
+        for g, w in zip(grads, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            if dtype == torch.float32:
+                torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+            else:
+                _close(dtype, g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("cap", [None, 0], ids=["fused", "two-pass"])
+def test_flash_attention_grad_routes_through_blocked(dev, dtype, cap,
+                                                     monkeypatch):
+    """autograd through flash_attention_lse at a blocked shape (packed
+    documents and a window) launches the route's kernels and agrees with
+    the plain path's gradients."""
+    if cap is not None:
+        monkeypatch.setattr(tfa, "_FUSED_BWD_PARTIALS_CAP", cap)
+    rng = np.random.default_rng(5)
+    q, k, v, do, dlse = _mono_inputs(dev, dtype, 64, 256, 256, 5)
+    segs = torch.from_numpy(_packed(rng, 2, 256)).to(dev)
+    kernels = (tfa.FLASH_BWD_BLOCKED, tfa.FLASH_BWD_DQ, tfa.FLASH_BWD_DKV)
+    before = [kern.launches for kern in kernels]
+    grads = []
+    for fn in (tfa.flash_attention_lse, tfa.flash_attention_lse_plain):
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        o, lse = fn(*xs, block_q=128, block_k=128, window=100,
+                    segment_ids=segs)
+        torch.autograd.backward([o, lse], [do, dlse])
+        grads.append([x.grad for x in xs])
+    counts = [kern.launches - n for kern, n in zip(kernels, before)]
+    assert counts == ([1, 0, 0] if cap is None else [0, 1, 1])
     for g, w in zip(*grads):
         if dtype == torch.float32:
             torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)

@@ -10,8 +10,9 @@ CPU at fp32.
   both outputs, a nonzero lse cotangent — against ``jax.grad`` through
   the reference's, over the mask grid causal × window × segment ids ×
   kv_offset.
-- The backward's routing: the CUDA backward exists at mono shapes only,
-  and every other shape is refused by name.
+- The backward's routing at the shapes the mono kernels refuse and
+  accept: ``_bwd_route`` keeps the reference's predicate (the blocked
+  route's own grid is in ``test_torch_flash_blocked_backward.py``).
 
 Same inputs, made with numpy from a seed. Tolerances: 2e-5 absolute on
 outputs and gradients (fp32 on both sides; only the summation order
@@ -186,7 +187,7 @@ def test_segment_ids_get_no_gradient():
 def test_cuda_backward_route_accepts_mono_shapes(kw):
     s_q, s_k, bq, bk = kw["s_q"], kw["s_k"], kw["block_q"], kw["block_k"]
     assert tfa._mono_ok(s_q, s_k, bq, bk) == jfa._mono_ok(s_q, s_k, bq, bk)
-    tfa._check_cuda_backward(s_q, s_k, bq, bk)
+    assert tfa._bwd_route(24, s_q, s_k, 64, bq, bk) == "mono"
 
 
 @pytest.mark.parametrize("kw", [
@@ -196,10 +197,18 @@ def test_cuda_backward_route_accepts_mono_shapes(kw):
     dict(s=1024, block=1024, has_segments=True),  # packed documents
     dict(s=1024, block=1024, kv_offset=8),
 ])
-def test_cuda_backward_refuses_other_shapes_by_name(kw):
+def test_cuda_backward_refuses_other_shapes_by_name(kw, monkeypatch):
+    """Checks that these shapes route to the blocked kernels (the name
+    dates from the slice that refused them): the mono kernels refuse them
+    by the reference's predicate, and the backward goes to the blocked
+    kernels the reference would run: fused, since the dq partials stay
+    under the cap, or two-pass with the cap at 0."""
     kw = dict(kw)
     s, block = kw.pop("s"), kw.pop("block")
-    assert tfa._mono_ok(s, s, block, block, **kw) == \
-        jfa._mono_ok(s, s, block, block, **kw)
-    with pytest.raises(NotImplementedError, match="blocked-backward slice"):
-        tfa._check_cuda_backward(s, s, block, block, **kw)
+    assert not tfa._mono_ok(s, s, block, block, **kw)
+    assert not jfa._mono_ok(s, s, block, block, **kw)
+    nk = s // block
+    assert 24 * nk * s * 64 * 4 <= jfa._FUSED_BWD_PARTIALS_CAP
+    assert tfa._bwd_route(24, s, s, 64, block, block, **kw) == "fused"
+    monkeypatch.setattr(tfa, "_FUSED_BWD_PARTIALS_CAP", 0)
+    assert tfa._bwd_route(24, s, s, 64, block, block, **kw) == "two_pass"

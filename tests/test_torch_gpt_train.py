@@ -4,7 +4,9 @@ size: weights carried over with load_jax_params from the reference's
 GPT.init, then the loss, its metrics and EVERY gradient leaf
 (torch.autograd.grad against jax.grad of GPT.loss) for plain next-token
 batches, a loss_mask with packed segment_ids, and pre-shifted targets,
-with remat off and on.
+with remat off and on; then the long-context configurations: the chunked
+loss (fused_loss), rematted attention (remat_attention, and the auto
+switch past 16384 tokens) and a sliding window.
 
 Tolerances: loss and metrics 1e-5 relative; gradients 1e-6 absolute
 (leaves are O(1e-2) or smaller; fp32 on both sides, only the summation
@@ -119,17 +121,70 @@ def test_config_arithmetic_matches_reference():
         assert tc.train_flops_per_token() == jc.train_flops_per_token()
 
 
+def _check_against_jax(cfg_kw, batch, model=None):
+    """Loss, metrics and every gradient leaf of the port's GPT.loss
+    against jax.grad of the reference's, from the same GPT.init
+    parameters, at fp32."""
+    jm = jgpt.GPT(jgpt.GPTConfig(dtype=jnp.float32, **cfg_kw))
+    params = jm.init(jax.random.PRNGKey(0))
+    tm = tgpt.load_jax_params(
+        tgpt.GPT(tgpt.GPTConfig(dtype=torch.float32, **cfg_kw), device="cpu"),
+        jax.device_get(params))
+    (jl, jmet), jg = jax.value_and_grad(
+        lambda p: jm.loss(p, {k: jnp.asarray(v) for k, v in batch.items()},
+                          None), has_aux=True)(params)
+    tl, tmet = tm.loss({k: torch.from_numpy(v) for k, v in batch.items()})
+    for k in ("loss", "accuracy", "tokens"):
+        np.testing.assert_allclose(float(tmet[k].detach()), float(jmet[k]),
+                                   rtol=1e-5, atol=0, err_msg=k)
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
+    want = dict(tgpt._flatten(jax.device_get(jg)))
+    names = [n for n, _ in tm.named_parameters()]
+    grads = torch.autograd.grad(tl, list(tm.parameters()))
+    for n, g in zip(names, grads):
+        np.testing.assert_allclose(g.numpy(), want[n], atol=1e-6, rtol=0,
+                                   err_msg=n)
+
+
 @pytest.mark.parametrize("field,value", [
     ("fused_loss", True), ("remat_attention", True), ("seq_len", 32768),
 ])
 def test_loss_refuses_later_slices_by_name(field, value):
-    cfg = tgpt.GPTConfig(**{**KW, field: value, "n_layers": 1})
-    model = tgpt.GPT(cfg, device="cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError,
-                       match="fused_loss" if field == "fused_loss"
-                       else "remat_attention"):
-        model.loss({"tokens": tokens})
+    """Checks that the long-context knobs match the reference (the name
+    dates from the slice that refused them): the chunked loss and
+    rematted attention match the reference on packed documents, and
+    seq_len past 16384 turns rematted attention on by itself
+    (layer_loop="auto"), as in the reference."""
+    if field == "seq_len":
+        cfg = tgpt.GPTConfig(**{**KW, field: value, "n_layers": 1})
+        assert tgpt.remat_attention(cfg)
+        assert not tgpt.remat_attention(
+            dataclasses.replace(cfg, layer_loop="scan"))
+        assert not tgpt.remat_attention(dataclasses.replace(cfg,
+                                                            seq_len=16384))
+        model = tgpt.GPT(cfg, device="cpu")
+        plain = tgpt.GPT(dataclasses.replace(cfg, remat=False), device="cpu")
+        plain.load_state_dict(model.state_dict())
+        tokens = torch.from_numpy(_batches()["tokens"]["tokens"][:1, :16])
+        loss = model.loss({"tokens": tokens})[0]
+        np.testing.assert_allclose(
+            float(loss.detach()),
+            float(plain.loss({"tokens": tokens})[0].detach()),
+            rtol=1e-6)
+        (g,) = torch.autograd.grad(loss, [model.blocks["wqkv"]])
+        assert torch.isfinite(g).all() and float(g.abs().sum()) > 0
+        return
+    _check_against_jax({**KW, field: value}, _batches()["masked-packed"])
+
+
+@pytest.mark.parametrize("batch", ["masked-packed", "pre-shifted"])
+@pytest.mark.parametrize("cfg", [
+    dict(fused_loss=True),
+    dict(remat_attention=True, attn_window=16),
+    dict(fused_loss=True, remat_attention=True, attn_window=16, z_loss=0.0),
+], ids=["fused", "remat-attn-window", "fused-remat-attn-window"])
+def test_long_context_losses_match_jax(cfg, batch):
+    _check_against_jax({**KW, **cfg}, _batches()[batch])
 
 
 @pytest.mark.parametrize("causal,window,segments", [

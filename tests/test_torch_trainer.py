@@ -368,3 +368,80 @@ def test_poisoned_step_is_skipped_in_place():
     metrics = trainer._train_step(batch)
     assert int(metrics["sentinel_skipped"]) == 0
     assert int(metrics["sentinel_skips"]) == 0
+
+
+# ---------------------------------------------------------------------------
+# Trainer.fit on packed documents through the chunked loss
+# ---------------------------------------------------------------------------
+LONG_KW = dict(KW, fused_loss=True, remat=True, remat_attention=True,
+               attn_window=12)
+PACKED_STEPS = 4
+
+
+def _packed_stream():
+    """pack_sequences of seeded random documents of 3-20 tokens."""
+    from determined_tpu_torch.batch_inference import pack_sequences
+
+    rng = np.random.default_rng(11)
+    docs = (rng.integers(1, 128, int(n)).tolist()
+            for n in rng.integers(3, 21, size=10_000))
+    yield from pack_sequences(docs, 32, 8)
+
+
+def test_fit_on_packed_documents_with_the_chunked_loss_matches_jax():
+    """fused_loss, rematted attention and a window on packed batches:
+    every reported loss and grad norm equals the JAX Trainer's."""
+    class JPacked(_JTrial):
+        def build_model(self, mesh):
+            return jgpt.GPT(jgpt.GPTConfig(dtype=jnp.float32, **LONG_KW),
+                            mesh=mesh)
+
+        def build_training_data(self):
+            return _packed_stream()
+
+    class TPacked(_TTrial):
+        def build_model(self, device):
+            model = tgpt.GPT(tgpt.GPTConfig(dtype=torch.float32, **LONG_KW),
+                             device=device)
+            return tgpt.load_jax_params(model, self.tree)
+
+        def build_training_data(self):
+            return _packed_stream()
+
+    tree = jax.device_get(
+        jgpt.GPT(jgpt.GPTConfig(dtype=jnp.float32, **LONG_KW)).init(
+            jax.random.PRNGKey(0)))
+    jctx, tctx = jcore._context._dummy_init(), tcore._dummy_init()
+    JTrainer(JPacked(), jctx, seed=0).fit(max_length=JBatch(PACKED_STEPS),
+                                         report_period=JBatch(1))
+    Trainer(TPacked(tree), tctx, device="cpu", seed=0).fit(
+        max_length=Batch(PACKED_STEPS), report_period=Batch(1))
+    jrep, trep = _training(jctx), _training(tctx)
+    assert len(trep) == len(jrep) == PACKED_STEPS
+    for (step, jm), (_, tm) in zip(jrep, trep):
+        for key in ("loss", "grad_norm", "accuracy", "tokens"):
+            np.testing.assert_allclose(tm[key], jm[key], rtol=1e-5,
+                                       err_msg=f"{key} @ {step}")
+
+
+@pytest.mark.parametrize("rung,batch,fields", [
+    ("headline", 8, dict(remat=False)),
+    ("long16k", 1, dict(seq_len=16384, remat=True, fused_loss=True)),
+    ("long32k", 1, dict(seq_len=32768, remat=True, fused_loss=True)),
+])
+def test_profile_rungs_mirror_the_bench(rung, batch, fields):
+    """trainer/profile.py's presets carry bench.py's GPTConfig fields
+    (every field but the dtypes), and the trial keeps them."""
+    import dataclasses
+
+    from determined_tpu_torch.trainer import profile
+
+    b, cfg = profile.RUNGS[rung]
+    want = jgpt.GPTConfig(**fields)
+    assert b == batch
+    for f in dataclasses.fields(want):
+        if f.name not in ("dtype", "param_dtype"):
+            assert getattr(cfg, f.name) == getattr(want, f.name), f.name
+    trial = profile.RepeatedBatchTrial(b, 64, config=cfg)
+    assert trial.config == dataclasses.replace(cfg, seq_len=64)
+    assert tgpt.remat_attention(cfg) == (rung == "long32k")

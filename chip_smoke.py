@@ -18,25 +18,29 @@ script exits non-zero without the final result line:
    fp32 (atol 1e-5; the mono and fused blocked backward sum dq with fp32
    atomics in no fixed order, hence also rtol 1e-5 for every backward);
    kernel, plain and library (SDPA) times with the bound (max of FLOPs /
-   peak and bytes / 3.35 TB/s). The flash forward and paged kernels run
-   at the serving shapes; the mono pair at (B 2, S 1024, causal), (B 2,
-   S 512, non-causal) and with a nonzero lse cotangent, and is timed at
-   the train phase's shape (B 8, S 1024, H 12, D 64, causal, bf16)
+   peak and bytes / 3.35 TB/s), the TFLOP/s on live pairs and the share
+   of the bound. The flash forward is held against its own plain version
+   (``flash_fwd_plain``, p rounded to bf16 where the kernel rounds it)
+   and against the entry point's plain path
+   (``flash_attention_lse_plain``). The flash forward and paged kernels
+   run at the serving shapes; the mono pair at (B 2, S 1024, causal), (B
+   2, S 512, non-causal) and with a nonzero lse cotangent, and is timed
+   at the train phase's shape (B 8, S 1024, H 12, D 64, causal, bf16)
    against SDPA's forward and, on a retained graph, SDPA's backward
    alone. The blocked backward kernels — the fused ``flash_bwd_blocked``
    and the two-pass ``flash_bwd_dq`` + ``flash_bwd_dkv`` — run
    ``BLOCKED_CASES`` (causal at S 2048, a 256 window, packed segments,
    kv_offset with s_q 512 and s_k 1024, a nonzero lse cotangent, all of
-   them at once), then the shapes the main paths give them, in bf16:
-   the packed phase's batch (B 8 × 1024, its ``pack_sequences`` segment
-   ids; ``flash_fwd`` too), and the long-context shapes (B 1, H 12, D
-   64, causal): ``flash_fwd`` and the fused kernel at S 16384 against
-   SDPA, the two passes and the fused kernel at S 32768. At the long
-   shapes the plain backward runs one head at a time (one [S, S] fp32
-   matrix per call); each kernel is held against it and timed beside it
-   on the same inputs, and both once more at S ``PLAIN_SEQ`` = 4096.
-   The ``max_abs_err`` of rows 4–6 in the kernels line comes from these
-   main-path shapes; every row names its ``shape``.
+   them at once), then the shapes the main paths give them, in bf16: the
+   packed phase's batch (B 8 × 1024, its ``pack_sequences`` segment ids;
+   ``flash_fwd`` too; both timed), and the long-context shapes (B 1, H
+   12, D 64, causal): ``flash_fwd`` and the fused kernel at S 16384
+   against SDPA, the two passes and the fused kernel at S 32768. At the
+   long shapes the plain versions run one head at a time (one [S, S]
+   fp32 matrix per call); each kernel is held against it and timed
+   beside it on the same inputs, and both once more at S ``PLAIN_SEQ`` =
+   4096. The ``max_abs_err`` of rows 4–6 in the kernels line comes from
+   these main-path shapes; every row names its ``shape``.
 4. engine — GPT-2-small at full width (bf16, seeded random weights)
    behind ``build_engine``: 8 requests, then 4 late joiners while the
    first are mid-decode; every request must finish with reason
@@ -76,19 +80,19 @@ script exits non-zero without the final result line:
    ``flash_bwd_blocked`` launches and no other port kernel; step ms,
    tokens/s, MFU, peak memory.
 9. train-32k — the long32k rung at full width with its depth cut to 2
-   layers (the blocked forward runs its products as fp32 FMAs, twice per
-   layer under rematted attention: at full depth one step would take
-   many seconds), 2 steps: rematted attention (``layer_loop="auto"`` past 16384
-   tokens), so per step 2 ``flash_fwd`` launches per layer (the forward
-   and its recompute) and one ``flash_bwd_dq`` and one ``flash_bwd_dkv``
-   per layer, nothing else.
+   layers (the two-pass backward takes ~190 ms a layer at 32k: at full
+   depth one step would take seconds), 2 steps: rematted attention
+   (``layer_loop="auto"`` past 16384 tokens), so per step 2
+   ``flash_fwd`` launches per layer (the forward and its recompute) and
+   one ``flash_bwd_dq`` and one ``flash_bwd_dkv`` per layer, nothing
+   else.
 10. train-packed — ``gpt.small()`` at B 8 × 1024 on one repeated
    ``pack_sequences`` batch of seeded random documents of 32–1024
    tokens, 5 steps: the loss falls, per step 12 ``flash_fwd`` and 12
    ``flash_bwd_blocked`` launches and no mono launch.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the whole run's seconds, the kernels' JSON record,
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import json
@@ -150,14 +154,9 @@ def card_line() -> str:
 def packed_batch(b, s, seed, vocab):
     """One ``pack_sequences`` batch [b, s] of seeded random documents of
     32-1024 tokens below `vocab` (tokens, segment_ids, loss_mask)."""
-    import numpy as np
+    from determined_tpu_torch.trainer.profile import packed_batch as batch
 
-    from determined_tpu_torch.batch_inference import pack_sequences
-
-    rng = np.random.default_rng(seed)
-    docs = (rng.integers(1, vocab, int(n)).tolist()
-            for n in rng.integers(32, 1025, size=100_000))
-    return next(pack_sequences(docs, s, b))
+    return batch(b, s, seed, vocab)
 
 
 class Smoke:
@@ -241,10 +240,18 @@ class Smoke:
         kw = dict(causal=True, window=window, kv_offset=kv_offset,
                   segment_ids=qseg, kv_segment_ids=kseg,
                   block_q=min(block, s_q), block_k=min(block, s_k))
+        fw = dict(causal=True, window=window, kv_offset=kv_offset,
+                  segment_ids=qseg, kv_segment_ids=kseg)
         o_k, lse_k = tfa.flash_attention_lse(q, k, v, **kw)
         o_p, lse_p = tfa.flash_attention_lse_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         self.check(name, dtype, o_k, o_p, lse_k, lse_p)
+        # the kernel against its own plain version (p rounded where the
+        # kernel rounds it)
+        o_k, lse_k = tfa.flash_fwd(q, k, v, **fw)
+        o_p, lse_p = tfa.flash_fwd_plain(q, k, v, **fw)
+        torch.cuda.synchronize()
+        self.check(f"{name} kernel-level", dtype, o_k, o_p, lse_k, lse_p)
         err = float((o_k.float() - o_p.float()).abs().max())
 
         # dense mask of the same function: band + segments → live pairs
@@ -261,17 +268,22 @@ class Smoke:
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * item \
             + 4 * b * s_q * h + (4 * b * (s_q + s_k) if qseg is not None else 0)
         bound_ms, bound_by = self.bound(4.0 * d * live, nbytes, dtype)
-        ms = self.time_ms(lambda: tfa.flash_attention_lse(q, k, v, **kw))
+        ms = self.time_ms(lambda: tfa.flash_fwd(q, k, v, **fw))
         plain_ms = self.time_ms(
-            lambda: tfa.flash_attention_lse_plain(q, k, v, **kw), iters=5)
+            lambda: tfa.flash_fwd_plain(q, k, v, **fw), iters=5)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         attn_mask = mask[:, None]
         library_ms = self.time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=attn_mask))
         rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                   **self.rates(4.0 * d * live, ms, bound_ms))
         self.report("kernels", f"flash_fwd {name} {str(dtype)[6:]}", rec)
         return rec
+
+    def rates(self, flops, ms, bound_ms):
+        """A record's TFLOP/s on live pairs and share of the bound."""
+        return dict(tflops=flops / ms / 1e9, bound_share=bound_ms / ms)
 
     # -- phase 3: paged decode ------------------------------------------------
     def paged_case(self, name, dtype, *, q_rows, ragged, seed=0):
@@ -330,7 +342,8 @@ class Smoke:
 
         library_ms = self.time_ms(library)
         rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                   **self.rates(flops, ms, bound_ms))
         self.report("kernels", f"paged_attention {name} {str(dtype)[6:]}", rec)
         return rec
 
@@ -387,33 +400,39 @@ class Smoke:
             + 3 * q.numel() * item, dtype)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         recs = []
-        for kernel, plain, library, (bound_ms, bound_by), err in (
-            (lambda: tfa.flash_fwd_mono(q, k, v, causal=causal),
+        for kname, per_pair, kernel, plain, library, (bound_ms, bound_by), \
+                err in (
+            ("flash_fwd_mono", 4,
+             lambda: tfa.flash_fwd_mono(q, k, v, causal=causal),
              lambda: tfa.flash_fwd_mono_plain(q, k, v, causal=causal),
              lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                     is_causal=causal),
              fwd_bound, fwd_err),
-            (lambda: tfa.flash_bwd_mono(*bwd_args, causal=causal),
+            ("flash_bwd_mono", 10,
+             lambda: tfa.flash_bwd_mono(*bwd_args, causal=causal),
              lambda: tfa.flash_bwd_mono_plain(*bwd_args, causal=causal),
              self.sdpa_backward(qh, kh, vh, do, causal),
              bwd_bound, bwd_err),
         ):
+            ms = self.time_ms(kernel)
             recs.append(dict(
-                ms=self.time_ms(kernel), plain_ms=self.time_ms(plain, iters=5),
+                ms=ms, plain_ms=self.time_ms(plain, iters=5),
                 library_ms=self.time_ms(library), bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=err,
+                **self.rates(per_pair * d * live, ms, bound_ms),
             ))
         self.report("kernels", f"flash_fwd_mono {tag}", recs[0])
         self.report("kernels", f"flash_bwd_mono {tag}", recs[1])
         return recs
 
-    def sdpa_backward(self, qh, kh, vh, do, causal):
+    def sdpa_backward(self, qh, kh, vh, do, causal, attn_mask=None):
         """SDPA's backward alone: autograd.grad over a retained graph."""
         import torch
         import torch.nn.functional as F
 
         xs = [x.detach().requires_grad_() for x in (qh, kh, vh)]
-        out = F.scaled_dot_product_attention(*xs, is_causal=causal)
+        out = F.scaled_dot_product_attention(*xs, is_causal=causal,
+                                             attn_mask=attn_mask)
         doh = do.transpose(1, 2).contiguous()
         return lambda: torch.autograd.grad(out, xs, doh, retain_graph=True)
 
@@ -482,6 +501,17 @@ class Smoke:
             err = max(err, float((g.float() - w.float()).abs().max()))
         return err
 
+    def fwd_plain_by_head(self, q, k, v):
+        """flash_fwd_plain (causal) one head at a time → (o, lse)."""
+        import torch
+
+        from determined_tpu_torch.ops import flash_attention as tfa
+
+        parts = [tfa.flash_fwd_plain(q[:, :, i:i + 1], k[:, :, i:i + 1],
+                                     v[:, :, i:i + 1], causal=True)
+                 for i in range(q.shape[2])]
+        return tuple(torch.cat(x, dim=2) for x in zip(*parts))
+
     def plain_by_head(self, args, kw):
         """The dense plain backward one head at a time, so one [S, S] fp32
         score matrix is live per call (1.1 GB at S 16384, 4.3 GB at 32768)
@@ -497,9 +527,12 @@ class Smoke:
         ]
         return tuple(torch.cat(g, dim=2) for g in zip(*parts))
 
-    def blocked_case(self, name, dtype, **shape):
+    def blocked_case(self, name, dtype, timed=False, **shape):
         """flash_bwd_blocked, and flash_bwd_dq + flash_bwd_dkv, against the
-        dense plain formula on the same inputs → largest differences."""
+        dense plain formula on the same inputs → largest differences. With
+        `timed`, also the fused kernel's record at this shape: its time,
+        the plain formula's, SDPA's backward alone under the same dense
+        mask, and the bound."""
         import torch
 
         from determined_tpu_torch.ops import flash_attention as tfa
@@ -514,6 +547,33 @@ class Smoke:
                                            want)
         self.report("kernels", f"blocked-backward {name} {str(dtype)[6:]}",
                     {f"{k}_max_abs_err": v for k, v in errs.items()})
+        if not timed:
+            return errs
+        q, k, v, do = args[:4]
+        b, s_q, h, d = q.shape
+        s_k = k.shape[1]
+        rows = torch.arange(s_q, device=self.dev)[:, None] + kw["kv_offset"]
+        cols = torch.arange(s_k, device=self.dev)[None, :]
+        mask = (rows >= cols)[None].expand(b, s_q, s_k)
+        if kw.get("segment_ids") is not None:
+            mask = mask & (kw["segment_ids"][:, :, None]
+                           == kw["kv_segment_ids"][:, None, :])
+        live = int(mask.sum()) * h
+        item = q.element_size()
+        nbytes = 7 * q.numel() * item + 2 * 4 * b * s_q * h
+        bound_ms, bound_by = self.bound(10.0 * d * live, nbytes, dtype)
+        ms = self.time_ms(lambda: tfa.flash_bwd_blocked(*args, **kw))
+        plain_ms = self.time_ms(
+            lambda: tfa.flash_bwd_blocked_plain(*args, **kw), iters=5)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms = self.time_ms(self.sdpa_backward(
+            qh, kh, vh, do, False, attn_mask=mask[:, None]))
+        rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   max_abs_err=errs["flash_bwd_blocked"],
+                   **self.rates(10.0 * d * live, ms, bound_ms))
+        self.report("kernels", f"flash_bwd_blocked {name} "
+                    f"{str(dtype)[6:]}", rec)
         return errs
 
     def long_timed(self, seq, kernels):
@@ -554,13 +614,22 @@ class Smoke:
             bwd_plain_ms = None
             for name in kernels:
                 if name == "flash_fwd":
-                    kernel = lambda: tfa.flash_attention_lse(q, k, v, **blk)
-                    plain = lambda: tfa.flash_attention_lse_plain(q, k, v,
-                                                                  **blk)
-                    (o_k, lse_k), (o_p, lse_p) = kernel(), plain()
+                    kernel = lambda: tfa.flash_fwd(q, k, v, causal=True)
+                    if big:
+                        plain = lambda: self.fwd_plain_by_head(q, k, v)
+                    else:
+                        plain = lambda: tfa.flash_fwd_plain(q, k, v,
+                                                            causal=True)
+                    o_k, lse_k = kernel()
+                    o_p, lse_p = tfa.flash_attention_lse_plain(q, k, v,
+                                                               **blk)
                     torch.cuda.synchronize()
                     self.check(f"flash_fwd long S{s}", bf16, o_k, o_p, lse_k,
                                lse_p)
+                    o_p, lse_p = plain()
+                    torch.cuda.synchronize()
+                    self.check(f"flash_fwd long S{s} kernel-level", bf16, o_k,
+                               o_p, lse_k, lse_p)
                     err = float((o_k.float() - o_p.float()).abs().max())
                     del o_k, lse_k, o_p, lse_p
                     plain_ms = self.time_ms(plain, iters=plain_it, warmup=1)
@@ -604,7 +673,8 @@ class Smoke:
                     library_ms=(sdpa_ms if name in ("flash_fwd",
                                                     "flash_bwd_blocked")
                                 else None),
-                    sdpa_ms=sdpa_ms)
+                    sdpa_ms=sdpa_ms,
+                    **self.rates(flops, ms, bound_ms))
             del args, q, k, v, do, want, plain_bwd
             torch.cuda.empty_cache()
         for name, rec in recs.items():
@@ -987,6 +1057,7 @@ class Smoke:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1051,8 +1122,8 @@ def main() -> int:
         "segment_ids"]
     smoke.flash_case("packed-b8x1024", bf16, b=8, s_q=1024, s_k=1024,
                      segs=packed_ids, block=1024)
-    packed_err = smoke.blocked_case("packed-b8x1024", bf16, b=8, s_q=1024,
-                                    s_k=1024, segs=packed_ids)
+    packed_err = smoke.blocked_case("packed-b8x1024", bf16, timed=True, b=8,
+                                    s_q=1024, s_k=1024, segs=packed_ids)
     long16 = smoke.long_timed(16384, ("flash_fwd", "flash_bwd_blocked"))
     long32 = smoke.long_timed(32768, ("flash_bwd_dq", "flash_bwd_dkv",
                                       "flash_bwd_blocked"))
@@ -1101,8 +1172,11 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "shape": shape,
+            "shape": shape, "tflops": rec["tflops"],
+            "bound_share": rec["bound_share"],
         })
+    print(f"phase total: seconds={time.perf_counter() - t_start:.1f} "
+          f"| card {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -144,14 +144,16 @@ class CudaKernel:
         self.launches += 1
 
     def ptxas_report(self) -> List[str]:
-        """The -Xptxas -v lines naming registers, spills and shared
-        memory, from this library's build log."""
+        """The -Xptxas -v lines naming each kernel (mangled), its
+        registers, spills and shared memory, from this library's build
+        log."""
         log = self.library_path().with_suffix(".log")
         if not log.exists():
             return []
         return [
             line.strip() for line in log.read_text().splitlines()
             if "registers" in line or "spill" in line
+            or "Function properties for" in line
         ]
 
 

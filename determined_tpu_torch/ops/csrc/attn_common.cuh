@@ -20,6 +20,8 @@ namespace dtpu {
 // turn the m-subtraction of a fully masked row into NaN.
 constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 4;
+// Returned by an entry point whose TMA tensor map could not be encoded.
+constexpr int kTmaEncodeError = 999;
 constexpr int kThreads = kWarps * 32;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -166,5 +168,8 @@ __device__ __forceinline__ void write_row(const RowState<D>& st, T* o_row,
 
 // Error text for a code returned by an entry point of this library.
 extern "C" const char* dtpu_error_string(int code) {
+  if (code == dtpu::kTmaEncodeError)
+    return "cuTensorMapEncodeTiled refused a tensor map (base or strides "
+           "not 16-byte aligned?)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -266,15 +266,13 @@ int dispatch_blocked(int d, const BlockedBwdParams& p, cudaStream_t stream) {
   }
 }
 
-// The entry points' common body: fill the parameters and dispatch on the
-// dtype (0 = float32, 1 = bfloat16) and head dim.
-template <template <typename, int, int, int> class Launch>
-int blocked_entry(int dtype, int head_dim, const void* q, const void* k,
-                  const void* v, const void* dout, const float* lse,
-                  const float* delta, const float* dlse, const int* qseg,
-                  const int* kseg, void* dq, void* dk, void* dv, int B, int H,
-                  int Sq, int Sk, const long long* strides, int causal,
-                  int window, int kv_offset, float scale, void* stream) {
+// The entry points' parameters from their C arguments.
+inline BlockedBwdParams make_blocked_params(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, const float* dlse, const int* qseg,
+    const int* kseg, void* dq, void* dk, void* dv, int B, int H, int Sq,
+    int Sk, const long long* strides, int causal, int window, int kv_offset,
+    float scale) {
   BlockedBwdParams p;
   p.q = q; p.k = k; p.v = v; p.dout = dout;
   p.lse = lse; p.delta = delta; p.dlse = dlse;
@@ -287,6 +285,21 @@ int blocked_entry(int dtype, int head_dim, const void* q, const void* k,
   p.do_sb = strides[9]; p.do_ss = strides[10]; p.do_sh = strides[11];
   p.causal = causal; p.window = window; p.kv_offset = kv_offset;
   p.scale = scale;
+  return p;
+}
+
+// The entry points' common body: fill the parameters and dispatch on the
+// dtype (0 = float32, 1 = bfloat16) and head dim.
+template <template <typename, int, int, int> class Launch>
+int blocked_entry(int dtype, int head_dim, const void* q, const void* k,
+                  const void* v, const void* dout, const float* lse,
+                  const float* delta, const float* dlse, const int* qseg,
+                  const int* kseg, void* dq, void* dk, void* dv, int B, int H,
+                  int Sq, int Sk, const long long* strides, int causal,
+                  int window, int kv_offset, float scale, void* stream) {
+  const BlockedBwdParams p = make_blocked_params(
+      q, k, v, dout, lse, delta, dlse, qseg, kseg, dq, dk, dv, B, H, Sq, Sk,
+      strides, causal, window, kv_offset, scale);
   if (Sq <= 0 || Sk <= 0 || B * H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1 ? dispatch_blocked<Launch, __nv_bfloat16>(head_dim, p, s)

@@ -27,15 +27,23 @@ Port of ``determined_tpu/ops/flash_attention.py``:
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``). ``nk`` counts the
   reference's key blocks (``block_k``), so the port runs the mono, fused
   or two-pass backward exactly where the reference does.
+- In bf16, ``flash_fwd.cu`` and ``flash_bwd_blocked.cu`` run their
+  products as Hopper ``wgmma`` on tiles that TMA brings into shared
+  memory (``csrc/sm90.cuh``); TMA wants 16-byte-aligned bases and
+  strides, so their wrappers copy a view that breaks that rule
+  (``_tma_ready``) before the launch. In fp32 every kernel reads through
+  strides.
 - On CPU tensors forward and backward run the reference's CPU path, the
   blockwise online-softmax scan and its backward (``_blockwise_fwd_ref``,
-  ``_blockwise_bwd_ref``). ``_mono_fwd_plain`` and ``_blocked_bwd_plain``
-  are the kernels' dense formulas, bf16 roundings included (the mono
-  backward's is the blocked one without window, segments or offset):
-  what the kernel-level wrappers (``flash_fwd_mono``, ``flash_bwd_mono``,
-  ``flash_bwd_blocked``, ``flash_bwd_dq``, ``flash_bwd_dkv``) run on CPU
-  tensors and what the card's kernels are held against. There is no
-  fallback from a kernel to a plain version.
+  ``_blockwise_bwd_ref``). ``_mono_fwd_plain``, ``_blocked_fwd_plain``
+  and ``_blocked_bwd_plain`` are the kernels' dense formulas, bf16
+  roundings included (p rounded to v's dtype before p·v; the mono
+  backward's formula is the blocked one without window, segments or
+  offset): what the kernel-level wrappers (``flash_fwd``,
+  ``flash_fwd_mono``, ``flash_bwd_mono``, ``flash_bwd_blocked``,
+  ``flash_bwd_dq``, ``flash_bwd_dkv``) run on CPU tensors and what the
+  card's kernels are held against. There is no fallback from a kernel to
+  a plain version.
 
 ``block_q`` / ``block_k`` keep the reference's meaning for validation, for
 the mono dispatch and for the plain version's K/V blocking; the CUDA
@@ -210,6 +218,37 @@ def _mono_fwd_plain(q, k, v, *, scale, causal):
     return o, (m + torch.log(l_safe))[..., 0]
 
 
+def _blocked_fwd_plain(q, k, v, *, scale, causal, window=None, kv_offset=0,
+                       segs=None):
+    """The blocked forward kernel's formula (``_fwd_kernel``), dense: q/k/v
+    [BH, S, D], segs None or the ([BH, Sq], [BH, Sk]) fp32 ids → (o
+    [BH, Sq, D] in q's dtype, lse [BH, Sq] fp32). fp32 scores and softmax
+    over the whole row; p is zeroed where masked (a row that sees no key
+    gets o = 0 and lse = NEG_INF) and rounded to v's dtype before p·v,
+    while l sums the unrounded p."""
+    s_q, s_k = q.shape[1], k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    mask = None
+    if causal or window is not None or segs is not None:
+        mask = _ref_block_mask(
+            torch.arange(s_q, device=q.device),
+            torch.arange(s_k, device=q.device), causal=causal, window=window,
+            kv_offset=kv_offset, qseg=None if segs is None else segs[0],
+            kseg_j=None if segs is None else segs[1],
+        )
+        s = torch.where(mask, s, NEG_INF)
+    m = (s.amax(dim=-1, keepdim=True) if s_k
+         else s.new_full((*s.shape[:-1], 1), NEG_INF))  # no key at all
+    p = torch.exp(s - m)
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    acc = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float())
+    o = (acc / l_safe).to(q.dtype)
+    return o, (m + torch.log(l_safe))[..., 0]
+
+
 def _blocked_bwd_plain(q, k, v, do, lse, delta, dlse, *, scale, causal,
                        window=None, kv_offset=0, segs=None):
     """The blocked backward kernels' formula (``_bwd_fused_blocked_kernel``,
@@ -268,6 +307,19 @@ def _last_dim_contiguous(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
+def _tma_ready(x: torch.Tensor) -> bool:
+    """Whether a [B, S, H, D] tensor meets TMA's rules as the bf16 kernels
+    read it: the head dim contiguous, a 16-byte-aligned base, and the
+    batch, sequence and head strides multiples of 16 bytes (a dim of size
+    1 has no stride that matters)."""
+    item = x.element_size()
+    return (
+        x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+        and all(x.shape[i] == 1 or (x.stride(i) * item) % 16 == 0
+                for i in range(x.dim() - 1))
+    )
+
+
 def _kernel_inputs(q, k, v):
     """Check q/k/v [B, S, H, D] for the CUDA kernels → (dtype code, q, k,
     v with the head dim contiguous)."""
@@ -287,6 +339,19 @@ def _kernel_inputs(q, k, v):
     return code, *(_last_dim_contiguous(x) for x in (q, k, v))
 
 
+def _tma_inputs(code, *xs):
+    """The bf16 paths of ``flash_fwd.cu`` and ``flash_bwd_blocked.cu``
+    load their tiles by TMA: a tensor that breaks its rules
+    (``_tma_ready``) is copied contiguous into fresh, aligned memory
+    first (``contiguous()`` would keep a contiguous view at a misaligned
+    base as it is); the kernel is the same. fp32 tensors pass as they are
+    (their kernels read through strides)."""
+    if code == 0:
+        return xs
+    return tuple(x if _tma_ready(x) else
+                 x.clone(memory_format=torch.contiguous_format) for x in xs)
+
+
 def _strides(*xs):
     return [s for x in xs for s in (x.stride(0), x.stride(1), x.stride(2))]
 
@@ -294,8 +359,12 @@ def _strides(*xs):
 def _flash_fwd_cuda(q, k, v, *, scale, causal, window, kv_offset,
                     segment_ids, kv_segment_ids):
     """Blocked kernel: q/k/v [B, S, H, D] CUDA tensors (any strides with D
-    contiguous) → (o [B, Sq, H, D] in q's dtype, lse [B, Sq, H] fp32)."""
+    contiguous; in bf16 a view that breaks TMA's alignment rules is copied
+    contiguous first, ``_tma_inputs``) → (o [B, Sq, H, D] in q's dtype,
+    lse [B, Sq, H] fp32). With no keys every row is fully masked: o = 0,
+    lse = NEG_INF, and no kernel runs."""
     code, q, k, v = _kernel_inputs(q, k, v)
+    q, k, v = _tma_inputs(code, q, k, v)
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     qseg = kseg = None
@@ -306,6 +375,8 @@ def _flash_fwd_cuda(q, k, v, *, scale, causal, window, kv_offset,
     lse = torch.empty((b, s_q, h), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
+    if s_k == 0:  # no key to attend (and no K/V for a TMA map to cover)
+        return o.zero_(), lse.fill_(NEG_INF)
     FLASH_FWD.launch(
         code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         qseg.data_ptr() if qseg is not None else None,
@@ -363,6 +434,44 @@ def _flash_bwd_mono_cuda(q, k, v, do, lse, delta, dlse, *, scale, causal):
     return dq32.to(q.dtype), dk, dv
 
 
+def flash_fwd(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
+              window: Optional[int] = None, kv_offset: int = 0,
+              segment_ids: Optional[torch.Tensor] = None,
+              kv_segment_ids: Optional[torch.Tensor] = None):
+    """The blocked forward at the kernel level, q/k/v [B, S, H, D], segment
+    ids [B, Sq] / [B, Sk] (kv ids default to the q ids) → (o, lse
+    [B, Sq, H]): ``csrc/flash_fwd.cu`` on CUDA tensors,
+    ``_blocked_fwd_plain`` on CPU tensors."""
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if segment_ids is not None and kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    if q.is_cuda:
+        return _flash_fwd_cuda(q, k, v, scale=scale, causal=causal,
+                               window=window, kv_offset=kv_offset,
+                               segment_ids=segment_ids,
+                               kv_segment_ids=kv_segment_ids)
+    return flash_fwd_plain(q, k, v, causal=causal, scale=scale, window=window,
+                           kv_offset=kv_offset, segment_ids=segment_ids,
+                           kv_segment_ids=kv_segment_ids)
+
+
+def flash_fwd_plain(q, k, v, *, causal: bool = True,
+                    scale: Optional[float] = None,
+                    window: Optional[int] = None, kv_offset: int = 0,
+                    segment_ids: Optional[torch.Tensor] = None,
+                    kv_segment_ids: Optional[torch.Tensor] = None):
+    """``flash_fwd``'s plain version on any device."""
+    b, _, h, d = q.shape
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    if segment_ids is not None and kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    o, lse = _blocked_fwd_plain(
+        _fold(q), _fold(k), _fold(v), scale=scale, causal=causal,
+        window=window, kv_offset=kv_offset,
+        segs=_fold_segs(segment_ids, kv_segment_ids, h))
+    return _unfold(o, b, h), _unfold(lse, b, h)
+
+
 def flash_fwd_mono(q, k, v, *, causal: bool = True,
                    scale: Optional[float] = None):
     """The mono forward at the kernel level, q/k/v [B, S, H, D] → (o, lse
@@ -418,9 +527,13 @@ def _flash_bwd_blocked_cuda(kernel, q, k, v, do, lse, delta, dlse, qseg,
     contiguous), lse/delta (+ dlse, None = zeros) [B, Sq, H] fp32, segment
     ids [B, Sq] / [B, Sk] or None → (dq, dk, dv) [B, S, H, D] in q's
     dtype, None for what the kernel does not compute. The fused kernel
-    sums dq in an fp32 workspace by atomics, then casts."""
+    sums dq in an fp32 workspace by atomics, then casts; in bf16 it loads
+    q/k/v/do by TMA, so a view that breaks TMA's alignment rules is
+    copied contiguous first (``_tma_inputs``)."""
     code, q, k, v = _kernel_inputs(q, k, v)
     do = _last_dim_contiguous(do.to(q.dtype))
+    if kernel is FLASH_BWD_BLOCKED:
+        q, k, v, do = _tma_inputs(code, q, k, v, do)
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     lse = lse.float().contiguous()

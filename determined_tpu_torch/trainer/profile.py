@@ -1,7 +1,7 @@
 """Where a train step of the port spends its time, on the card.
 
     python -m determined_tpu_torch.trainer.profile [--rung headline]
-        [--steps 5] [--batch B] [--seq S]
+        [--steps 5] [--batch B] [--seq S] [--packed]
 
 Builds one of ``bench.py``'s training rungs (``RUNGS``) — GPT-2-small at
 full width and depth, bf16 compute over fp32 master parameters, seeded
@@ -15,6 +15,10 @@ adamw(3e-4))``:
   batch 1 × seq 16384;
 - ``long32k``: the same fields at seq 32768, where ``layer_loop="auto"``
   also rematerializes attention.
+
+``--packed`` replaces the random tokens with one ``pack_sequences`` batch
+of seeded random documents of 32-1024 tokens (``packed_batch``): segment
+ids then route attention through the blocked kernels.
 
 It puts the model behind the ``Trainer`` and runs its guarded step on
 the calling thread: two warm-up steps, ``--steps`` timed with the
@@ -108,6 +112,17 @@ class RepeatedBatchTrial(TorchTrial):
             yield batch
 
 
+def packed_batch(b: int, s: int, seed: int, vocab: int) -> dict:
+    """One ``pack_sequences`` batch [b, s] of seeded random documents of
+    32-1024 tokens below `vocab` (tokens, segment_ids, loss_mask)."""
+    from determined_tpu_torch.batch_inference import pack_sequences
+
+    rng = np.random.default_rng(seed)
+    docs = (rng.integers(1, vocab, int(n)).tolist()
+            for n in rng.integers(32, 1025, size=100_000))
+    return next(pack_sequences(docs, s, b))
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         value = getattr(evt, name, None)
@@ -123,6 +138,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--top", type=int, default=10)
+    ap.add_argument("--packed", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -132,7 +148,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     args.seq = args.seq or rung_cfg.seq_len
     trial = RepeatedBatchTrial(args.batch, args.seq, config=rung_cfg)
     trainer = Trainer(trial)
-    batch = trainer._put_batch(next(iter(trial.build_training_data())))
+    host_batch = next(iter(trial.build_training_data()))
+    if args.packed:
+        host_batch = packed_batch(args.batch, args.seq, 3,
+                                  trial.config.vocab_size)
+    batch = trainer._put_batch(host_batch)
     for _ in range(2):  # warm-up: kernel builds, allocator, cuBLAS plans
         trainer._train_step(batch)
     torch.cuda.synchronize()
@@ -171,7 +191,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = trial.config
     out = {
         "device": torch.cuda.get_device_name(0),
-        "rung": args.rung,
+        "rung": args.rung + (" packed" if args.packed else ""),
         "config": f"gpt2-small bf16 remat={cfg.remat} "
                   f"fused_loss={cfg.fused_loss} "
                   f"remat_attention={gpt.remat_attention(cfg)}",

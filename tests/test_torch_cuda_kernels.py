@@ -5,8 +5,12 @@ ragged q_lens up to the 16-row limit, strided inputs, the mono forward
 and backward (causal or not, ragged tiles, a nonzero lse cotangent), the
 three blocked backward kernels (fused, dq pass, dk/dv pass) over causal /
 full × window × segment ids × kv_offset with a nonzero lse cotangent, the
-gradient routing of flash_attention_lse (mono, fused, two-pass), and the
-wrappers' refusals.
+gradient routing of flash_attention_lse (mono, fused, two-pass), the
+wrappers' refusals, and the blocked forward and fused backward against
+their own plain versions over the cases their TMA/wgmma design makes
+risky (``TMA_CASES``: ragged tiles, one decode row, strided and
+misaligned views, rows that see no key, short windows, several batches
+with segment ids) at every head dim.
 Marked ``cuda``; each test skips without a CUDA device. On the chip (the
 root and tests/ conftests import JAX, which that machine does not
 have)::
@@ -286,3 +290,95 @@ def test_flash_attention_grad_routes_through_blocked(dev, dtype, cap,
             torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
         else:
             _close(dtype, g, w)
+
+
+def _layout_inputs(dev, dtype, layout, b, h, s_q, s_k, d, seed):
+    """q/k/v as the kernels meet them: "qkv" strided views of one
+    [B, S, 3, H, D] projection (q bottom-aligned, 16-byte aligned);
+    "odd-base" contiguous tensors whose base sits one element past 16-byte
+    alignment; "odd-stride" rows padded to D + 1 elements. Plus do and an
+    lse cotangent."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    if layout == "qkv":
+        s = max(s_q, s_k)
+        qkv = randn(b, s, 3, h, d)
+        q, k, v = qkv[:, s - s_q:, 0], qkv[:, :s_k, 1], qkv[:, :s_k, 2]
+    elif layout == "odd-base":
+        n_q, n_k = b * s_q * h * d, b * s_k * h * d
+        flat = randn(n_q + 2 * n_k + 1)
+        q = flat[1:1 + n_q].view(b, s_q, h, d)
+        k = flat[1 + n_q:1 + n_q + n_k].view(b, s_k, h, d)
+        v = flat[1 + n_q + n_k:].view(b, s_k, h, d)
+    else:
+        q = randn(b, s_q, h, d + 1)[..., :d]
+        k = randn(b, s_k, h, d + 1)[..., :d]
+        v = randn(b, s_k, h, d + 1)[..., :d]
+    if dtype == torch.bfloat16:
+        assert tfa._tma_ready(q) == (layout == "qkv")
+    return q, k, v, randn(b, s_q, h, d), torch.randn(
+        (b, s_q, h), generator=gen, device=dev)
+
+
+#: The cases the TMA/wgmma design makes risky: ragged tiles (s not a
+#: multiple of the 128-row / 128-key tiles), one decode row, strided and
+#: misaligned views, rows that see no key, no keys at all, a window
+#: shorter than a tile, several batches with segment ids.
+TMA_CASES = [  # name, b, h, s_q, s_k, causal, window, kv_offset, segs, layout
+    ("ragged-200", 2, 3, 200, 200, True, None, 0, False, "qkv"),
+    ("ragged-1000-full", 1, 2, 1000, 1000, False, None, 0, False, "qkv"),
+    ("decode-row", 2, 3, 1, 1000, True, None, 999, False, "qkv"),
+    ("offset-segs", 2, 3, 130, 200, True, None, 70, True, "qkv"),
+    ("odd-base", 2, 3, 200, 200, True, None, 0, False, "odd-base"),
+    ("odd-stride", 2, 3, 200, 200, True, None, 0, True, "odd-stride"),
+    ("dead-rows", 2, 3, 200, 200, True, None, 0, "dead", "qkv"),
+    ("window-5", 2, 3, 300, 300, True, 5, 0, False, "qkv"),
+    ("segs-b3", 3, 2, 256, 256, True, None, 0, True, "qkv"),
+    ("no-keys", 2, 3, 64, 0, False, None, 0, False, "qkv"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize(
+    "b,h,s_q,s_k,causal,window,kv_offset,segs,layout",
+    [c[1:] for c in TMA_CASES], ids=[c[0] for c in TMA_CASES])
+def test_forward_and_fused_backward_match_plain(dev, dtype, head_dim, b, h,
+                                                s_q, s_k, causal, window,
+                                                kv_offset, segs, layout):
+    """flash_fwd and flash_bwd_blocked against flash_fwd_plain and
+    flash_bwd_blocked_plain (bf16: the wgmma/TMA kernels; fp32: the FMA
+    kernels), with an lse cotangent. Rows whose segment id matches no key
+    (every row, with no keys) get o = 0, lse = NEG_INF and a zero dq."""
+    q, k, v, do, dlse = _layout_inputs(dev, dtype, layout, b, h, s_q, s_k,
+                                       head_dim, head_dim + s_q)
+    kw = dict(causal=causal, window=window, kv_offset=kv_offset)
+    dead = slice(0, 0) if s_k else slice(None)
+    if segs:
+        rng = np.random.default_rng(s_k + b)
+        kseg = torch.from_numpy(_packed(rng, b, s_k)).to(dev)
+        qseg = kseg[:, s_k - s_q:].clone()
+        if segs == "dead":
+            dead = slice(10, 30)
+            qseg[:, dead] = 99
+        kw.update(segment_ids=qseg, kv_segment_ids=kseg)
+    o_k, lse_k = tfa.flash_fwd(q, k, v, **kw)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, **kw)
+    _close(dtype, o_k, o_p)
+    _close(dtype, lse_k, lse_p, lse=True)
+    assert (o_k[:, dead] == 0).all() and (lse_k[:, dead] == tfa.NEG_INF).all()
+    delta = (do.float() * o_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, dlse)
+    got = tfa.flash_bwd_blocked(*args, **kw)
+    want = tfa.flash_bwd_blocked_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+        else:
+            _close(dtype, g, w)
+    assert (got[0][:, dead] == 0).all()

@@ -197,12 +197,11 @@ def test_cuda_backward_route_accepts_mono_shapes(kw):
     dict(s=1024, block=1024, has_segments=True),  # packed documents
     dict(s=1024, block=1024, kv_offset=8),
 ])
-def test_cuda_backward_refuses_other_shapes_by_name(kw, monkeypatch):
-    """Checks that these shapes route to the blocked kernels (the name
-    dates from the slice that refused them): the mono kernels refuse them
-    by the reference's predicate, and the backward goes to the blocked
-    kernels the reference would run: fused, since the dq partials stay
-    under the cap, or two-pass with the cap at 0."""
+def test_non_mono_shapes_route_to_blocked_kernels(kw, monkeypatch):
+    """The mono kernels decline these shapes by the reference's predicate,
+    and the backward goes to the blocked kernels the reference would run:
+    fused, since the dq partials stay under the cap, or two-pass with the
+    cap at 0."""
     kw = dict(kw)
     s, block = kw.pop("s"), kw.pop("block")
     assert not tfa._mono_ok(s, s, block, block, **kw)

@@ -149,9 +149,8 @@ def _check_against_jax(cfg_kw, batch, model=None):
 @pytest.mark.parametrize("field,value", [
     ("fused_loss", True), ("remat_attention", True), ("seq_len", 32768),
 ])
-def test_loss_refuses_later_slices_by_name(field, value):
-    """Checks that the long-context knobs match the reference (the name
-    dates from the slice that refused them): the chunked loss and
+def test_long_context_knobs_match_reference(field, value):
+    """The long-context knobs match the reference: the chunked loss and
     rematted attention match the reference on packed documents, and
     seq_len past 16384 turns rematted attention on by itself
     (layer_loop="auto"), as in the reference."""

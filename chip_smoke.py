@@ -24,11 +24,18 @@ script exits non-zero without the final result line:
    and against the entry point's plain path
    (``flash_attention_lse_plain``). The flash forward and paged kernels
    run at the serving shapes; the mono pair at (B 2, S 1024, causal), (B
-   2, S 512, non-causal) and with a nonzero lse cotangent, and is timed
-   at the train phase's shape (B 8, S 1024, H 12, D 64, causal, bf16)
-   against SDPA's forward and, on a retained graph, SDPA's backward
-   alone. The blocked backward kernels — the fused ``flash_bwd_blocked``
-   and the two-pass ``flash_bwd_dq`` + ``flash_bwd_dkv`` — run
+   2, S 512, non-causal) and with a nonzero lse cotangent, then over
+   ``MONO_GRID`` (the cases its persistent wgmma/TMA design makes risky:
+   ragged tiles, s_q ≠ s_k causal and full, misaligned views, fewer work
+   items than SMs and many more, s = 1448, no queries, no keys) at head
+   dims 16/32/64/128 in both dtypes, and is timed at the train phase's
+   shape (B 8, S 1024, H 12, D 64, causal, bf16) against SDPA's forward
+   and, on a retained graph, SDPA's backward alone, and beside the
+   blocked sm90 kernels (``flash_fwd``, ``flash_bwd_blocked``) on the
+   same inputs; the backward wrapper's zeroing of its fp32 dq workspace
+   and its cast are timed alone too. The blocked backward kernels — the
+   fused ``flash_bwd_blocked`` and the two-pass ``flash_bwd_dq`` +
+   ``flash_bwd_dkv`` — run
    ``BLOCKED_CASES`` (causal at S 2048, a 256 window, packed segments,
    kv_offset with s_q 512 and s_k 1024, a nonzero lse cotangent, all of
    them at once), then the shapes the main paths give them, in bf16: the
@@ -139,6 +146,28 @@ BLOCKED_CASES = (
     ("causal-dlse", dict(b=2, s_q=1024, s_k=1024, dlse=True, seed=4)),
     ("all-masks-dlse", dict(b=2, s_q=512, s_k=1024, kv_offset=512,
                             window=256, segs=True, dlse=True, seed=5)),
+)
+
+
+#: The mono pair's grid on the card (name, B, H, s_q, s_k, causal, layout):
+#: ragged tiles, s_q ≠ s_k under the top-left causal mask and without it,
+#: misaligned views (copied before TMA), fewer work items than SMs and
+#: many more (the persistent walk wraps), ``_mono_ok``'s largest square, no
+#: queries, no keys.
+MONO_GRID = (
+    ("ragged-200", 2, 3, 200, 200, True, "qkv"),
+    ("ragged-200-full", 2, 3, 200, 200, False, "qkv"),
+    ("sq-lt-sk-causal", 2, 3, 96, 300, True, "qkv"),
+    ("sq-gt-sk-causal", 2, 3, 300, 96, True, "qkv"),
+    ("sq-lt-sk-full", 2, 3, 96, 300, False, "qkv"),
+    ("sq-gt-sk-full", 2, 3, 300, 96, False, "qkv"),
+    ("odd-base", 2, 3, 200, 200, True, "odd-base"),
+    ("odd-stride", 2, 3, 200, 200, True, "odd-stride"),
+    ("few-items", 1, 2, 128, 128, True, "qkv"),
+    ("wraps", 8, 12, 1024, 1024, True, "qkv"),
+    ("largest", 1, 2, 1448, 1448, True, "qkv"),
+    ("no-queries", 2, 3, 0, 64, False, "qkv"),
+    ("no-keys", 2, 3, 64, 0, False, "qkv"),
 )
 
 
@@ -421,9 +450,79 @@ class Smoke:
                 bound_by=bound_by, max_abs_err=err,
                 **self.rates(per_pair * d * live, ms, bound_ms),
             ))
+        # the blocked sm90 kernels on the same inputs: that design's time
+        # at this size with nothing mono-specific
+        recs[0]["blocked_sm90_ms"] = self.time_ms(
+            lambda: tfa.flash_fwd(q, k, v, causal=causal))
+        recs[1]["blocked_sm90_ms"] = self.time_ms(
+            lambda: tfa.flash_bwd_blocked(*bwd_args, causal=causal))
+        # what the backward's wrapper adds around its kernel: zeroing the
+        # fp32 dq workspace and casting it to the input dtype
+        ws = torch.zeros((b, s, h, d), dtype=torch.float32, device=self.dev)
+        recs[1]["dq_zero_ms"] = self.time_ms(
+            lambda: torch.zeros((b, s, h, d), dtype=torch.float32,
+                                device=self.dev))
+        recs[1]["dq_cast_ms"] = self.time_ms(lambda: ws.to(dtype))
         self.report("kernels", f"flash_fwd_mono {tag}", recs[0])
         self.report("kernels", f"flash_bwd_mono {tag}", recs[1])
         return recs
+
+    def mono_grid(self, dtype):
+        """The mono pair against its plain versions over ``MONO_GRID`` at
+        every head dim, with and without an lse cotangent; one line with
+        the cases run and the largest differences."""
+        import torch
+
+        from determined_tpu_torch.ops import flash_attention as tfa
+
+        errs = {"fwd": 0.0, "bwd": 0.0}
+        n = 0
+        for name, b, h, s_q, s_k, causal, layout in MONO_GRID:
+            for d in (16, 32, 64, 128):
+                gen = torch.Generator(device=self.dev).manual_seed(d + s_q)
+                q, k, v, do = self.layout_views(dtype, layout, b, h, s_q,
+                                                s_k, d, gen)
+                dl = torch.randn((b, s_q, h), generator=gen, device=self.dev)
+                tag = f"mono grid {name} d{d} {str(dtype)[6:]}"
+                o_k, lse_k = tfa.flash_fwd_mono(q, k, v, causal=causal)
+                o_p, lse_p = tfa.flash_fwd_mono_plain(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                self.check(tag, dtype, o_k, o_p, lse_k, lse_p)
+                if o_k.numel():
+                    errs["fwd"] = max(errs["fwd"], float(
+                        (o_k.float() - o_p.float()).abs().max()))
+                delta = (do.float() * o_p.float()).sum(-1)
+                for cot in (None, dl):
+                    args = (q, k, v, do, lse_p, delta, cot)
+                    got = tfa.flash_bwd_mono(*args, causal=causal)
+                    want = tfa.flash_bwd_mono_plain(*args, causal=causal)
+                    torch.cuda.synchronize()
+                    errs["bwd"] = max(errs["bwd"],
+                                      self.hold_grads(tag, dtype, got, want))
+                n += 1
+        self.report("kernels", f"mono grid {str(dtype)[6:]}",
+                    dict(cases=n, fwd_max_abs_err=errs["fwd"],
+                         bwd_max_abs_err=errs["bwd"]))
+
+    def layout_views(self, dtype, layout, b, h, s_q, s_k, d, gen):
+        """q/k/v as the kernels meet them: "qkv" strided views of one
+        [B, S, 3, H, D] projection (as GPT passes them), "odd-base"
+        contiguous tensors one element past 16-byte alignment, "odd-stride"
+        rows padded to D + 1 elements; and do."""
+        if layout == "qkv":
+            qkv = self.randn((b, max(s_q, s_k), 3, h, d), dtype, gen)
+            q, k, v = qkv[:, :s_q, 0], qkv[:, :s_k, 1], qkv[:, :s_k, 2]
+        elif layout == "odd-base":
+            n_q, n_k = b * s_q * h * d, b * s_k * h * d
+            flat = self.randn((n_q + 2 * n_k + 1,), dtype, gen)
+            q = flat[1:1 + n_q].view(b, s_q, h, d)
+            k = flat[1 + n_q:1 + n_q + n_k].view(b, s_k, h, d)
+            v = flat[1 + n_q + n_k:].view(b, s_k, h, d)
+        else:
+            q = self.randn((b, s_q, h, d + 1), dtype, gen)[..., :d]
+            k = self.randn((b, s_k, h, d + 1), dtype, gen)[..., :d]
+            v = self.randn((b, s_k, h, d + 1), dtype, gen)[..., :d]
+        return q, k, v, self.randn((b, s_q, h, d), dtype, gen)
 
     def sdpa_backward(self, qh, kh, vh, do, causal, attn_mask=None):
         """SDPA's backward alone: autograd.grad over a retained graph."""
@@ -498,7 +597,8 @@ class Smoke:
                 continue
             torch.testing.assert_close(g.float(), w.float(), atol=tol,
                                        rtol=tol, msg=f"{what}: {which}")
-            err = max(err, float((g.float() - w.float()).abs().max()))
+            if g.numel():
+                err = max(err, float((g.float() - w.float()).abs().max()))
         return err
 
     def fwd_plain_by_head(self, q, k, v):
@@ -1107,6 +1207,8 @@ def main() -> int:
                         seed=1)
         smoke.mono_case("causal-dlse", dtype, b=2, s=1024, causal=True,
                         dlse=True, seed=2)
+    for dtype in (bf16, fp32):
+        smoke.mono_grid(dtype)
     mono_fwd, mono_bwd = smoke.mono_case("train", bf16, b=8, s=1024,
                                          causal=True, dlse=False, seed=3,
                                          timed=True)

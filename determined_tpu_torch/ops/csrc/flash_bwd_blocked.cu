@@ -47,7 +47,7 @@
 // The fp32 path keeps the FMA tiles of mono_tiles.cuh (a tensor-core fp32
 // product would round to TF32).
 #include "blocked_bwd.cuh"
-#include "sm90.cuh"
+#include "bwd_sm90.cuh"
 
 namespace dtpu {
 
@@ -123,7 +123,7 @@ struct BwdMaps {
 template <int D>
 struct BwdTile {
   static constexpr int BK = 128;  // two consumer warpgroups of 64 keys
-  static constexpr int BQ = 64;
+  static constexpr int BQ = sm90::kBwdBQ;
   static constexpr int kStages = 2;
   static constexpr int kThreads = sm90::kSpecThreads;
   static constexpr int kTileK = sm90::tile_bytes(BK, D);
@@ -148,7 +148,6 @@ __global__ void __launch_bounds__(BwdTile<D>::kThreads, 1)
   constexpr int BQ = L::BQ;
   constexpr int kStages = L::kStages;
   constexpr int kSw = sm90::swizzle_bytes(D);
-  constexpr int DC = D < 64 ? D : 64;  // columns of one dq product
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
@@ -253,156 +252,51 @@ __global__ void __launch_bounds__(BwdTile<D>::kThreads, 1)
                         s * 4 * BQ;
     sm90::mbar_wait(&full[s], (it / kStages) & 1);
 
-    // Sᵀ = K·Qᵀ and dPᵀ = V·doᵀ (keys on M, query rows on N).
+    // Sᵀ = K·Qᵀ and dPᵀ = V·doᵀ (keys on M, query rows on N), then Pᵀ and
+    // dSᵀ (bwd_sm90.cuh), masked by the full mask model.
     float st[BQ / 2], dpt[BQ / 2];
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      sm90::Wgmma<BQ>::template ss<0, 0>(
-          st, sm90::kmajor_desc<D>(k_a, BK, kk),
-          sm90::kmajor_desc<D>(q_s, BQ, kk), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      sm90::Wgmma<BQ>::template ss<0, 0>(
-          dpt, sm90::kmajor_desc<D>(v_a, BK, kk),
-          sm90::kmajor_desc<D>(do_s, BQ, kk), kk > 0);
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::reg_fence(st);
-    sm90::reg_fence(dpt);
-
-    // Pᵀ = exp(Sᵀ·scale − lse), zero where masked; dSᵀ = Pᵀ∘(dPᵀ − delta
-    // + dlse)·scale.
+    sm90::st_dpt_products<BK, D>(st, dpt, k_a, v_a, q_s, do_s);
     const bool inside = tile_inside(p, q0, BQ, kg0, 64) &&
                         q0 + BQ <= p.Sq && kg0 + 64 <= p.Sk;
-    const bool masked = !inside || segs;
     const int* qid = reinterpret_cast<const int*>(rows) + 3 * BQ;
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int r = 8 * j + col0 + e;
-        const float lse_l2 = rows[r] * 1.4426950408889634f;
-        const float dterm = rows[2 * BQ + r] - rows[BQ + r];
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int i = 4 * j + 2 * hh + e;
-          bool ok = true;
-          if (masked) {
-            const int row = q0 + r;
-            const int grow = row + p.kv_offset;
-            ok = row < p.Sq && key[hh] < p.Sk;
-            if (p.causal) ok = ok && grow >= key[hh];
-            if (p.window > 0) ok = ok && grow - key[hh] < p.window;
-            if (segs) ok = ok && qid[r] == kid[hh];
-          }
-          const float pv =
-              ok ? sm90::ex2(fmaf(st[i], scale_log2, -lse_l2)) : 0.f;
-          st[i] = pv;
-          dpt[i] = pv * (dpt[i] + dterm) * p.scale;
-        }
-      }
-    }
-    // bf16 A fragments of Pᵀ and dSᵀ; dSᵀ also to shared memory
-    // ([BK keys][BQ rows], 128-byte swizzle) for the dq product.
+    sm90::p_ds(st, dpt, rows, scale_log2, p.scale, !inside || segs, col0,
+               [&](int r, int hh) {
+                 const int row = q0 + r;
+                 const int grow = row + p.kv_offset;
+                 bool ok = row < p.Sq && key[hh] < p.Sk;
+                 if (p.causal) ok = ok && grow >= key[hh];
+                 if (p.window > 0) ok = ok && grow - key[hh] < p.window;
+                 if (segs) ok = ok && qid[r] == kid[hh];
+                 return ok;
+               });
     uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        pf[kk][r] = sm90::pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
-        dsf[kk][r] =
-            sm90::pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const uint32_t off = (64 * g + r_in + 8 * hh) * (BQ * 2) +
-                             (8 * j + col0) * 2;
-        *reinterpret_cast<uint32_t*>(ds_s + (off ^ (((off >> 7) & 7) << 4))) =
-            dsf[j >> 1][2 * (j & 1) + hh];
-      }
-    }
-    sm90::fence_proxy_async();
-
-    // dv += Pᵀ·do, dk += dSᵀ·q (B MN-major: query rows on k).
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk)
-      sm90::Wgmma<D>::template rs<1>(dv, pf[kk],
-                                     sm90::mnmajor_desc<D>(do_s, BQ, kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk)
-      sm90::Wgmma<D>::template rs<1>(dk, dsf[kk],
-                                     sm90::mnmajor_desc<D>(q_s, BQ, kk), 1);
-    sm90::wgmma_commit();
+    sm90::pack_p_ds(st, dpt, pf, dsf, ds_s, 64 * g + r_in, col0);
+    sm90::dkdv_products<D>(dv, dk, pf, dsf, do_s, q_s);
     sm90::named_barrier(1, 256);  // both warpgroups' dSᵀ are in place
 
+    // One warpgroup, alternating by tile, adds dq_tile = dS·K into the
+    // fp32 workspace.
+    sm90::wgmma_wait<0>();
+    sm90::reg_fence(dv);
+    sm90::reg_fence(dk);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
     if ((it & 1) == g) {
-      // dq_tile = dS·K over the block's BK keys (A = dSᵀ stored MN-major,
-      // B = K MN-major), DC columns at a time, added into the fp32
-      // workspace with one vector reduction per element pair.
-      sm90::wgmma_wait<0>();
-      sm90::reg_fence(dv);
-      sm90::reg_fence(dk);
-      __syncwarp();
-      if (lane == 0) sm90::mbar_arrive(&empty[s]);
-#pragma unroll
-      for (int nc = 0; nc < D / DC; ++nc) {
-        float dq[DC / 2];
-        sm90::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          sm90::Wgmma<DC>::template ss<1, 1>(
-              dq, sm90::mnmajor_desc<64>(ds_s, BK, kk),
-              sm90::mnmajor_desc<D>(
-                  smem + L::kK + nc * sm90::block_bytes(BK, D), BK, kk),
-              kk > 0);
-        }
-        sm90::wgmma_commit();
-        sm90::wgmma_wait<0>();
-        sm90::reg_fence(dq);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = q0 + r_in + 8 * hh;
-          if (row >= p.Sq) continue;
-          float* out =
-              dq_ws + (((long long)b * p.Sq + row) * p.H + h) * D + nc * DC;
-#pragma unroll
-          for (int j = 0; j < DC / 8; ++j) {
-            atomicAdd(reinterpret_cast<float2*>(out + 8 * j + col0),
-                      make_float2(dq[4 * j + 2 * hh], dq[4 * j + 2 * hh + 1]));
-          }
-        }
-      }
-    } else {
-      sm90::wgmma_wait<0>();
-      sm90::reg_fence(dv);
-      sm90::reg_fence(dk);
-      __syncwarp();
-      if (lane == 0) sm90::mbar_arrive(&empty[s]);
+      sm90::dq_reduce<BK, D>(ds_s, smem + L::kK,
+                             dq_ws + ((long long)b * p.Sq * p.H + h) * D,
+                             (long long)p.H * D, q0, p.Sq, r_in, col0);
     }
   }
 
   // Epilogue: dk, dv of this warpgroup's keys in the input dtype.
+  long long at[2];
+  bool key_ok[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    if (key[hh] >= p.Sk) continue;
-    const long long at = (((long long)b * p.Sk + key[hh]) * p.H + h) * D;
-    __nv_bfloat16* dk_row = static_cast<__nv_bfloat16*>(p.dk) + at;
-    __nv_bfloat16* dv_row = static_cast<__nv_bfloat16*>(p.dv) + at;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_row + 8 * j + col0) =
-          __floats2bfloat162_rn(dk[4 * j + 2 * hh], dk[4 * j + 2 * hh + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv_row + 8 * j + col0) =
-          __floats2bfloat162_rn(dv[4 * j + 2 * hh], dv[4 * j + 2 * hh + 1]);
-    }
+    at[hh] = (((long long)b * p.Sk + key[hh]) * p.H + h) * D;
+    key_ok[hh] = key[hh] < p.Sk;
   }
+  sm90::store_dkdv<D>(dk, dv, p.dk, p.dv, at, key_ok, col0);
 }
 
 template <int D>

@@ -40,7 +40,7 @@
 // The fp32 path keeps the FMA kernel (flash_fwd_kernel below): a
 // tensor-core fp32 product would round to TF32.
 #include "attn_common.cuh"
-#include "sm90.cuh"
+#include "fwd_sm90.cuh"
 
 namespace dtpu {
 
@@ -312,16 +312,7 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads, 1)
     sm90::mbar_wait(&full[s], (it / kStages) & 1);
 
     float sc[BK / 2];
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      sm90::Wgmma<BK>::template ss<0, 0>(
-          sc, sm90::kmajor_desc<D>(q_s, BQ, kk),
-          sm90::kmajor_desc<D>(k_s, BK, kk), kk > 0);
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::reg_fence(sc);
+    sm90::qk_product<BQ, BK, D>(sc, q_s, k_s);
 
     // Mask (edge tiles and segment ids only), then the row max of the raw
     // scores (scale > 0 keeps the order).
@@ -348,91 +339,33 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads, 1)
         }
       }
     }
-    float tmax[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        tmax[hh] = fmaxf(tmax[hh],
-                         fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
-    }
-    float corr[2], mb[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      tmax[hh] = fmaxf(tmax[hh], __shfl_xor_sync(0xffffffffu, tmax[hh], 1));
-      tmax[hh] = fmaxf(tmax[hh], __shfl_xor_sync(0xffffffffu, tmax[hh], 2));
-      const float m_new = fmaxf(m[hh], tmax[hh]);
-      corr[hh] = sm90::ex2((m[hh] - m_new) * scale_log2);
-      m[hh] = m_new;
-      l[hh] *= corr[hh];
-      // A row with no live key yet keeps p = 2^(−1e30·c) = 0 below.
-      mb[hh] = m_new <= kNegInf ? 0.f : m_new * scale_log2;
-    }
-    // p = 2^(s·c − m·c) with c = scale·log2(e): a masked s (−1e30) gives
-    // exactly 0. l sums the fp32 p.
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * j + 2 * hh + e;
-          const float pv = sm90::ex2(fmaf(sc[i], scale_log2, -mb[hh]));
-          l[hh] += pv;
-          sc[i] = pv;
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        o[4 * j + 2 * hh] *= corr[hh];
-        o[4 * j + 2 * hh + 1] *= corr[hh];
-      }
-    }
-    // P in bf16 as the A fragments of O += P·V.
+    // Softmax, then O += P·V with P in bf16 (fwd_sm90.cuh).
     uint32_t pf[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pf[kk][r] = sm90::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-    }
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      sm90::Wgmma<D>::template rs<1>(o, pf[kk],
-                                     sm90::mnmajor_desc<D>(v_s, BK, kk), 1);
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::reg_fence(o);
+    sm90::softmax_step<BK, D>(sc, m, l, o, scale_log2, pf);
+    sm90::pv_product<BK, D>(o, pf, v_s);
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&empty[s]);
   }
 
   // Epilogue: o = acc / l (l = 0 → 1), lse = m + log(l) in natural units;
   // a row that saw no key writes o = 0 and lse = NEG_INF.
+  float l_safe[2];
+  sm90::row_sums(l, l_safe);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    float lt = l[hh];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     const int row = row0 + 8 * hh;
     if (row >= p.Sq) continue;
-    const float l_safe = lt == 0.f ? 1.f : lt;
     __nv_bfloat16* o_row = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
                            h * p.o_sh + (long long)row * p.o_ss;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * j + col0) =
-          __floats2bfloat162_rn(o[4 * j + 2 * hh] / l_safe,
-                                o[4 * j + 2 * hh + 1] / l_safe);
+          __floats2bfloat162_rn(o[4 * j + 2 * hh] / l_safe[hh],
+                                o[4 * j + 2 * hh + 1] / l_safe[hh]);
     }
     if ((lane & 3) == 0) {
       p.lse[((long long)b * p.Sq + row) * p.H + h] =
-          m[hh] <= kNegInf ? kNegInf : m[hh] * p.scale + logf(l_safe);
+          sm90::row_lse(m[hh], l_safe[hh], p.scale);
     }
   }
 }

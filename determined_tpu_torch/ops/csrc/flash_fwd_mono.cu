@@ -14,21 +14,33 @@
 // byte, just under the 295 FLOP/byte bf16 ridge, so the roofline bound is
 // the bytes (~15 us), with the operations close behind.
 //
-// What the design does about it: the TPU kernel holds the whole [S, S]
-// fp32 score matrix in VMEM (4 MB at S = 1024); a Hopper block has 227 KB.
-// So here "mono" is the specialisation _mono_ok guarantees, not one tile:
-// - one block per (batch·head, 64 query rows) walks the key tiles its rows
-//   can see, the causal ones up to the diagonal tile only; only that
-//   diagonal tile tests the mask per element, and there are no segment
-//   ids, window or offset to load or test;
-// - softmax is online over the key tiles (running max, sum and a rescaled
-//   fp32 accumulator in shared memory); masked entries give p = 0;
-// - q·kᵀ and p·v run on the tensor cores for bf16 (wmma, fp32
-//   accumulation; mono_tiles.cuh) and as fp32 FMAs for fp32;
-// - q/k/v/o are addressed through strides, so the [B, S, 3, H, D] QKV
-//   projection feeds the kernel without a copy; the heaviest (last) query
-//   tiles of a causal call are scheduled first.
-// wgmma, TMA and a pipelined tile ring are later work.
+// What the design does about it (bf16, flash_fwd_mono_sm90). The TPU
+// kernel holds the whole [S, S] fp32 score matrix in VMEM (4 MB at S =
+// 1024); a Hopper CTA has 227 KB, so here "mono" is the specialisation
+// _mono_ok guarantees, not one tile: no segment ids, window or kv_offset to
+// load or test, and only a tile that crosses the causal diagonal (or the
+// ragged end of the keys) masks per element. At S <= 1448 a CTA walks at
+// most 12 key tiles, too few to amortise a CTA's prologue, pipeline fill
+// and epilogue; so the kernel is persistent:
+// - a grid of one CTA a SM walks the work items (batch·head, 128 query
+//   rows), the heaviest causal ones first, dealt out in snake order
+//   (sm90.cuh `snake_item`);
+// - each CTA runs flash_fwd.cu's warp-specialised design: two consumer
+//   warpgroups of 64 rows and a producer warp that loads Q by TMA into one
+//   of two buffers and streams K/V tiles (128 keys, 64 at D = 128) through a
+//   3-stage ring under full/empty mbarriers. The ring and the Q buffers
+//   run across item boundaries, so the next item's Q and first K/V tiles
+//   arrive while the current item is finishing;
+// - both products are wgmma with fp32 accumulators in registers; the S
+//   accumulator, rounded to bf16 pairwise, is the A fragment of O += P·V
+//   (fwd_sm90.cuh, shared with flash_fwd.cu); p is rounded to bf16 before
+//   P·V while l sums the fp32 p, as the TPU kernel does;
+// - the epilogue writes o into a swizzled staging tile per warpgroup and
+//   one thread stores it by TMA (full 128-byte lines, clipped at S), which
+//   overlaps the next item's first products.
+// The fp32 path keeps the FMA kernel below (flash_fwd_mono_kernel,
+// mono_tiles.cuh): a tensor-core fp32 product would round to TF32.
+#include "fwd_sm90.cuh"
 #include "mono_tiles.cuh"
 
 namespace dtpu {
@@ -181,16 +193,261 @@ int launch(const MonoFwdParams& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_head_dim(int d, const MonoFwdParams& p, cudaStream_t stream) {
-  // 64-row tiles where they fit beside each other (bf16, D <= 64); 32
-  // rows for the wider fp32 tiles.
-  constexpr bool kWide = std::is_same<T, __nv_bfloat16>::value;
+// fp32: 32-row tiles of the FMA kernel.
+inline int dispatch_fp32(int d, const MonoFwdParams& p, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16, kWide ? 64 : 32, kWide ? 64 : 32>(p, stream);
-    case 32: return launch<T, 32, kWide ? 64 : 32, kWide ? 64 : 32>(p, stream);
-    case 64: return launch<T, 64, kWide ? 64 : 32, kWide ? 64 : 32>(p, stream);
-    case 128: return launch<T, 128, 32, 32>(p, stream);
+    case 16: return launch<float, 16, 32, 32>(p, stream);
+    case 32: return launch<float, 32, 32, 32>(p, stream);
+    case 64: return launch<float, 64, 32, 32>(p, stream);
+    case 128: return launch<float, 128, 32, 32>(p, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: persistent wgmma + TMA kernel (see the note at the top)
+// ---------------------------------------------------------------------------
+struct MonoFwdMaps {
+  CUtensorMap q, k, v, o;
+};
+
+template <int D>
+struct MonoFwdTile {
+  static constexpr int BQ = 128;  // two consumer warpgroups of 64 rows
+  static constexpr int BK = D <= 64 ? 128 : 64;
+  static constexpr int kStages = 3;
+  static constexpr int kThreads = sm90::kSpecThreads;
+  static constexpr int kTileQ = sm90::tile_bytes(BQ, D);
+  static constexpr int kTileK = sm90::tile_bytes(BK, D);
+  static constexpr int kTileO = sm90::tile_bytes(64, D);
+  static constexpr int kQ = 0;                         // [2] Q buffers
+  static constexpr int kK = kQ + 2 * kTileQ;           // [kStages]
+  static constexpr int kV = kK + kStages * kTileK;     // [kStages]
+  static constexpr int kO = kV + kStages * kTileK;     // [2] o staging
+  static constexpr int kBar = kO + 2 * kTileO;
+  // q_full[2], q_empty[2], full[kStages], empty[kStages]; + slack to align
+  // the base
+  static constexpr int kBytes = kBar + 8 * (4 + 2 * kStages) + 1024;
+};
+
+// Work item `item` of a call: heads inner, query tiles outer, the last
+// (heaviest under the causal mask) tiles first. Sets the head, the first
+// query row and the number of key tiles the item's rows can see.
+template <int D>
+__device__ __forceinline__ void mono_fwd_item(const MonoFwdParams& p,
+                                              int n_qt, int item, int* b,
+                                              int* h, int* q0, int* n_tiles) {
+  using L = MonoFwdTile<D>;
+  const int bh_n = p.B * p.H;
+  const int rank = item / bh_n;
+  const int bh = item - rank * bh_n;
+  *b = bh / p.H;
+  *h = bh - *b * p.H;
+  *q0 = (p.causal ? n_qt - 1 - rank : rank) * L::BQ;
+  const int k_end = p.causal ? min(p.Sk, min(*q0 + L::BQ, p.Sq)) : p.Sk;
+  *n_tiles = (k_end + L::BK - 1) / L::BK;
+}
+
+template <int D>
+__global__ void __launch_bounds__(MonoFwdTile<D>::kThreads, 1)
+    flash_fwd_mono_sm90(const __grid_constant__ MonoFwdMaps maps,
+                        const MonoFwdParams p) {
+  using L = MonoFwdTile<D>;
+  constexpr int BQ = L::BQ;
+  constexpr int BK = L::BK;
+  constexpr int kStages = L::kStages;
+  constexpr int kSw = sm90::swizzle_bytes(D);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + kStages;
+  const int n_qt = (p.Sq + BQ - 1) / BQ;
+  const int n_items = p.B * p.H * n_qt;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      sm90::mbar_init(&q_full[i], 1);   // the producer's arrive + bytes
+      sm90::mbar_init(&q_empty[i], 8);  // the consumer warps
+    }
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= 8) {
+    // Producer warpgroup: one thread issues every load, item after item;
+    // the Q buffers and the K/V ring wait only on the consumers' releases.
+    sm90::regs_dec<sm90::kProducerRegs>();
+    if (warp > 8 || lane != 0) return;
+    int it = 0;   // K/V tiles loaded so far (the ring's position)
+    int n_q = 0;  // Q tiles loaded so far
+    for (int pass = 0;; ++pass) {
+      const int item = sm90::snake_item(pass, blockIdx.x, gridDim.x);
+      if (item >= n_items) break;
+      int b, h, q0, n_tiles;
+      mono_fwd_item<D>(p, n_qt, item, &b, &h, &q0, &n_tiles);
+      if (n_tiles == 0) continue;
+      const int qb = n_q & 1;
+      if (n_q >= 2) sm90::mbar_wait(&q_empty[qb], ((n_q >> 1) - 1) & 1);
+      sm90::mbar_arrive_tx(&q_full[qb], BQ * D * 2);
+      sm90::tma_load_tile<D>(smem + L::kQ + qb * L::kTileQ, &maps.q,
+                             &q_full[qb], BQ, h, q0, b);
+      ++n_q;
+      for (int t = 0; t < n_tiles; ++t, ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) sm90::mbar_wait(&empty[s], (it / kStages - 1) & 1);
+        sm90::mbar_arrive_tx(&full[s], 2 * BK * D * 2);
+        sm90::tma_load_tile<D>(smem + L::kK + s * L::kTileK, &maps.k,
+                               &full[s], BK, h, t * BK, b);
+        sm90::tma_load_tile<D>(smem + L::kV + s * L::kTileK, &maps.v,
+                               &full[s], BK, h, t * BK, b);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup g owns rows q0 + 64g .. + 63 of each item; this
+  // thread holds rows r_in and r_in + 8 of them (sm90.cuh's layout).
+  sm90::regs_inc<sm90::kConsumerRegs>();
+  const int g = warp >> 2;
+  const int wg_thread = threadIdx.x & 127;
+  const int r_in = 16 * (warp & 3) + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  const float scale_log2 = p.scale * 1.4426950408889634f;
+  unsigned char* o_s = smem + L::kO + g * L::kTileO;
+  int it = 0, n_q = 0;
+  for (int pass = 0;; ++pass) {
+    const int item = sm90::snake_item(pass, blockIdx.x, gridDim.x);
+    if (item >= n_items) break;
+    int b, h, q0, n_tiles;
+    mono_fwd_item<D>(p, n_qt, item, &b, &h, &q0, &n_tiles);
+    const int wg_first = q0 + 64 * g;  // the warpgroup's first row
+    float m[2] = {kNegInf, kNegInf};   // row max of the raw scores
+    float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+    if (n_tiles > 0) {
+      const int qb = n_q & 1;
+      const unsigned char* q_s = smem + L::kQ + qb * L::kTileQ + g * 64 * kSw;
+      sm90::mbar_wait(&q_full[qb], (n_q >> 1) & 1);
+      ++n_q;
+      for (int t = 0; t < n_tiles; ++t, ++it) {
+        const int s = it % kStages;
+        const int t0 = t * BK;
+        sm90::mbar_wait(&full[s], (it / kStages) & 1);
+        float sc[BK / 2];
+        sm90::qk_product<BQ, BK, D>(sc, q_s, smem + L::kK + s * L::kTileK);
+        if (t == n_tiles - 1) {  // the item's Q tile is read no more
+          __syncwarp();
+          if (lane == 0) sm90::mbar_arrive(&q_empty[qb]);
+        }
+        // Only a tile that crosses the warpgroup's diagonal, or the ragged
+        // end of the keys, masks per element.
+        const bool inside =
+            t0 + BK <= p.Sk && (!p.causal || t0 + BK - 1 <= wg_first);
+        if (!inside) {
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = t0 + 8 * j + col0 + e;
+                const int row = wg_first + r_in + 8 * hh;
+                if (col >= p.Sk || (p.causal && col > row))
+                  sc[4 * j + 2 * hh + e] = kNegInf;
+              }
+            }
+          }
+        }
+        uint32_t pf[BK / 16][4];
+        sm90::softmax_step<BK, D>(sc, m, l, o, scale_log2, pf);
+        sm90::pv_product<BK, D>(o, pf, smem + L::kV + s * L::kTileK);
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&empty[s]);
+      }
+    }
+
+    // Epilogue: o = acc / l into the warpgroup's staging tile, stored by
+    // TMA (rows past S are dropped); lse = m + log(l). A row that saw no
+    // key gets o = 0 and lse = NEG_INF.
+    float l_safe[2];
+    sm90::row_sums(l, l_safe);
+    if (wg_thread == 0) sm90::bulk_wait_read<0>();  // the last store read it
+    sm90::named_barrier(2 + g, 128);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            o_s + sm90::swizzle_offset<D>(64, r_in + 8 * hh, 8 * j + col0)) =
+            __floats2bfloat162_rn(o[4 * j + 2 * hh] / l_safe[hh],
+                                  o[4 * j + 2 * hh + 1] / l_safe[hh]);
+      }
+    }
+    sm90::fence_proxy_async();
+    sm90::named_barrier(2 + g, 128);
+    if (wg_thread == 0) {
+      sm90::tma_store_tile<D>(&maps.o, o_s, 64, h, wg_first, b);
+      sm90::bulk_commit();
+    }
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = wg_first + r_in + 8 * hh;
+        if (row < p.Sq)
+          p.lse[((long long)b * p.Sq + row) * p.H + h] =
+              sm90::row_lse(m[hh], l_safe[hh], p.scale);
+      }
+    }
+  }
+  if (wg_thread == 0) sm90::bulk_wait_read<0>();  // before shared memory goes
+}
+
+template <int D>
+int launch_sm90(const MonoFwdParams& p, cudaStream_t stream) {
+  using L = MonoFwdTile<D>;
+  MonoFwdMaps maps;
+  int rc = sm90::make_tile_map(&maps.q, p.q, p.B, p.Sq, p.H, D, p.q_sb,
+                               p.q_ss, p.q_sh, L::BQ);
+  if (rc == 0)
+    rc = sm90::make_tile_map(&maps.k, p.k, p.B, p.Sk, p.H, D, p.k_sb, p.k_ss,
+                             p.k_sh, L::BK);
+  if (rc == 0)
+    rc = sm90::make_tile_map(&maps.v, p.v, p.B, p.Sk, p.H, D, p.v_sb, p.v_ss,
+                             p.v_sh, L::BK);
+  if (rc == 0)
+    rc = sm90::make_tile_map(&maps.o, p.o, p.B, p.Sq, p.H, D, p.o_sb, p.o_ss,
+                             p.o_sh, 64);
+  if (rc != 0) return rc;
+  auto kernel = flash_fwd_mono_sm90<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int n_items = p.B * p.H * ((p.Sq + L::BQ - 1) / L::BQ);
+  const int sms = sm90::sm_count();
+  if (sms == 0) return (int)cudaErrorInvalidDevice;
+  const int grid = n_items < sms ? n_items : sms;
+  kernel<<<grid, L::kThreads, L::kBytes, stream>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
+inline int dispatch_sm90(int d, const MonoFwdParams& p, cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch_sm90<16>(p, stream);
+    case 32: return launch_sm90<32>(p, stream);
+    case 64: return launch_sm90<64>(p, stream);
+    case 128: return launch_sm90<128>(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -216,7 +473,7 @@ extern "C" int dtpu_flash_fwd_mono(
   p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Sq <= 0 || B * H <= 0) return 0;
-  return dtype == 1 ? dtpu::dispatch_head_dim<__nv_bfloat16>(head_dim, p, s)
-                    : dtpu::dispatch_head_dim<float>(head_dim, p, s);
+  if (Sq <= 0 || Sk <= 0 || B * H <= 0) return 0;
+  return dtype == 1 ? dtpu::dispatch_sm90(head_dim, p, s)
+                    : dtpu::dispatch_fp32(head_dim, p, s);
 }

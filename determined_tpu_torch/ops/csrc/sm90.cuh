@@ -1,6 +1,7 @@
-// Hopper pieces shared by the bf16 paths of flash_fwd.cu and
-// flash_bwd_blocked.cu: TMA tensor maps, mbarrier helpers and warpgroup
-// matrix multiplies (wgmma).
+// Hopper pieces shared by the bf16 paths of flash_fwd.cu,
+// flash_bwd_blocked.cu, flash_fwd_mono.cu and flash_bwd_mono.cu: TMA
+// tensor maps (loads and stores), mbarrier helpers, warpgroup matrix
+// multiplies (wgmma) and the persistent kernels' schedule.
 //
 // Route: inline PTX (no CUTLASS/CuTe headers), so each library still
 // builds with the plain nvcc line of _build.py.
@@ -25,6 +26,12 @@
 // - Warp specialisation: a kernel runs one producer warpgroup (one warp of
 //   it issues the loads; it gives up registers with setmaxnreg) and two
 //   consumer warpgroups (232 registers each).
+// - Persistent kernels (the mono pair): a grid of one CTA a SM walks work
+//   items sorted heaviest first in snake order (`snake_item`), so that
+//   the prologue is paid once a SM and one item's epilogue overlaps the
+//   next item's loads. A tile leaves shared memory by a TMA store
+//   (`tma_store_tile`, bulk async-groups), written there in the same
+//   swizzled layout as a loaded tile (`swizzle_offset`).
 //
 // Fragment layout of an m64nN fp32 accumulator in a warpgroup (thread t,
 // warp w = t / 32, lane l): d[4j + 2h + e] holds row 16w + l/4 + 8h and
@@ -135,6 +142,29 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 4-D map from shared memory to global memory, in the
+// current bulk async-group; TMA drops the rows that fall outside the map.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // Swizzle span (bytes) of a tile whose rows hold `d` bf16 values (up to
 // 64 per column block).
 __host__ __device__ constexpr int swizzle_bytes(int d) {
@@ -162,6 +192,33 @@ __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
     tma_load_4d(static_cast<char*>(dst) + c * block_bytes(rows, D), map, bar,
                 c * 64, h, row0, b);
   }
+}
+
+// Store a [rows, D] tile at `src` (all column blocks) to rows [row0, row0
+// + rows) of head h, batch b of a map made by make_tile_map.
+template <int D>
+__device__ __forceinline__ void tma_store_tile(const CUtensorMap* map,
+                                               const void* src, int rows,
+                                               int h, int row0, int b) {
+#pragma unroll
+  for (int c = 0; c < (D > 64 ? D / 64 : 1); ++c) {
+    tma_store_4d(map, static_cast<const char*>(src) + c * block_bytes(rows, D),
+                 c * 64, h, row0, b);
+  }
+}
+
+// Byte offset of element (row, col) of a [rows, D] bf16 tile in the
+// swizzled layout TMA and wgmma use (column blocks of 64, `swizzle_bytes`
+// a row; the 16-byte chunks of a row XORed with the row's place in its
+// 8-row group).
+template <int D>
+__device__ __forceinline__ uint32_t swizzle_offset(int rows, int row,
+                                                   int col) {
+  constexpr int kSw = swizzle_bytes(D);
+  constexpr int kCols = kSw / 2;
+  const uint32_t off = row * kSw + (col % kCols) * 2;
+  return (col / kCols) * block_bytes(rows, D) +
+         (off ^ (((off >> 7) & (kSw / 16 - 1)) << 4));
 }
 
 // Encode a map over a strided [B, S, H, D] bf16 tensor (strides in
@@ -480,6 +537,26 @@ struct Wgmma<128> {
   }
 };
 
+// -- persistent schedule -----------------------------------------------------
+// Item of CTA `cta` in pass `pass` of a grid of `grid` CTAs: pass r
+// covers items r·grid .. r·grid + grid − 1, in CTA order on even passes
+// and reversed on odd ones. With items sorted heaviest first this deals
+// them out close to the longest-processing-time-first schedule (at B8
+// S1024 causal: 27 tile pairs on the busiest SM against 26.2 on average).
+__device__ __forceinline__ int snake_item(int pass, int cta, int grid) {
+  return pass * grid + ((pass & 1) ? grid - 1 - cta : cta);
+}
+
+// The current device's SM count (the persistent grid's size), or 0 when
+// the runtime cannot tell.
+inline int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
 
 }  // namespace sm90
 }  // namespace dtpu

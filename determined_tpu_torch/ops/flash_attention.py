@@ -27,12 +27,13 @@ Port of ``determined_tpu/ops/flash_attention.py``:
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``). ``nk`` counts the
   reference's key blocks (``block_k``), so the port runs the mono, fused
   or two-pass backward exactly where the reference does.
-- In bf16, ``flash_fwd.cu`` and ``flash_bwd_blocked.cu`` run their
-  products as Hopper ``wgmma`` on tiles that TMA brings into shared
-  memory (``csrc/sm90.cuh``); TMA wants 16-byte-aligned bases and
-  strides, so their wrappers copy a view that breaks that rule
-  (``_tma_ready``) before the launch. In fp32 every kernel reads through
-  strides.
+- In bf16, ``flash_fwd.cu``, ``flash_bwd_blocked.cu``,
+  ``flash_fwd_mono.cu`` and ``flash_bwd_mono.cu`` run their products as
+  Hopper ``wgmma`` on tiles that TMA brings into shared memory
+  (``csrc/sm90.cuh``; the mono pair as persistent kernels, one CTA a SM);
+  TMA wants 16-byte-aligned bases and strides, so their wrappers copy a
+  view that breaks that rule (``_tma_ready``, ``_sm90_inputs``) before
+  the launch. In fp32 every kernel reads through strides.
 - On CPU tensors forward and backward run the reference's CPU path, the
   blockwise online-softmax scan and its backward (``_blockwise_fwd_ref``,
   ``_blockwise_bwd_ref``). ``_mono_fwd_plain``, ``_blocked_fwd_plain``
@@ -204,12 +205,14 @@ def _causal_mask(s_q, s_k, device):
 def _mono_fwd_plain(q, k, v, *, scale, causal):
     """``_fwd_kernel_mono``: q/k/v [BH, S, D] → (o [BH, Sq, D] in q's
     dtype, lse [BH, Sq] fp32). Plain softmax over the whole row in fp32;
-    p is rounded to v's dtype before the p·v product."""
+    p is rounded to v's dtype before the p·v product. With no keys every
+    row gets o = 0 and lse = NEG_INF."""
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if causal:
         s = torch.where(_causal_mask(q.shape[1], k.shape[1], q.device), s,
                         NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
+    m = (s.amax(dim=-1, keepdim=True) if k.shape[1]
+         else s.new_full((*s.shape[:-1], 1), NEG_INF))
     p = torch.exp(s - m)  # masked entries underflow to exactly 0
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
@@ -352,6 +355,16 @@ def _tma_inputs(code, *xs):
                  x.clone(memory_format=torch.contiguous_format) for x in xs)
 
 
+def _sm90_inputs(q, k, v, *more):
+    """Check q/k/v [B, S, H, D] (and more tensors of the same layout, cast
+    to q's dtype: do) for a kernel whose bf16 path loads by TMA → (dtype
+    code, q, k, v, *more with the head dim contiguous and, in bf16, TMA's
+    rules met: ``_tma_inputs``)."""
+    code, q, k, v = _kernel_inputs(q, k, v)
+    more = (_last_dim_contiguous(x.to(q.dtype)) for x in more)
+    return (code, *_tma_inputs(code, q, k, v, *more))
+
+
 def _strides(*xs):
     return [s for x in xs for s in (x.stride(0), x.stride(1), x.stride(2))]
 
@@ -360,11 +373,10 @@ def _flash_fwd_cuda(q, k, v, *, scale, causal, window, kv_offset,
                     segment_ids, kv_segment_ids):
     """Blocked kernel: q/k/v [B, S, H, D] CUDA tensors (any strides with D
     contiguous; in bf16 a view that breaks TMA's alignment rules is copied
-    contiguous first, ``_tma_inputs``) → (o [B, Sq, H, D] in q's dtype,
+    contiguous first, ``_sm90_inputs``) → (o [B, Sq, H, D] in q's dtype,
     lse [B, Sq, H] fp32). With no keys every row is fully masked: o = 0,
     lse = NEG_INF, and no kernel runs."""
-    code, q, k, v = _kernel_inputs(q, k, v)
-    q, k, v = _tma_inputs(code, q, k, v)
+    code, q, k, v = _sm90_inputs(q, k, v)
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     qseg = kseg = None
@@ -391,14 +403,19 @@ def _flash_fwd_cuda(q, k, v, *, scale, causal, window, kv_offset,
 
 def _flash_fwd_mono_cuda(q, k, v, *, scale, causal):
     """Mono kernel: q/k/v [B, S, H, D] CUDA tensors (any strides with D
-    contiguous) → (o [B, Sq, H, D] in q's dtype, lse [B, Sq, H] fp32)."""
-    code, q, k, v = _kernel_inputs(q, k, v)
+    contiguous; in bf16 a view that breaks TMA's alignment rules is copied
+    first, ``_sm90_inputs``) → (o [B, Sq, H, D] in q's dtype, lse
+    [B, Sq, H] fp32). With no keys every row is fully masked: o = 0, lse =
+    NEG_INF, and no kernel runs."""
+    code, q, k, v = _sm90_inputs(q, k, v)
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     o = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, s_q, h), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
+    if s_k == 0:  # no key to attend (and no K/V for a TMA map to cover)
+        return o.zero_(), lse.fill_(NEG_INF)
     FLASH_FWD_MONO.launch(
         code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, h, s_q, s_k, *_strides(q, k, v, o),
@@ -408,29 +425,32 @@ def _flash_fwd_mono_cuda(q, k, v, *, scale, causal):
 
 
 def _flash_bwd_mono_cuda(q, k, v, do, lse, delta, dlse, *, scale, causal):
-    """Mono backward kernel: q/k/v/do [B, S, H, D] CUDA tensors, lse/delta
-    (+ dlse, None = zeros) [B, Sq, H] fp32 → (dq, dk, dv) [B, S, H, D] in
-    q's dtype. dq is summed in an fp32 workspace by atomics, then cast."""
-    code, q, k, v = _kernel_inputs(q, k, v)
-    do = _last_dim_contiguous(do.to(q.dtype))
+    """Mono backward kernel: q/k/v/do [B, S, H, D] CUDA tensors (in bf16 a
+    view that breaks TMA's alignment rules is copied first,
+    ``_sm90_inputs``), lse/delta (+ dlse, None = zeros) [B, Sq, H] fp32 →
+    (dq, dk, dv) [B, S, H, D] in q's dtype. dq is summed in an fp32
+    workspace by atomics, then cast. With no queries or no keys every
+    gradient is zero and no kernel runs."""
+    code, q, k, v, do = _sm90_inputs(q, k, v, do)
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
+    dq32 = torch.zeros((b, s_q, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, s_k, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if not (s_q and s_k and b * h):
+        return dq32.to(q.dtype), dk.zero_(), dv.zero_()
     lse = lse.float().contiguous()
     delta = delta.float().contiguous()
     if dlse is not None:
         dlse = dlse.float().contiguous()
-    dq32 = torch.zeros((b, s_q, h, d), dtype=torch.float32, device=q.device)
-    dk = torch.empty((b, s_k, h, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    if dk.numel() and dq32.numel():
-        FLASH_BWD_MONO.launch(
-            code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
-            dlse.data_ptr() if dlse is not None else None,
-            dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s_q, s_k,
-            *_strides(q, k, v, do), int(causal), float(scale),
-            _build.stream_ptr(q.device),
-        )
+    FLASH_BWD_MONO.launch(
+        code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        dlse.data_ptr() if dlse is not None else None,
+        dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s_q, s_k,
+        *_strides(q, k, v, do), int(causal), float(scale),
+        _build.stream_ptr(q.device),
+    )
     return dq32.to(q.dtype), dk, dv
 
 

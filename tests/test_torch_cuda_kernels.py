@@ -10,7 +10,10 @@ wrappers' refusals, and the blocked forward and fused backward against
 their own plain versions over the cases their TMA/wgmma design makes
 risky (``TMA_CASES``: ragged tiles, one decode row, strided and
 misaligned views, rows that see no key, short windows, several batches
-with segment ids) at every head dim.
+with segment ids) at every head dim, and the persistent mono pair over
+``MONO_TMA_CASES`` (ragged tiles, s_q ≠ s_k causal and full, misaligned
+views, fewer work items than SMs and many more, ``_mono_ok``'s largest
+square, no queries, no keys) at every head dim.
 Marked ``cuda``; each test skips without a CUDA device. On the chip (the
 root and tests/ conftests import JAX, which that machine does not
 have)::
@@ -382,3 +385,62 @@ def test_forward_and_fused_backward_match_plain(dev, dtype, head_dim, b, h,
         else:
             _close(dtype, g, w)
     assert (got[0][:, dead] == 0).all()
+
+
+#: The cases the persistent wgmma/TMA mono pair makes risky: ragged tiles,
+#: s_q ≠ s_k under the top-left causal mask and without it (key tiles no
+#: row sees, rows past the keys), misaligned views (copied first), fewer
+#: work items than SMs (B1 H2 S128) and many more (B8 H12 S1024: every
+#: CTA's walk wraps), ``_mono_ok``'s largest square (s = 1448), no
+#: queries and no keys.
+MONO_TMA_CASES = [  # name, b, h, s_q, s_k, causal, layout
+    ("ragged-200", 2, 3, 200, 200, True, "qkv"),
+    ("ragged-200-full", 2, 3, 200, 200, False, "qkv"),
+    ("sq-lt-sk-causal", 2, 3, 96, 300, True, "qkv"),
+    ("sq-gt-sk-causal", 2, 3, 300, 96, True, "qkv"),
+    ("sq-lt-sk-full", 2, 3, 96, 300, False, "qkv"),
+    ("sq-gt-sk-full", 2, 3, 300, 96, False, "qkv"),
+    ("odd-base", 2, 3, 200, 200, True, "odd-base"),
+    ("odd-stride", 2, 3, 200, 200, True, "odd-stride"),
+    ("few-items", 1, 2, 128, 128, True, "qkv"),
+    ("wraps", 8, 12, 1024, 1024, True, "qkv"),
+    ("largest", 1, 2, 1448, 1448, True, "qkv"),
+    ("no-queries", 2, 3, 0, 64, False, "qkv"),
+    ("no-keys", 2, 3, 64, 0, False, "qkv"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("b,h,s_q,s_k,causal,layout",
+                         [c[1:] for c in MONO_TMA_CASES],
+                         ids=[c[0] for c in MONO_TMA_CASES])
+def test_mono_pair_matches_plain_on_the_tma_grid(dev, dtype, head_dim, b, h,
+                                                 s_q, s_k, causal, layout):
+    """flash_fwd_mono and flash_bwd_mono (bf16: the persistent wgmma/TMA
+    kernels; fp32: the FMA kernels) against their plain versions, with
+    and without an lse cotangent. With no keys o = 0 and lse = NEG_INF;
+    with no queries dk = dv = 0."""
+    q, k, v, do, dlse = _layout_inputs(dev, dtype, layout, b, h, s_q, s_k,
+                                       head_dim, head_dim + s_q + s_k)
+    o_k, lse_k = tfa.flash_fwd_mono(q, k, v, causal=causal)
+    o_p, lse_p = tfa.flash_fwd_mono_plain(q, k, v, causal=causal)
+    _close(dtype, o_k, o_p)
+    _close(dtype, lse_k, lse_p, lse=True)
+    if s_k == 0:
+        assert (o_k == 0).all() and (lse_k == tfa.NEG_INF).all()
+    delta = (do.float() * o_p.float()).sum(-1)
+    for cot in (None, dlse):
+        got = tfa.flash_bwd_mono(q, k, v, do, lse_p, delta, cot,
+                                 causal=causal)
+        want = tfa.flash_bwd_mono_plain(q, k, v, do, lse_p, delta, cot,
+                                        causal=causal)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            if dtype == torch.float32:
+                torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+            else:
+                _close(dtype, g, w)
+        if s_q == 0:
+            assert (got[1] == 0).all() and (got[2] == 0).all()

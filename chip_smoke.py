@@ -23,7 +23,9 @@ script exits non-zero without the final result line:
    (``flash_fwd_plain``, p rounded to bf16 where the kernel rounds it)
    and against the entry point's plain path
    (``flash_attention_lse_plain``). The flash forward and paged kernels
-   run at the serving shapes; the mono pair at (B 2, S 1024, causal), (B
+   run at the serving shapes, the paged kernel also at 32 slots of 8 full
+   pages (where bytes, not latency, set its time; two paged launches must
+   agree bit for bit); the mono pair at (B 2, S 1024, causal), (B
    2, S 512, non-causal) and with a nonzero lse cotangent, then over
    ``MONO_GRID`` (the cases its persistent wgmma/TMA design makes risky:
    ragged tiles, s_q ≠ s_k causal and full, misaligned views, fewer work
@@ -38,7 +40,7 @@ script exits non-zero without the final result line:
    ``flash_bwd_dkv`` — run
    ``BLOCKED_CASES`` (causal at S 2048, a 256 window, packed segments,
    kv_offset with s_q 512 and s_k 1024, a nonzero lse cotangent, all of
-   them at once), then the shapes the main paths give them, in bf16: the
+   them at once; two dk/dv launches must agree bit for bit), then the shapes the main paths give them, in bf16: the
    packed phase's batch (B 8 × 1024, its ``pack_sequences`` segment ids;
    ``flash_fwd`` too; both timed), and the long-context shapes (B 1, H
    12, D 64, causal): ``flash_fwd`` and the fused kernel at S 16384
@@ -315,14 +317,19 @@ class Smoke:
         return dict(tflops=flops / ms / 1e9, bound_share=bound_ms / ms)
 
     # -- phase 3: paged decode ------------------------------------------------
-    def paged_case(self, name, dtype, *, q_rows, ragged, seed=0):
+    def paged_case(self, name, dtype, *, q_rows, ragged, seed=0, full=False):
+        """paged_attention against its plain version and gather + SDPA, 8
+        pages of 128 tokens a slot, H 12, D 64: the engine's decode batch
+        (8 slots of ragged lengths, one inactive), or with `full` 32 slots
+        of 8 full pages (100.7 MB of bf16 K/V, where bytes and not latency
+        set the time). Two launches must agree bit for bit."""
         import numpy as np
         import torch
         import torch.nn.functional as F
 
         from determined_tpu_torch.ops import paged_attention as tpa
 
-        b, p, ps, h, d = 8, 8, 128, 12, 64
+        b, p, ps, h, d = (32 if full else 8), 8, 128, 12, 64
         num_pages = b * p + 1
         gen = torch.Generator(device=self.dev).manual_seed(seed)
         rng = np.random.default_rng(seed)
@@ -331,9 +338,13 @@ class Smoke:
         pt = rng.permutation(np.arange(1, num_pages)).reshape(b, p)
         q_lens = (rng.integers(1, 6, size=b) if ragged
                   else np.ones(b, np.int64))
-        lengths = np.array([0, 1023, 517, 1, 260, 900, 128, 64])
+        if full:
+            lengths = np.full(b, p * ps - 1)
+            active = np.ones(b, bool)
+        else:
+            lengths = np.array([0, 1023, 517, 1, 260, 900, 128, 64])
+            active = np.arange(b) != 4
         lengths = np.minimum(lengths, p * ps - q_lens)
-        active = np.arange(b) != 4
         q = self.randn((b, q_rows, h, d), dtype, gen)
         dev_i32 = [torch.from_numpy(a.astype(np.int32)).to(self.dev)
                    for a in (pt, lengths, active, q_lens)]
@@ -341,8 +352,10 @@ class Smoke:
         kw = dict(q_lens=dev_i32[3])
         o_k = tpa.paged_attention(*args, **kw)
         o_p = tpa.paged_attention_plain(*args, **kw)
+        again = tpa.paged_attention(*args, **kw)
         torch.cuda.synchronize()
         self.check(name, dtype, o_k, o_p)
+        assert torch.equal(o_k, again), f"paged {name}: launches differ"
         err = float((o_k.float() - o_p.float()).abs().max())
 
         r = np.arange(q_rows)[None, :]
@@ -645,6 +658,11 @@ class Smoke:
             torch.cuda.synchronize()
             errs[kernel] = self.hold_grads(f"{kernel} {name}", dtype, got,
                                            want)
+            if kernel == "flash_bwd_dkv":  # deterministic: one CTA's sums
+                again = self.blocked_run(kernel, args, kw)
+                assert all(torch.equal(g, a) for g, a in zip(got[1:],
+                                                             again[1:])), \
+                    f"flash_bwd_dkv {name}: launches differ"
         self.report("kernels", f"blocked-backward {name} {str(dtype)[6:]}",
                     {f"{k}_max_abs_err": v for k, v in errs.items()})
         if not timed:
@@ -1200,6 +1218,7 @@ def main() -> int:
                                         ragged=False)
         smoke.paged_case("ragged-qlens", dtype, q_rows=8, ragged=True,
                          seed=1)
+    smoke.paged_case("full", bf16, q_rows=1, ragged=False, seed=2, full=True)
     for dtype in (bf16, fp32):
         smoke.mono_case("causal", dtype, b=2, s=1024, causal=True,
                         dlse=False)

@@ -165,7 +165,7 @@ FLASH_FWD = CudaKernel(
 )
 PAGED_ATTENTION = CudaKernel(
     "paged_attention", "dtpu_paged_attention",
-    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
      _L, _L, _L, _F, _P],
 )
 FLASH_FWD_MONO = CudaKernel(

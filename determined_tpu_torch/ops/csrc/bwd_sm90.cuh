@@ -77,9 +77,11 @@ __device__ __forceinline__ void p_ds(float (&st)[kBwdBQ / 2],
   }
 }
 
-// Pᵀ and dSᵀ rounded to bf16 as the A fragments of dv and dk; dSᵀ also
-// into the shared tile `ds_s` ([BK keys][BQ rows], 128-byte swizzle) at
-// the warpgroup's keys (key_row = 64g + r_in) for the dq product.
+// Pᵀ and dSᵀ rounded to bf16 as the A fragments of dv and dk; with
+// kStoreDs, dSᵀ also into the shared tile `ds_s` ([BK keys][BQ rows],
+// 128-byte swizzle) at the warpgroup's keys (key_row = 64g + r_in) for
+// the dq product.
+template <bool kStoreDs = true>
 __device__ __forceinline__ void pack_p_ds(const float (&st)[kBwdBQ / 2],
                                           const float (&dpt)[kBwdBQ / 2],
                                           uint32_t (&pf)[kBwdBQ / 16][4],
@@ -95,6 +97,7 @@ __device__ __forceinline__ void pack_p_ds(const float (&st)[kBwdBQ / 2],
       dsf[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
     }
   }
+  if (!kStoreDs) return;
 #pragma unroll
   for (int j = 0; j < BQ / 8; ++j) {
 #pragma unroll

@@ -13,15 +13,19 @@
 // causal) that is 3.3e12 FLOPs over ~80 MB: the operations bound it
 // (~3.3 ms at 989 TFLOP/s bf16).
 //
-// What the design does about it. k-major, as the TPU kernel: one block
-// per (batch·head, key tile) keeps its k, v tiles and the fp32 dk, dv
-// accumulators in shared memory and walks only the query tiles that can
-// see its keys (rows_seeing), so every sum stays in the block and the
-// result is deterministic; no workspace, no atomics. Paired with the dq
-// pass it recomputes s and dp once more than the fused kernel, which is
-// the price of needing no dq workspace past the cap. Products on the
-// tensor cores for bf16 (wmma), fp32 FMAs for fp32 (mono_tiles.cuh).
-#include "blocked_bwd.cuh"
+// What the design does about it. k-major, as the TPU kernel, so every sum
+// stays in one CTA and the result is deterministic: no workspace, no
+// atomics. bf16 runs the fused blocked backward's Hopper kernel without
+// its dq half (flash_bwd_sm90<D, kDq = false>, bwd_blocked_sm90.cuh): one
+// CTA per (batch·head, 128 keys) with K and V loaded once by TMA, q and do
+// streamed through a 3-stage TMA ring, the four products on wgmma, and dk
+// and dv in the consumer warpgroups' registers for the whole walk; the two
+// warpgroups never wait on each other. Paired with the dq pass it
+// recomputes s and dp once more than the fused kernel, which is the price
+// of needing no dq workspace past the cap. fp32 keeps the block-wide FMA
+// tiles of mono_tiles.cuh (a tensor-core fp32 product would round to
+// TF32), with dk and dv accumulated in shared memory.
+#include "bwd_blocked_sm90.cuh"
 
 namespace dtpu {
 
@@ -77,6 +81,15 @@ struct DkvLaunch {
 }  // namespace dtpu
 
 // dq: unused (null); dk, dv: contiguous [B, Sk, H, D] in the input dtype.
+// bf16 loads q, k, v and do by TMA (16-byte-aligned bases and strides:
+// the wrapper copies a view that breaks the rule).
 extern "C" int dtpu_flash_bwd_dkv(DTPU_BLOCKED_BWD_ARGS) {
-  return dtpu::blocked_entry<dtpu::DkvLaunch>(DTPU_BLOCKED_BWD_NAMES);
+  const dtpu::BlockedBwdParams p = dtpu::make_blocked_params(
+      q, k, v, dout, lse, delta, dlse, qseg, kseg, dq, dk, dv, B, H, Sq, Sk,
+      strides, causal, window, kv_offset, scale);
+  if (Sq <= 0 || Sk <= 0 || B * H <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1
+             ? dtpu::dispatch_sm90<false>(head_dim, p, s)
+             : dtpu::dispatch_blocked<dtpu::DkvLaunch, float>(head_dim, p, s);
 }

@@ -28,9 +28,11 @@ Port of ``determined_tpu/ops/flash_attention.py``:
   reference's key blocks (``block_k``), so the port runs the mono, fused
   or two-pass backward exactly where the reference does.
 - In bf16, ``flash_fwd.cu``, ``flash_bwd_blocked.cu``,
-  ``flash_fwd_mono.cu`` and ``flash_bwd_mono.cu`` run their products as
-  Hopper ``wgmma`` on tiles that TMA brings into shared memory
-  (``csrc/sm90.cuh``; the mono pair as persistent kernels, one CTA a SM);
+  ``flash_bwd_dkv.cu``, ``flash_fwd_mono.cu`` and ``flash_bwd_mono.cu``
+  run their products as Hopper ``wgmma`` on tiles that TMA brings into
+  shared memory (``csrc/sm90.cuh``; the fused backward and the dk/dv pass
+  share one kernel, ``csrc/bwd_blocked_sm90.cuh``; the mono pair as
+  persistent kernels, one CTA a SM);
   TMA wants 16-byte-aligned bases and strides, so their wrappers copy a
   view that breaks that rule (``_tma_ready``, ``_sm90_inputs``) before
   the launch. In fp32 every kernel reads through strides.
@@ -343,8 +345,9 @@ def _kernel_inputs(q, k, v):
 
 
 def _tma_inputs(code, *xs):
-    """The bf16 paths of ``flash_fwd.cu`` and ``flash_bwd_blocked.cu``
-    load their tiles by TMA: a tensor that breaks its rules
+    """The bf16 paths of ``flash_fwd.cu``, ``flash_bwd_blocked.cu``,
+    ``flash_bwd_dkv.cu`` and ``paged_attention.cu`` load their tiles by
+    TMA: a tensor that breaks its rules
     (``_tma_ready``) is copied contiguous into fresh, aligned memory
     first (``contiguous()`` would keep a contiguous view at a misaligned
     base as it is); the kernel is the same. fp32 tensors pass as they are
@@ -547,12 +550,12 @@ def _flash_bwd_blocked_cuda(kernel, q, k, v, do, lse, delta, dlse, qseg,
     contiguous), lse/delta (+ dlse, None = zeros) [B, Sq, H] fp32, segment
     ids [B, Sq] / [B, Sk] or None → (dq, dk, dv) [B, S, H, D] in q's
     dtype, None for what the kernel does not compute. The fused kernel
-    sums dq in an fp32 workspace by atomics, then casts; in bf16 it loads
-    q/k/v/do by TMA, so a view that breaks TMA's alignment rules is
-    copied contiguous first (``_tma_inputs``)."""
+    sums dq in an fp32 workspace by atomics, then casts; in bf16 it and
+    the dk/dv pass load q/k/v/do by TMA, so a view that breaks TMA's
+    alignment rules is copied contiguous first (``_tma_inputs``)."""
     code, q, k, v = _kernel_inputs(q, k, v)
     do = _last_dim_contiguous(do.to(q.dtype))
-    if kernel is FLASH_BWD_BLOCKED:
+    if kernel is not FLASH_BWD_DQ:
         q, k, v, do = _tma_inputs(code, q, k, v, do)
     b, s_q, h, d = q.shape
     s_k = k.shape[1]

@@ -10,17 +10,23 @@ is built. Row r of slot b is the token at position ``lengths[b] + r``
 
 - On a CUDA tensor the wrapper launches ``csrc/paged_attention.cu`` (the
   port of the Pallas ``_paged_kernel``) or raises. The kernel runs one
-  thread block per (slot, head), loads its own page-table row and
-  scalars, and walks only the slot's live pages.
+  thread block cluster per (slot, head) of ``C = min(4, P)`` CTAs: rank c
+  walks the slot's live pages c, c + C, ... (each CTA loads its own
+  page-table row and scalars), and the ranks' partial softmax states are
+  merged inside the cluster in rank order. In bf16 the pages stream by
+  TMA, so a pool view that breaks TMA's 16-byte rules is copied first
+  (``flash_attention._tma_inputs``).
 - On a CPU tensor it runs ``_paged_ref``, the plain version: a page-table
   gather (dead entries clamped to the last live page, as the reference's
-  ``_page_index``) plus dense masked softmax.
+  ``_page_index``) plus dense masked softmax. ``_paged_split_plain``
+  repeats the kernel's split walk and rank-order merge in plain PyTorch,
+  for the tests.
 
 Changes from the reference, both because the TPU's tiling rules do not
 apply here: ``page_size`` need not be a multiple of ``LANE_GRANULE`` (the
 CUDA kernel walks a page in 64-key tiles with a short last tile), and
 ``block_h`` is accepted and validated for signature parity but the kernel
-ignores it (one head per thread block). ``interpret`` has no meaning for a
+ignores it (one head per cluster). ``interpret`` has no meaning for a
 CUDA kernel: it is accepted for parity and refused on a CUDA tensor.
 """
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from determined_tpu_torch.ops import _build
+from determined_tpu_torch.ops.flash_attention import _tma_inputs
 
 NEG_INF = float(-1e30)
 
@@ -44,6 +51,10 @@ LANE_GRANULE = 128
 
 #: Query rows one launch takes (the kernel's register-resident row state).
 MAX_Q_ROWS = 16
+
+#: CTAs of a (slot, head)'s cluster at most: the kernel splits the page
+#: walk over ``min(MAX_RANKS, P)`` ranks.
+MAX_RANKS = 4
 
 #: The reference's per-step K+V page-group budget (bytes), kept so
 #: ``default_paged_block_h`` returns what the reference returns.
@@ -74,11 +85,12 @@ def default_paged_block_h(n_heads: int, head_dim: int, page_size: int,
     return best
 
 
-def _paged_ref(q, k_pool, v_pool, page_table, lengths, active, q_lens,
-               scale):
-    """Plain version: gather each slot's pages (dead table entries clamped
-    onto the last live page, so a dead entry is never used as an index),
-    then dense masked softmax in fp32. → o [B, q_rows, H, Dh] pool dtype."""
+def _gather_scores(q, k_pool, v_pool, page_table, lengths, active, q_lens,
+                   scale):
+    """Each slot's pages gathered (dead table entries clamped onto the last
+    live page, so a dead entry is never used as an index) → (fp32 scores
+    [B, H, r, K] with NEG_INF where masked, the mask [B, 1, r, K], fp32 V
+    [B, K, H, Dh]); key k of a slot sits at position k."""
     b, q_rows, h, d = q.shape
     page_size = k_pool.shape[1]
     n_page_slots = page_table.shape[1]
@@ -99,13 +111,60 @@ def _paged_ref(q, k_pool, v_pool, page_table, lengths, active, q_lens,
     cols = torch.arange(s_max, device=q.device)
     mask = (cols[None, None, :] <= bound[:, :, None])          # [B, r, k]
     mask = (mask & (active != 0)[:, None, None])[:, None]      # [B, 1, r, k]
-    s = torch.where(mask, s, NEG_INF)
+    return torch.where(mask, s, NEG_INF), mask, v_full
+
+
+def _paged_ref(q, k_pool, v_pool, page_table, lengths, active, q_lens,
+               scale):
+    """Plain version: the gathered pages (``_gather_scores``), then dense
+    masked softmax in fp32. → o [B, q_rows, H, Dh] pool dtype."""
+    s, mask, v_full = _gather_scores(q, k_pool, v_pool, page_table, lengths,
+                                     active, q_lens, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
     o = torch.einsum("bhrk,bkhd->brhd", p / l_safe, v_full)
     return o.to(k_pool.dtype)
+
+
+def _paged_split_plain(q, k_pool, v_pool, page_table, lengths, active,
+                       q_lens=None, *, scale=None, n_ranks=None):
+    """The CUDA kernel's split walk and merge in plain PyTorch (tests
+    only): rank c of ``C = min(MAX_RANKS, P)`` (or ``n_ranks``) takes the
+    live pages c, c + C, ... and keeps its own fp32 (m, l, acc) — a rank
+    with no live key holds m = NEG_INF, l = 0 — then the partials are
+    merged in rank order, o = Σ acc_c·e^(m_c − m) / Σ l_c·e^(m_c − m) with
+    m the largest m_c (l = 0 writes zeros). → o [B, q_rows, H, Dh] pool
+    dtype."""
+    b, q_rows, h, d = q.shape
+    if q_lens is None:
+        q_lens = torch.ones((b,), dtype=torch.int32, device=q.device)
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    page_size = k_pool.shape[1]
+    n_slots = page_table.shape[1]
+    if n_ranks is None:
+        n_ranks = min(MAX_RANKS, n_slots)
+    s, mask, v_full = _gather_scores(q, k_pool, v_pool, page_table, lengths,
+                                     active, q_lens, scale)
+    rank = (torch.arange(s.shape[-1], device=q.device) // page_size) % n_ranks
+    parts = []
+    for c in range(n_ranks):
+        mine = mask & (rank == c)
+        s_c = torch.where(mine, s, NEG_INF)
+        m_c = s_c.amax(dim=-1, keepdim=True)
+        p_c = torch.where(mine, torch.exp(s_c - m_c), 0.0)
+        parts.append((m_c, p_c.sum(dim=-1, keepdim=True),
+                      torch.einsum("bhrk,bkhd->bhrd", p_c, v_full)))
+    m = torch.stack([m_c for m_c, _, _ in parts]).amax(dim=0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for m_c, l_c, acc_c in parts:  # rank order
+        w = torch.exp(m_c - m)
+        l = l + l_c * w
+        acc = acc + acc_c * w
+    o = torch.where(l == 0.0, 0.0, acc / torch.where(l == 0.0, 1.0, l))
+    return o.transpose(1, 2).to(k_pool.dtype)
 
 
 def _paged_cuda(q, k_pool, v_pool, page_table, lengths, active, q_lens,
@@ -129,8 +188,8 @@ def _paged_cuda(q, k_pool, v_pool, page_table, lengths, active, q_lens,
     code = _build.dtype_code(q.dtype)
     if q.stride(-1) != 1:
         q = q.contiguous()
-    k_pool = k_pool.contiguous()
-    v_pool = v_pool.contiguous()
+    k_pool, v_pool = _tma_inputs(code, k_pool.contiguous(),
+                                 v_pool.contiguous())
 
     def i32(x):
         return x.to(device=q.device, dtype=torch.int32).contiguous()
@@ -145,7 +204,7 @@ def _paged_cuda(q, k_pool, v_pool, page_table, lengths, active, q_lens,
         code, d, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), q_lens.data_ptr(),
         active.data_ptr(), o.data_ptr(), b, q_rows, h, page_size,
-        page_table.shape[1], q.stride(0), q.stride(1), q.stride(2),
+        page_table.shape[1], num_pages, q.stride(0), q.stride(1), q.stride(2),
         float(scale), _build.stream_ptr(q.device),
     )
     return o
@@ -177,7 +236,7 @@ def paged_attention(
     (default all ones: plain single-token decode).
 
     block_h: validated (must divide H) and otherwise unused — the CUDA
-    kernel runs one head per thread block. interpret: refused on CUDA
+    kernel runs one head per thread block cluster. interpret: refused on CUDA
     tensors (a CUDA kernel has no interpret mode); CPU tensors always run
     the plain version.
 

@@ -9,9 +9,11 @@ through one packed prefill per admission round, then runs decode
 iterations on the calling thread: ``--iters`` timed with the profiler off
 (host clock around iterations that end in a device sync), then ``--iters``
 under ``torch.profiler``. Prints one JSON line: wall ms per iteration,
-device-busy ms per iteration (the kernels' own time summed), the device's
-idle share, and the kernels that take the most device time per iteration.
-Needs a CUDA device.
+the host's ms per iteration to enqueue the model's step (the time spent
+in ``GPT.decode_kv``, which returns before the device finishes; the
+sampling's sync comes after it), device-busy ms per iteration (the
+kernels' own time summed), the device's idle share, and the kernels that
+take the most device time per iteration. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -59,14 +61,26 @@ def main(argv: Optional[List[str]] = None) -> int:
             break
         eng._prefill_packed(admitted)
     active = sum(r is not None for r in eng._slots)
+    decode_kv = eng.model.decode_kv
+    enqueue_s = [0.0]
+
+    def timed_decode_kv(*a, **kw):
+        t = time.perf_counter()
+        out = decode_kv(*a, **kw)
+        enqueue_s[0] += time.perf_counter() - t
+        return out
+
+    eng.model.decode_kv = timed_decode_kv
     for _ in range(3):  # warm-up
         eng._decode_iter()
     torch.cuda.synchronize()
+    enqueue_s[0] = 0.0
     t0 = time.perf_counter()
     for _ in range(args.iters):
         eng._decode_iter()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+    host_ms = enqueue_s[0] * 1e3 / args.iters
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -87,6 +101,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "prompt_tokens": args.prompt,
         "iters": args.iters,
         "wall_ms_per_iter": wall_ms,
+        "host_enqueue_ms_per_iter": host_ms,
         "wall_ms_per_iter_profiled": prof_wall_ms,
         "device_busy_ms_per_iter": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / prof_wall_ms),

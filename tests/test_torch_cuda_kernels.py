@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: every head dim the kernels are built for, both dtypes, the masking
 contract (causal, window, kv_offset, segment ids), odd page sizes,
-ragged q_lens up to the 16-row limit, strided inputs, the mono forward
+ragged q_lens up to the 16-row limit (the paged kernel's split walk
+over ``PAGED_CASES``: dead page-table entries, empty ranks, layer views,
+bitwise repeats), strided inputs, the mono forward
 and backward (causal or not, ragged tiles, a nonzero lse cotangent), the
 three blocked backward kernels (fused, dq pass, dk/dv pass) over causal /
 full × window × segment ids × kv_offset with a nonzero lse cotangent, the
@@ -10,7 +12,8 @@ wrappers' refusals, and the blocked forward and fused backward against
 their own plain versions over the cases their TMA/wgmma design makes
 risky (``TMA_CASES``: ragged tiles, one decode row, strided and
 misaligned views, rows that see no key, short windows, several batches
-with segment ids) at every head dim, and the persistent mono pair over
+with segment ids) at every head dim, the dk/dv pass over the same grid
+(bitwise repeatable), and the persistent mono pair over
 ``MONO_TMA_CASES`` (ragged tiles, s_q ≠ s_k causal and full, misaligned
 views, fewer work items than SMs and many more, ``_mono_ok``'s largest
 square, no queries, no keys) at every head dim.
@@ -94,32 +97,71 @@ def test_flash_kernel_matches_plain(dev, dtype, head_dim, causal, window,
     _close(dtype, lse_k, lse_p, lse=True)
 
 
+#: The cases the split, TMA-fed page walk makes risky: ragged pages
+#: (page_size 100 and 16 against 64-key TMA boxes), q_rows 1, 5 and 16
+#: with ragged q_lens, P > 8 (ranks walking several pages), P = 1 (one
+#: rank), pools as a layer of a [L, ...] cache and at a misaligned base.
+#: Every case also has a slot of length 0, a slot with fewer live pages
+#: than ranks, an inactive slot, and dead page-table entries holding −1
+#: and ids past the pool.
+PAGED_CASES = [  # name, page_size, q_rows, P, layer (None: misaligned)
+    ("ps16-r1", 16, 1, 4, 0),
+    ("ps100-r5", 100, 5, 4, 1),
+    ("ps128-r16", 128, 16, 4, 2),
+    ("ps16-p11-r5", 16, 5, 11, 1),
+    ("ps100-p11-r16", 100, 16, 11, 2),
+    ("ps128-p1-r1", 128, 1, 1, 0),
+    ("ps128-p8-r1-odd-base", 128, 1, 8, None),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("head_dim", [16, 64, 128])
-@pytest.mark.parametrize("page_size,q_rows", [(16, 1), (100, 5), (128, 16)])
-def test_paged_kernel_matches_plain(dev, dtype, head_dim, page_size, q_rows):
-    rng = np.random.default_rng(page_size)
-    b, p, h = 6, 4, 3
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("page_size,q_rows,p,layer",
+                         [c[1:] for c in PAGED_CASES],
+                         ids=[c[0] for c in PAGED_CASES])
+def test_paged_kernel_matches_plain(dev, dtype, head_dim, page_size, q_rows,
+                                    p, layer):
+    """paged_attention against its plain version; dead entries are never
+    read (the plain version clamps them away), an inactive slot writes
+    zeros, and two launches agree bit for bit (the cluster merges its
+    ranks in a fixed order)."""
+    rng = np.random.default_rng(page_size + p)
+    b, h = 6, 3
     num_pages = b * p + 3
     gen = torch.Generator(device=dev).manual_seed(1)
-    pools = torch.randn((2, num_pages, page_size, h, head_dim),
-                        generator=gen, device=dev).to(dtype)
+    shape = (num_pages, page_size, h, head_dim)
+    if layer is None:  # one element past 16-byte alignment
+        n = num_pages * page_size * h * head_dim
+        flat = torch.randn((2 * n + 1,), generator=gen, device=dev).to(dtype)
+        k_pool = flat[1:1 + n].view(shape)
+        v_pool = flat[1 + n:].view(shape)
+    else:  # layer `layer` of [L, ...] caches, as the engine passes them
+        cache = torch.randn((2, 3, *shape), generator=gen,
+                            device=dev).to(dtype)
+        k_pool, v_pool = cache[0, layer], cache[1, layer]
     pt = rng.permutation(np.arange(1, num_pages))[:b * p].reshape(b, p)
     q_lens = rng.integers(1, q_rows + 1, size=b)
     lengths = np.minimum(rng.integers(0, p * page_size, size=b),
                          p * page_size - q_lens)
-    lengths[0] = 0
+    lengths[0] = 0                                   # length 0
+    lengths[1] = min(page_size // 2, p * page_size - q_lens[1])  # 1 page
     active = np.array([1, 1, 0, 1, 1, 1])
+    live = (lengths + q_lens - 1) // page_size + 1
+    for i in range(b):                               # dead entries
+        pt[i, live[i]:] = -1 if i % 2 else num_pages + 7
     q = torch.randn((b, q_rows, h, head_dim), generator=gen,
                     device=dev).to(dtype)
     args = [torch.from_numpy(a.astype(np.int32)).to(dev)
             for a in (pt, lengths, active, q_lens)]
-    o_k = tpa.paged_attention(q, pools[0], pools[1], *args[:3], q_lens=args[3])
-    o_p = tpa.paged_attention_plain(q, pools[0], pools[1], *args[:3],
+    o_k = tpa.paged_attention(q, k_pool, v_pool, *args[:3], q_lens=args[3])
+    o_p = tpa.paged_attention_plain(q, k_pool, v_pool, *args[:3],
                                     q_lens=args[3])
     _close(dtype, o_k, o_p)
     assert (o_k[2] == 0).all()
+    again = tpa.paged_attention(q, k_pool, v_pool, *args[:3], q_lens=args[3])
+    assert torch.equal(o_k, again)
 
 
 def test_kernel_refusals(dev):
@@ -344,6 +386,22 @@ TMA_CASES = [  # name, b, h, s_q, s_k, causal, window, kv_offset, segs, layout
 ]
 
 
+def _tma_case_masks(dev, b, s_q, s_k, causal, window, kv_offset, segs):
+    """A TMA_CASES row's mask arguments and the query rows that see no key
+    (segment id 99 in "dead", every row with no keys)."""
+    kw = dict(causal=causal, window=window, kv_offset=kv_offset)
+    dead = slice(0, 0) if s_k else slice(None)
+    if segs:
+        rng = np.random.default_rng(s_k + b)
+        kseg = torch.from_numpy(_packed(rng, b, s_k)).to(dev)
+        qseg = kseg[:, s_k - s_q:].clone()
+        if segs == "dead":
+            dead = slice(10, 30)
+            qseg[:, dead] = 99
+        kw.update(segment_ids=qseg, kv_segment_ids=kseg)
+    return kw, dead
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
@@ -359,16 +417,8 @@ def test_forward_and_fused_backward_match_plain(dev, dtype, head_dim, b, h,
     (every row, with no keys) get o = 0, lse = NEG_INF and a zero dq."""
     q, k, v, do, dlse = _layout_inputs(dev, dtype, layout, b, h, s_q, s_k,
                                        head_dim, head_dim + s_q)
-    kw = dict(causal=causal, window=window, kv_offset=kv_offset)
-    dead = slice(0, 0) if s_k else slice(None)
-    if segs:
-        rng = np.random.default_rng(s_k + b)
-        kseg = torch.from_numpy(_packed(rng, b, s_k)).to(dev)
-        qseg = kseg[:, s_k - s_q:].clone()
-        if segs == "dead":
-            dead = slice(10, 30)
-            qseg[:, dead] = 99
-        kw.update(segment_ids=qseg, kv_segment_ids=kseg)
+    kw, dead = _tma_case_masks(dev, b, s_q, s_k, causal, window, kv_offset,
+                               segs)
     o_k, lse_k = tfa.flash_fwd(q, k, v, **kw)
     o_p, lse_p = tfa.flash_fwd_plain(q, k, v, **kw)
     _close(dtype, o_k, o_p)
@@ -385,6 +435,38 @@ def test_forward_and_fused_backward_match_plain(dev, dtype, head_dim, b, h,
         else:
             _close(dtype, g, w)
     assert (got[0][:, dead] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize(
+    "b,h,s_q,s_k,causal,window,kv_offset,segs,layout",
+    [c[1:] for c in TMA_CASES], ids=[c[0] for c in TMA_CASES])
+def test_dkv_pass_matches_plain_over_tma_cases(dev, dtype, head_dim, b, h,
+                                               s_q, s_k, causal, window,
+                                               kv_offset, segs, layout):
+    """flash_bwd_dkv (bf16: the fused backward's wgmma/TMA kernel without
+    its dq half; fp32: the FMA kernel) against flash_bwd_blocked_plain's
+    dk and dv, with an lse cotangent, misaligned views included; two
+    launches agree bit for bit (dk and dv are summed in one CTA)."""
+    q, k, v, do, dlse = _layout_inputs(dev, dtype, layout, b, h, s_q, s_k,
+                                       head_dim, head_dim + s_q)
+    kw, _ = _tma_case_masks(dev, b, s_q, s_k, causal, window, kv_offset,
+                            segs)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * o_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, dlse)
+    got = tfa.flash_bwd_dkv(*args, **kw)
+    want = tfa.flash_bwd_blocked_plain(*args, **kw)[1:]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+        else:
+            _close(dtype, g, w)
+    again = tfa.flash_bwd_dkv(*args, **kw)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
 #: The cases the persistent wgmma/TMA mono pair makes risky: ragged tiles,

@@ -40,7 +40,8 @@ script exits non-zero without the final result line:
    ``flash_bwd_dkv`` — run
    ``BLOCKED_CASES`` (causal at S 2048, a 256 window, packed segments,
    kv_offset with s_q 512 and s_k 1024, a nonzero lse cotangent, all of
-   them at once; two dk/dv launches must agree bit for bit), then the shapes the main paths give them, in bf16: the
+   them at once; two dq launches and two dk/dv launches must each agree
+   bit for bit), then the shapes the main paths give them, in bf16: the
    packed phase's batch (B 8 × 1024, its ``pack_sequences`` segment ids;
    ``flash_fwd`` too; both timed), and the long-context shapes (B 1, H
    12, D 64, causal): ``flash_fwd`` and the fused kernel at S 16384
@@ -48,8 +49,15 @@ script exits non-zero without the final result line:
    long shapes the plain versions run one head at a time (one [S, S]
    fp32 matrix per call); each kernel is held against it and timed
    beside it on the same inputs, and both once more at S ``PLAIN_SEQ`` =
-   4096. The ``max_abs_err`` of rows 4–6 in the kernels line comes from
-   these main-path shapes; every row names its ``shape``.
+   4096, where ``flash_bwd_dq`` is also held against the plain copy of
+   its own tile walk (``_bwd_dq_walk_plain``: the same ds roundings and
+   the same fp32 summation order by tile) at bf16 atol 2e-3 and rtol
+   2^-7 (one bf16 ulp; the 2e-2 of the other bf16 checks would pass an
+   error ten times larger). At S 32768 one more line, ``route-32k``, times
+   the two routes past the partials cap on the same inputs: the fused
+   kernel against the dq and dk/dv passes back to back. The
+   ``max_abs_err`` of rows 4–6 in the kernels line comes from these
+   main-path shapes; every row names its ``shape``.
 4. engine — GPT-2-small at full width (bf16, seeded random weights)
    behind ``build_engine``: 8 requests, then 4 late joiners while the
    first are mid-decode; every request must finish with reason
@@ -88,9 +96,9 @@ script exits non-zero without the final result line:
    finite and falling, per step exactly 12 ``flash_fwd`` and 12
    ``flash_bwd_blocked`` launches and no other port kernel; step ms,
    tokens/s, MFU, peak memory.
-9. train-32k — the long32k rung at full width with its depth cut to 2
-   layers (the two-pass backward takes ~190 ms a layer at 32k: at full
-   depth one step would take seconds), 2 steps: rematted attention
+9. train-32k — the long32k rung (``RUNGS["long32k"]``) as it stands:
+   GPT-2-small at full width and depth (12 layers), seq 32768, batch 1,
+   2 steps: losses finite and falling; rematted attention
    (``layer_loop="auto"`` past 16384 tokens), so per step 2
    ``flash_fwd`` launches per layer (the forward and its recompute) and
    one ``flash_bwd_dq`` and one ``flash_bwd_dkv`` per layer, nothing
@@ -128,8 +136,7 @@ DKV_REPLACES = "determined_tpu/ops/flash_attention.py:651"
 PEAK_BF16 = 989e12
 TRAIN_STEPS = 7
 LONG_STEPS = 3        # long16k rung, full width and depth
-LONG32_STEPS = 2      # long32k rung, full width
-LONG32_LAYERS = 2     # depth cut of the 32k phase (see the docstring)
+LONG32_STEPS = 2      # long32k rung, full width and depth
 PACKED_STEPS = 5      # packed documents, B=8 x 1024
 PLAIN_SEQ = 4096      # second long-context reading, plain backward on all heads
 ENGINE_CFG = {
@@ -658,11 +665,11 @@ class Smoke:
             torch.cuda.synchronize()
             errs[kernel] = self.hold_grads(f"{kernel} {name}", dtype, got,
                                            want)
-            if kernel == "flash_bwd_dkv":  # deterministic: one CTA's sums
+            if kernel != "flash_bwd_blocked":  # deterministic sums
                 again = self.blocked_run(kernel, args, kw)
-                assert all(torch.equal(g, a) for g, a in zip(got[1:],
-                                                             again[1:])), \
-                    f"flash_bwd_dkv {name}: launches differ"
+                assert all(torch.equal(g, a) for g, a in zip(got, again)
+                           if g is not None), \
+                    f"{kernel} {name}: launches differ"
         self.report("kernels", f"blocked-backward {name} {str(dtype)[6:]}",
                     {f"{k}_max_abs_err": v for k, v in errs.items()})
         if not timed:
@@ -760,6 +767,8 @@ class Smoke:
                     torch.cuda.synchronize()
                     err = self.hold_grads(f"{name} long S{s}", bf16, got,
                                           want)
+                    if name == "flash_bwd_dq" and not big:
+                        self.hold_dq_walk(f"S{s}", got[0], args, kw)
                     del got
                     if bwd_plain_ms is None:  # one formula for all three
                         bwd_plain_ms = self.time_ms(plain_bwd, iters=plain_it,
@@ -793,11 +802,41 @@ class Smoke:
                                 else None),
                     sdpa_ms=sdpa_ms,
                     **self.rates(flops, ms, bound_ms))
+            if big and set(BLOCKED) <= set(kernels):
+                # the two routes past the partials cap, like for like
+                self.report("kernels", f"route-32k S{s}", dict(
+                    fused_ms=self.time_ms(
+                        lambda: self.blocked_run("flash_bwd_blocked", args,
+                                                 kw), iters=it, warmup=1),
+                    two_pass_ms=self.time_ms(
+                        lambda: (self.blocked_run("flash_bwd_dq", args, kw),
+                                 self.blocked_run("flash_bwd_dkv", args, kw)),
+                        iters=it, warmup=1),
+                    dq_ms=recs["flash_bwd_dq"]["ms"],
+                    dkv_ms=recs["flash_bwd_dkv"]["ms"]))
             del args, q, k, v, do, want, plain_bwd
             torch.cuda.empty_cache()
         for name, rec in recs.items():
             self.report("kernels", f"{name} long-context", rec)
         return recs
+
+    def hold_dq_walk(self, what, dq, args, kw):
+        """The bf16 dq kernel's output against the plain copy of its own
+        tile walk on the same inputs: the same ds roundings and fp32
+        summation order by tile, so one bf16 ulp apart at most (rtol
+        2^-7), with atol 2e-3 for values near zero, where ds rounded the
+        other way (ex2 against exp) moves dq by up to ~5e-4 at S 4096 →
+        the largest difference."""
+        from determined_tpu_torch.ops import flash_attention as tfa
+
+        walk = tfa._bwd_dq_walk_plain(*args, **kw)
+        self.torch.testing.assert_close(dq.float(), walk.float(), atol=2e-3,
+                                        rtol=2.0 ** -7,
+                                        msg=f"flash_bwd_dq {what}: walk")
+        err = float((dq.float() - walk.float()).abs().max())
+        self.report("kernels", f"flash_bwd_dq {what} vs its walk",
+                    dict(max_abs_err=err))
+        return err
 
     def check(self, name, dtype, o_k, o_p, lse_k=None, lse_p=None):
         torch = self.torch
@@ -1052,22 +1091,22 @@ class Smoke:
         return launches
 
     def train_32k_phase(self):
-        """The long32k rung at full width, depth cut to LONG32_LAYERS:
-        rematted attention (two forwards per layer and step) and the
-        two-pass backward."""
+        """The long32k rung at full width and depth: rematted attention
+        (two forwards per layer and step) and the two-pass backward."""
         from determined_tpu_torch.trainer.profile import RUNGS, RepeatedBatchTrial
 
         b, cfg = RUNGS["long32k"]
-        cfg = dataclasses.replace(cfg, n_layers=LONG32_LAYERS)
         s = cfg.seq_len
         reports, per_step, launches, peak_gb, cfg = self.fit_counted(
             RepeatedBatchTrial(b, s, config=cfg), LONG32_STEPS)
+        losses = [m["loss"] for m in reports]
+        assert losses[-1] < losses[0], losses
         n = cfg.n_layers
         want = dict(flash_fwd=2 * n, flash_bwd_dq=n, flash_bwd_dkv=n)
         for i, step in enumerate(per_step):
             got = {k: v for k, v in step.items() if v}
             assert got == want, (i, step)
-        self.report("train-32k", f"gpt2-small-width L{n} bf16 long32k "
+        self.report("train-32k", f"gpt2-small L{n} bf16 long32k "
                     "remat_attention fused_loss",
                     self.train_record(reports, launches, peak_gb, cfg, b, s,
                                       warm=1))

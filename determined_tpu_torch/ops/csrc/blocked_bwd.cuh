@@ -1,7 +1,8 @@
 // Shared pieces of the blocked flash-attention backward kernels
 // (flash_bwd_blocked.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu): the launch
-// parameters, the shared-memory layout, the mask model, the live tile
-// ranges and the p / ds formula.
+// parameters, the mask model and the live tile ranges, and for their fp32
+// paths the shared-memory layout and the p / ds formula (the bf16 paths
+// are the sm90 kernels: bwd_blocked_sm90.cuh, flash_bwd_dq.cu).
 //
 // The mask model is the forward's (flash_fwd.cu): query row r sits at
 // position g = r + kv_offset of the key frame; with `causal` it sees keys
@@ -250,18 +251,16 @@ int launch_blocked(Kernel kernel, int bytes, int tiles,
   return (int)cudaGetLastError();
 }
 
-// Instantiate Launch<T, D, BQ, BK>::run for the head dim: 64-row tiles
-// for bf16 up to D = 64 (about 126 KB of shared memory at D = 64), 32 rows
-// for fp32 and for D = 128 (as the mono backward).
-template <template <typename, int, int, int> class Launch, typename T>
-int dispatch_blocked(int d, const BlockedBwdParams& p, cudaStream_t stream) {
-  constexpr bool kWide = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int kT = kWide ? 64 : 32;
+// The fp32 kernels: Launch<float, D, 32, 32>::run for the head dim (32-row
+// tiles, as the mono backward's fp32 path).
+template <template <typename, int, int, int> class Launch>
+int dispatch_blocked_fp32(int d, const BlockedBwdParams& p,
+                          cudaStream_t stream) {
   switch (d) {
-    case 16: return Launch<T, 16, kT, kT>::run(p, stream);
-    case 32: return Launch<T, 32, kT, kT>::run(p, stream);
-    case 64: return Launch<T, 64, kT, kT>::run(p, stream);
-    case 128: return Launch<T, 128, 32, 32>::run(p, stream);
+    case 16: return Launch<float, 16, 32, 32>::run(p, stream);
+    case 32: return Launch<float, 32, 32, 32>::run(p, stream);
+    case 64: return Launch<float, 64, 32, 32>::run(p, stream);
+    case 128: return Launch<float, 128, 32, 32>::run(p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -288,24 +287,6 @@ inline BlockedBwdParams make_blocked_params(
   return p;
 }
 
-// The entry points' common body: fill the parameters and dispatch on the
-// dtype (0 = float32, 1 = bfloat16) and head dim.
-template <template <typename, int, int, int> class Launch>
-int blocked_entry(int dtype, int head_dim, const void* q, const void* k,
-                  const void* v, const void* dout, const float* lse,
-                  const float* delta, const float* dlse, const int* qseg,
-                  const int* kseg, void* dq, void* dk, void* dv, int B, int H,
-                  int Sq, int Sk, const long long* strides, int causal,
-                  int window, int kv_offset, float scale, void* stream) {
-  const BlockedBwdParams p = make_blocked_params(
-      q, k, v, dout, lse, delta, dlse, qseg, kseg, dq, dk, dv, B, H, Sq, Sk,
-      strides, causal, window, kv_offset, scale);
-  if (Sq <= 0 || Sk <= 0 || B * H <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? dispatch_blocked<Launch, __nv_bfloat16>(head_dim, p, s)
-                    : dispatch_blocked<Launch, float>(head_dim, p, s);
-}
-
 }  // namespace dtpu
 
 // The C signature shared by the three entry points. Strides are in
@@ -321,6 +302,3 @@ int blocked_entry(int dtype, int head_dim, const void* q, const void* k,
       void *dk, void *dv, int B, int H, int Sq, int Sk,                     \
       const long long *strides, int causal, int window, int kv_offset,      \
       float scale, void *stream
-#define DTPU_BLOCKED_BWD_NAMES                                              \
-  dtype, head_dim, q, k, v, dout, lse, delta, dlse, qseg, kseg, dq, dk, dv, \
-      B, H, Sq, Sk, strides, causal, window, kv_offset, scale, stream

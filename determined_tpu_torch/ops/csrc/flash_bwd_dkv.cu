@@ -89,7 +89,7 @@ extern "C" int dtpu_flash_bwd_dkv(DTPU_BLOCKED_BWD_ARGS) {
       strides, causal, window, kv_offset, scale);
   if (Sq <= 0 || Sk <= 0 || B * H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1
-             ? dtpu::dispatch_sm90<false>(head_dim, p, s)
-             : dtpu::dispatch_blocked<dtpu::DkvLaunch, float>(head_dim, p, s);
+  return dtype == 1 ? dtpu::dispatch_sm90<false>(head_dim, p, s)
+                    : dtpu::dispatch_blocked_fp32<dtpu::DkvLaunch>(
+                          head_dim, p, s);
 }

@@ -3,7 +3,9 @@
 // (persistent, mono) runs it: S = Q·Kᵀ by wgmma, the online-softmax
 // update in registers, then O += P·V with P taken from registers. The
 // kernels differ in how they load tiles, walk them and mask them; these
-// steps are the same.
+// steps are the same. The two-pass backward's dq pass (flash_bwd_dq.cu)
+// is the same walk with S = Q·Kᵀ and dP = do·Vᵀ issued together
+// (qk_issue) and dq += dS·K as pv_product with the K tile for V.
 //
 // Register layout (sm90.cuh): the warpgroup owns 64 query rows, this
 // thread rows r and r + 8 of them; sc[4j + 2h + e] is the score of row
@@ -16,18 +18,27 @@
 namespace dtpu {
 namespace sm90 {
 
-// S = Q·Kᵀ for the warpgroup's 64 rows: `q_s` points at its rows inside a
-// Q tile of `BQ` rows, `k_s` at a K tile of BK keys (both K-major).
+// Issue S = Q·Kᵀ for the warpgroup's 64 rows (no fence, commit or wait):
+// `q_s` points at its rows inside a Q tile of `BQ` rows, `k_s` at a K
+// tile of BK keys (both K-major).
 template <int BQ, int BK, int D>
-__device__ __forceinline__ void qk_product(float (&sc)[BK / 2],
-                                           const unsigned char* q_s,
-                                           const unsigned char* k_s) {
-  wgmma_fence();
+__device__ __forceinline__ void qk_issue(float (&sc)[BK / 2],
+                                         const unsigned char* q_s,
+                                         const unsigned char* k_s) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     Wgmma<BK>::template ss<0, 0>(sc, kmajor_desc<D>(q_s, BQ, kk),
                                  kmajor_desc<D>(k_s, BK, kk), kk > 0);
   }
+}
+
+// S = Q·Kᵀ (qk_issue), waited for.
+template <int BQ, int BK, int D>
+__device__ __forceinline__ void qk_product(float (&sc)[BK / 2],
+                                           const unsigned char* q_s,
+                                           const unsigned char* k_s) {
+  wgmma_fence();
+  qk_issue<BQ, BK, D>(sc, q_s, k_s);
   wgmma_commit();
   wgmma_wait<0>();
   reg_fence(sc);

@@ -1,22 +1,17 @@
-// Shared pieces of the monolithic-path kernels (flash_fwd_mono.cu,
-// flash_bwd_mono.cu): tile staging and one block-wide tile product.
+// Shared pieces of the fp32 paths of the monolithic kernels
+// (flash_fwd_mono.cu, flash_bwd_mono.cu) and of the blocked backward
+// kernels (blocked_bwd.cuh): tile staging and one block-wide tile product.
+// Their bf16 paths are the sm90 kernels (sm90.cuh).
 //
 // Layout of the work: a block of kMonoThreads threads stages tiles of
-// q/k/v/do rows in shared memory in the input dtype, and every matrix
-// product of the kernels is one call of `block_gemm`: an fp32 tile C in
-// shared memory (+)= A · B, with A and B tiles in shared memory, either of
-// them read transposed. For bf16 the product runs on the tensor cores
-// (nvcuda::wmma 16x16x16 fragments, fp32 accumulation), one 16x16 output
-// tile per warp at a time; for fp32 it runs as fp32 FMAs from shared
-// memory (a tensor-core product would round to TF32), each thread owning
-// a strided (M/16) x (N/16) patch of C in registers. The elementwise work
-// between products (masking, softmax, the ds formula) reads and writes the
-// same fp32 tiles.
+// q/k/v/do rows in shared memory, and every matrix product of the kernels
+// is one call of `block_gemm`: an fp32 tile C in shared memory (+)= A · B,
+// with A and B tiles in shared memory, either of them read transposed, as
+// fp32 FMAs (a tensor-core product would round to TF32), each thread
+// owning a strided (M/16) x (N/16) patch of C in registers. The
+// elementwise work between products (masking, softmax, the ds formula)
+// reads and writes the same fp32 tiles.
 #pragma once
-
-#include <mma.h>
-
-#include <type_traits>
 
 #include "attn_common.cuh"
 
@@ -26,8 +21,8 @@ constexpr int kMonoWarps = 8;
 constexpr int kMonoThreads = kMonoWarps * 32;
 
 // Row padding of a shared-memory tile, in elements: 16 bytes, so that a
-// row start stays 16-byte aligned (wmma's ldm rule) and consecutive rows
-// start on different banks.
+// row start stays 16-byte aligned and consecutive rows start on different
+// banks.
 template <typename T>
 constexpr int pad_of() {
   return 16 / static_cast<int>(sizeof(T));
@@ -40,7 +35,7 @@ constexpr int ld_of(int n) {
 }
 
 // Bytes of a tile of `rows` x ld_of<T>(cols), rounded up to 128 so that
-// every tile that follows starts 128-byte aligned (wmma wants 32).
+// every tile that follows starts 128-byte aligned.
 template <typename T>
 constexpr int tile_bytes(int rows, int cols) {
   return (rows * ld_of<T>(cols) * static_cast<int>(sizeof(T)) + 127) / 128 *
@@ -67,42 +62,6 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
 // kAT (A stored transposed); B(k, n) is B[k * ldb + n], or B[n * ldb + k]
 // when kBT. Block-wide: every thread of the block calls it; the caller
 // synchronises before reading C.
-template <int M, int N, int K, bool kAT, bool kBT, bool kAcc>
-__device__ __forceinline__ void block_gemm(float* C, int ldc,
-                                           const __nv_bfloat16* A, int lda,
-                                           const __nv_bfloat16* B, int ldb) {
-  using namespace nvcuda;
-  static_assert(M % 16 == 0 && N % 16 == 0 && K % 16 == 0, "16x16x16 tiles");
-  using LayoutA =
-      typename std::conditional<kAT, wmma::col_major, wmma::row_major>::type;
-  using LayoutB =
-      typename std::conditional<kBT, wmma::col_major, wmma::row_major>::type;
-  constexpr int TN = N / 16;
-  const int warp = threadIdx.x >> 5;
-  for (int t = warp; t < (M / 16) * TN; t += kMonoWarps) {
-    const int tm = t / TN;
-    const int tn = t - tm * TN;
-    float* c = C + tm * 16 * ldc + tn * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (kAcc) {
-      wmma::load_matrix_sync(acc, c, ldc, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(acc, 0.f);
-    }
-#pragma unroll
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LayoutA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayoutB> b;
-      wmma::load_matrix_sync(
-          a, kAT ? A + k * lda + tm * 16 : A + tm * 16 * lda + k, lda);
-      wmma::load_matrix_sync(
-          b, kBT ? B + tn * 16 * ldb + k : B + k * ldb + tn * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(c, acc, ldc, wmma::mem_row_major);
-  }
-}
-
 template <int M, int N, int K, bool kAT, bool kBT, bool kAcc>
 __device__ __forceinline__ void block_gemm(float* C, int ldc, const float* A,
                                            int lda, const float* B, int ldb) {

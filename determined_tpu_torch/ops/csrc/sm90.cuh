@@ -1,5 +1,6 @@
 // Hopper pieces shared by the bf16 paths of flash_fwd.cu,
-// flash_bwd_blocked.cu, flash_fwd_mono.cu and flash_bwd_mono.cu: TMA
+// flash_bwd_blocked.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu,
+// flash_fwd_mono.cu, flash_bwd_mono.cu and paged_attention.cu: TMA
 // tensor maps (loads and stores), mbarrier helpers, warpgroup matrix
 // multiplies (wgmma) and the persistent kernels' schedule.
 //

@@ -27,12 +27,12 @@ Port of ``determined_tpu/ops/flash_attention.py``:
   ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``). ``nk`` counts the
   reference's key blocks (``block_k``), so the port runs the mono, fused
   or two-pass backward exactly where the reference does.
-- In bf16, ``flash_fwd.cu``, ``flash_bwd_blocked.cu``,
-  ``flash_bwd_dkv.cu``, ``flash_fwd_mono.cu`` and ``flash_bwd_mono.cu``
-  run their products as Hopper ``wgmma`` on tiles that TMA brings into
-  shared memory (``csrc/sm90.cuh``; the fused backward and the dk/dv pass
-  share one kernel, ``csrc/bwd_blocked_sm90.cuh``; the mono pair as
-  persistent kernels, one CTA a SM);
+- In bf16, every flash kernel runs its products as Hopper ``wgmma`` on
+  tiles that TMA brings into shared memory (``csrc/sm90.cuh``; the fused
+  backward and the dk/dv pass share one kernel,
+  ``csrc/bwd_blocked_sm90.cuh``; the dq pass is the blocked forward's
+  q-major walk with dq in registers; the mono pair run as persistent
+  kernels, one CTA a SM);
   TMA wants 16-byte-aligned bases and strides, so their wrappers copy a
   view that breaks that rule (``_tma_ready``, ``_sm90_inputs``) before
   the launch. In fp32 every kernel reads through strides.
@@ -346,8 +346,8 @@ def _kernel_inputs(q, k, v):
 
 def _tma_inputs(code, *xs):
     """The bf16 paths of ``flash_fwd.cu``, ``flash_bwd_blocked.cu``,
-    ``flash_bwd_dkv.cu`` and ``paged_attention.cu`` load their tiles by
-    TMA: a tensor that breaks its rules
+    ``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu`` and ``paged_attention.cu``
+    load their tiles by TMA: a tensor that breaks its rules
     (``_tma_ready``) is copied contiguous into fresh, aligned memory
     first (``contiguous()`` would keep a contiguous view at a misaligned
     base as it is); the kernel is the same. fp32 tensors pass as they are
@@ -550,13 +550,14 @@ def _flash_bwd_blocked_cuda(kernel, q, k, v, do, lse, delta, dlse, qseg,
     contiguous), lse/delta (+ dlse, None = zeros) [B, Sq, H] fp32, segment
     ids [B, Sq] / [B, Sk] or None → (dq, dk, dv) [B, S, H, D] in q's
     dtype, None for what the kernel does not compute. The fused kernel
-    sums dq in an fp32 workspace by atomics, then casts; in bf16 it and
-    the dk/dv pass load q/k/v/do by TMA, so a view that breaks TMA's
-    alignment rules is copied contiguous first (``_tma_inputs``)."""
+    sums dq in an fp32 workspace by atomics, then casts; the dq pass
+    keeps dq in registers and writes it once. In bf16 all three load
+    q/k/v/do by TMA, so a view that breaks TMA's alignment rules is
+    copied contiguous first (``_tma_inputs``). With no queries or no keys
+    every gradient is zero and no kernel runs."""
     code, q, k, v = _kernel_inputs(q, k, v)
     do = _last_dim_contiguous(do.to(q.dtype))
-    if kernel is not FLASH_BWD_DQ:
-        q, k, v, do = _tma_inputs(code, q, k, v, do)
+    q, k, v, do = _tma_inputs(code, q, k, v, do)
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     lse = lse.float().contiguous()
@@ -574,6 +575,9 @@ def _flash_bwd_blocked_cuda(kernel, q, k, v, do, lse, delta, dlse, qseg,
     if kernel is not FLASH_BWD_DQ:
         dk = torch.empty((b, s_k, h, d), dtype=q.dtype, device=q.device)
         dv = torch.empty_like(dk)
+    if not (s_q and s_k and b * h):
+        return tuple(None if g is None else g.zero_().to(q.dtype)
+                     for g in (dq, dk, dv))
     strides = (ctypes.c_longlong * 12)(*_strides(q, k, v, do))
 
     def ptr(x):
@@ -688,6 +692,55 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, dlse=None, **kwargs):
     """``flash_bwd_dkv``'s plain version on any device."""
     return flash_bwd_blocked_plain(q, k, v, do, lse, delta, dlse,
                                    **kwargs)[1:]
+
+
+def _bwd_dq_walk_plain(q, k, v, do, lse, delta, dlse=None, *,
+                       causal: bool = True, scale: Optional[float] = None,
+                       window: Optional[int] = None, kv_offset: int = 0,
+                       segment_ids: Optional[torch.Tensor] = None,
+                       kv_segment_ids: Optional[torch.Tensor] = None,
+                       block_q: int = 128, block_k: int = 64):
+    """The bf16 dq kernel's walk (``csrc/flash_bwd_dq.cu``), tile by tile
+    (arguments as ``flash_bwd_dq``) → dq: row blocks of `block_q`, each
+    walking the key tiles of `block_k` its rows can see (``keys_seen``),
+    p zeroed where masked, ds rounded to the input dtype per tile, dq
+    summed in fp32 in walk order. Used by the tests and ``chip_smoke.py``
+    only; ``flash_bwd_dq_plain`` is the dense formula."""
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    if segment_ids is not None and kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    if dlse is None:
+        dlse = torch.zeros_like(lse)
+    qf, kf, vf, dof = (_fold(x) for x in (q, k, v, do))
+    lse_f, dterm = _fold(lse.float()), _fold(dlse.float() - delta.float())
+    segs = _fold_segs(segment_ids, kv_segment_ids, h)
+    dq = torch.zeros((b * h, s_q, d), dtype=torch.float32, device=q.device)
+    for q0 in range(0, s_q, block_q):
+        rows = torch.arange(q0, min(q0 + block_q, s_q), device=q.device)
+        lo, hi = 0, s_k - 1  # keys_seen
+        if causal:
+            hi = min(hi, int(rows[-1]) + kv_offset)
+        if window is not None:
+            lo = max(lo, q0 + kv_offset - (window - 1))
+        q_r, do_r = qf[:, rows].float(), dof[:, rows].float()
+        for t0 in range(lo // block_k * block_k, hi + 1, block_k):
+            cols = torch.arange(t0, min(t0 + block_k, s_k), device=q.device)
+            k_t = kf[:, cols].float()
+            s = torch.einsum("bqd,bkd->bqk", q_r, k_t) * scale
+            p = torch.exp(s - lse_f[:, rows, None])
+            if causal or window is not None or segs is not None:
+                mask = _ref_block_mask(
+                    rows, cols, causal=causal, window=window,
+                    kv_offset=kv_offset,
+                    qseg=None if segs is None else segs[0][:, rows],
+                    kseg_j=None if segs is None else segs[1][:, cols])
+                p = torch.where(mask, p, 0.0)
+            dp = torch.einsum("bqd,bkd->bqk", do_r, vf[:, cols].float())
+            ds = (p * (dp + dterm[:, rows, None]) * scale).to(q.dtype)
+            dq[:, rows] += torch.einsum("bqk,bkd->bqd", ds.float(), k_t)
+    return _unfold(dq.to(q.dtype), b, h)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@ wrappers' refusals, and the blocked forward and fused backward against
 their own plain versions over the cases their TMA/wgmma design makes
 risky (``TMA_CASES``: ragged tiles, one decode row, strided and
 misaligned views, rows that see no key, short windows, several batches
-with segment ids) at every head dim, the dk/dv pass over the same grid
-(bitwise repeatable), and the persistent mono pair over
+with segment ids) at every head dim, the dk/dv pass and the dq pass over
+the same grid (both bitwise repeatable), and the persistent mono pair over
 ``MONO_TMA_CASES`` (ragged tiles, s_q ≠ s_k causal and full, misaligned
 views, fewer work items than SMs and many more, ``_mono_ok``'s largest
 square, no queries, no keys) at every head dim.
@@ -467,6 +467,38 @@ def test_dkv_pass_matches_plain_over_tma_cases(dev, dtype, head_dim, b, h,
             _close(dtype, g, w)
     again = tfa.flash_bwd_dkv(*args, **kw)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize(
+    "b,h,s_q,s_k,causal,window,kv_offset,segs,layout",
+    [c[1:] for c in TMA_CASES], ids=[c[0] for c in TMA_CASES])
+def test_dq_pass_matches_plain_over_tma_cases(dev, dtype, head_dim, b, h,
+                                              s_q, s_k, causal, window,
+                                              kv_offset, segs, layout):
+    """flash_bwd_dq (bf16: the q-major wgmma/TMA kernel with dq in
+    registers; fp32: the FMA kernel) against flash_bwd_blocked_plain's dq,
+    with an lse cotangent, misaligned views included; rows that see no
+    key (every row, with no keys) get dq = 0; two launches agree bit for
+    bit (each row's dq is summed in one warpgroup in walk order)."""
+    q, k, v, do, dlse = _layout_inputs(dev, dtype, layout, b, h, s_q, s_k,
+                                       head_dim, head_dim + s_q)
+    kw, dead = _tma_case_masks(dev, b, s_q, s_k, causal, window, kv_offset,
+                               segs)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * o_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta, dlse)
+    got = tfa.flash_bwd_dq(*args, **kw)
+    want = tfa.flash_bwd_blocked_plain(*args, **kw)[0]
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        _close(dtype, got, want)
+    assert (got[:, dead] == 0).all()
+    assert torch.equal(got, tfa.flash_bwd_dq(*args, **kw))
 
 
 #: The cases the persistent wgmma/TMA mono pair makes risky: ragged tiles,

@@ -107,9 +107,37 @@ script exits non-zero without the final result line:
    ``pack_sequences`` batch of seeded random documents of 32–1024
    tokens, 5 steps: the loss falls, per step 12 ``flash_fwd`` and 12
    ``flash_bwd_blocked`` launches and no mono launch.
+11. checkpoint — the train phase's trial (GPT-2-small, bf16 over fp32
+   masters, B 8 × 1024): run A, ``core.init(checkpoint_storage=<tmp>)``
+   and ``fit(max_length=Batch(4), checkpoint_period=Batch(2))``, saves at
+   steps 2 and 4 in the reference's format; run B, a fresh ``Trainer``,
+   resumes with ``fit(max_length=Batch(4), latest_checkpoint=<step 2>)``.
+   The state restored at step 2 (step, every parameter, every ``mu``,
+   ``nu`` and ``count``) must equal the step-2 snapshot bit for bit; run
+   B's losses at steps 3–4 run A's within 1e-3 relative (the mono
+   backward sums dq by fp32 atomics, so bf16 steps do not repeat bit for
+   bit); per step 12 ``flash_fwd_mono`` and 12 ``flash_bwd_mono``
+   launches. Prints the checkpoint's bytes and files, the host-blocking
+   snapshot, the background write + upload, and the restore's verify and
+   load, in ms and GB/s. Then run A's step-4 parameters, saved as a
+   parameter-only checkpoint, are served at fp32 through
+   ``build_engine`` with ``DTPU_SERVING_CHECKPOINT``: 4 greedy requests
+   must stream exactly what an engine built in memory from the same
+   arrays streams. The checkpoints (~1.5 GB each) live in a temporary
+   directory, removed at the end of the phase.
+12. fixture — ``serving.fixture.ensure_fixture(<tmp>)`` on the card: it
+   trains the fixture (300 steps, the mono pair at fp32 and seq 64, 2
+   launches of each a step), whose final loss must be ≤ 0.05; a second
+   call must load it without training; then ``{"model": "fixture"}`` is
+   served from its directory: the greedy continuation (20 tokens) of
+   each of the 12 phrases, prompted with the phrase twice, must follow
+   the phrase's cycle in ≥ 95% of tokens, through ``flash_fwd`` and
+   ``paged_attention``.
 
-The last lines are the whole run's seconds, the kernels' JSON record,
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the whole run's seconds, the kernels' JSON record
+(each kernel's ``launches`` summed over the main paths that run it:
+phases 4, 6, 8, 9, 11 and 12), the card's name and power limit, and ``{"ok":
+true, "device": {...}}``.
 """
 import dataclasses
 import json
@@ -990,10 +1018,12 @@ class Smoke:
 
 
     # -- phases 6 and 8-10: training through Trainer.fit ---------------------------
-    def fit_counted(self, trial, steps):
-        """``Trainer(trial).fit`` for `steps` steps on the card, with the
-        launch counters set to 0 just before → (reports, per-step launch
-        counts, the run's launch counts, peak GB, config)."""
+    def fit_counted(self, trial, steps, ctx=None, prepare=None, **fit_kw):
+        """``Trainer(trial).fit`` to step `steps` on the card (more
+        ``fit`` arguments in `fit_kw`; `prepare` sees the trainer first),
+        with the launch counters set to 0 just before → (reports, per-step
+        launch counts of the steps trained, the run's launch counts, peak
+        GB, config)."""
         import numpy as np
         import torch
 
@@ -1012,23 +1042,29 @@ class Smoke:
                 yield batch
 
         trial.build_training_data = counted
-        ctx = core._dummy_init()
+        ctx = ctx or core._dummy_init()
         trainer = Trainer(trial, ctx)  # the card, by default
+        if prepare is not None:
+            prepare(trainer)
         cfg = trainer.model.config
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for k in _build.KERNELS.values():
             k.launches = 0
-        trainer.fit(max_length=Batch(steps), report_period=Batch(1))
+        trainer.fit(max_length=Batch(steps), report_period=Batch(1), **fit_kw)
         launches = {n: k.launches for n, k in _build.KERNELS.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         snapshots.append(launches)
         reports = [m for g, _, m in ctx.train._reported if g == "training"]
-        assert len(reports) == steps, reports
         losses = [m.get("loss", float("nan")) for m in reports]
         assert all(np.isfinite(losses)), losses
         per_step = [{n: after[n] - before[n] for n in after}
                     for before, after in zip(snapshots, snapshots[1:])]
+        # a resumed fit first discards the batches its checkpoint consumed
+        resumed = len(per_step) - len(reports)
+        assert len(reports) == steps - resumed, (reports, per_step)
+        assert not any(v for d in per_step[:resumed] for v in d.values())
+        per_step = per_step[resumed:]
         del trainer
         torch.cuda.empty_cache()
         return reports, per_step, launches, peak_gb, cfg
@@ -1140,6 +1176,271 @@ class Smoke:
         rec["documents"] = int(batch["segment_ids"].max(axis=1).sum())
         self.report("train-packed", "gpt2-small bf16 packed documents", rec)
         return launches
+
+    # -- phase 11: save, verify and resume; serve the trained weights ----------
+    def checkpoint_phase(self):
+        """GPT-2-small (the train phase's trial) saves at step 2 and 4 of
+        run A; run B resumes from step 2: its restored state must equal
+        the step-2 snapshot bitwise and its losses at steps 3-4 run A's
+        within 1e-3 relative. Then the trained parameters, saved as a
+        parameter-only checkpoint, are served through build_engine with
+        DTPU_SERVING_CHECKPOINT and must stream exactly what an engine
+        built in memory from the same arrays streams."""
+        import shutil
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch import core
+        from determined_tpu_torch.models import gpt
+        from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.serving import (
+            GenerationEngine,
+            ServingConfig,
+            build_engine,
+            service,
+        )
+        from determined_tpu_torch.storage import shared
+        from determined_tpu_torch.storage.base import file_digest
+        from determined_tpu_torch.trainer import Batch
+        from determined_tpu_torch.trainer import _checkpoint as ckpt_io
+        from determined_tpu_torch.trainer.profile import RepeatedBatchTrial
+
+        b, s, steps = 8, 1024, 4
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+        seconds = {"snapshot": [], "write_upload": [], "verify": [],
+                   "load": []}
+        snaps, restored = {}, {}
+        real = {"snapshot": ckpt_io.snapshot_pytree,
+                "verify": shared.verify_checkpoint_dir,
+                "load": ckpt_io.load_pytree}
+
+        def timed(key, fn, sync=False):
+            def call(*args, **kwargs):
+                if sync:  # the step before a snapshot is not its time
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                seconds[key].append(time.perf_counter() - t0)
+                return out
+            return call
+
+        def snapshot(tree):
+            snap = timed("snapshot", real["snapshot"], sync=True)(tree)
+            snaps[int(snap["step"])] = snap
+            return snap
+
+        def watch_writer(trainer):
+            submit = trainer._ckpt_writer.submit
+            trainer._ckpt_writer.submit = lambda work: submit(
+                timed("write_upload", work))
+
+        def watch_restore(trainer):
+            restore = trainer._restore_checkpoint
+
+            def call(storage_id):
+                restore(storage_id)
+                restored.update(real["snapshot"](trainer._state_view()))
+            trainer._restore_checkpoint = call
+
+        ckpt_io.snapshot_pytree = snapshot
+        shared.verify_checkpoint_dir = timed("verify", real["verify"])
+        ckpt_io.load_pytree = timed("load", real["load"])
+        try:
+            ctx_a = core.init(checkpoint_storage=tmp)
+            rep_a, per_a, launch_a, _, cfg = self.fit_counted(
+                RepeatedBatchTrial(b, s), steps, ctx=ctx_a,
+                prepare=watch_writer, checkpoint_period=Batch(2))
+            ids = {}
+            for sid in os.listdir(tmp):
+                with open(os.path.join(tmp, sid, "metadata.json")) as f:
+                    ids[json.load(f)["steps_completed"]] = sid
+            assert sorted(ids) == [2, 4], ids
+            ckpt_dir = os.path.join(tmp, ids[2])
+            files = os.listdir(ckpt_dir)
+            nbytes = sum(os.path.getsize(os.path.join(ckpt_dir, f))
+                         for f in files)
+            state_bytes = sum(a.nbytes for a in snaps[2].values())
+            rep_b, per_b, launch_b, _, _ = self.fit_counted(
+                RepeatedBatchTrial(b, s), steps,
+                ctx=core.init(checkpoint_storage=tmp), prepare=watch_restore,
+                latest_checkpoint=ids[2])
+        finally:
+            ckpt_io.snapshot_pytree = real["snapshot"]
+            shared.verify_checkpoint_dir = real["verify"]
+            ckpt_io.load_pytree = real["load"]
+        try:
+            assert sorted(restored) == sorted(snaps[2])
+            for name, arr in snaps[2].items():
+                assert restored[name].dtype == arr.dtype, name
+                assert np.array_equal(restored[name], arr), name
+            assert int(restored["step"]) == 2
+            assert len(rep_b) == 2, rep_b
+            worst = 0.0
+            for ma, mb in zip(rep_a[2:], rep_b):
+                rel = abs(mb["loss"] - ma["loss"]) / abs(ma["loss"])
+                worst = max(worst, rel)
+                assert rel <= 1e-3, (ma["loss"], mb["loss"])
+            n = cfg.n_layers
+            for i, step in enumerate(per_a + per_b):
+                got = {k: v for k, v in step.items() if v}
+                assert got == dict(flash_fwd_mono=n, flash_bwd_mono=n), (
+                    i, step)
+
+            # Serve run A's step-4 parameters from a parameter-only
+            # checkpoint (root names, as save_pytree(params) writes them).
+            serve_dir = os.path.join(tmp, "serve")
+            tree = {name[len("params__"):]: arr
+                    for name, arr in snaps[4].items()
+                    if name.startswith("params__")}
+            tree = ckpt_io.nest({k.replace("__", "."): v
+                                 for k, v in tree.items()})
+            written = ckpt_io.save_pytree(tree, serve_dir)
+            shared.SharedFSStorageManager(tmp).commit_manifest(
+                "serve", {r: file_digest(os.path.join(serve_dir, r))
+                          for r in written})
+            fp32_small = dataclasses.replace(gpt.small(), dtype=torch.float32)
+            rng = np.random.default_rng(4)
+            prompts = [list(rng.integers(1, fp32_small.vocab_size,
+                                         size=int(k)))
+                       for k in rng.integers(64, 481, size=4)]
+            for k in _build.KERNELS.values():
+                k.launches = 0
+            # build_engine serves gpt.small() in bf16; the parity check
+            # runs it at fp32, the greedy contract's dtype.
+            small = service._MODEL_CONFIGS["small"]
+            service._MODEL_CONFIGS["small"] = lambda: fp32_small
+            os.environ["DTPU_SERVING_CHECKPOINT"] = serve_dir
+            try:
+                t0 = time.perf_counter()
+                eng = build_engine(ENGINE_CFG)
+                startup_s = time.perf_counter() - t0
+            finally:
+                service._MODEL_CONFIGS["small"] = small
+                os.environ.pop("DTPU_SERVING_CHECKPOINT")
+            from_ckpt = self.greedy_streams(eng, prompts, 32)
+            serve_launch = {n: k.launches
+                            for n, k in _build.KERNELS.items()}
+            model = gpt.GPT(fp32_small)
+            in_memory = self.greedy_streams(
+                GenerationEngine(model, tree, ServingConfig.from_dict(
+                    ENGINE_CFG)), prompts, 32)
+            assert from_ckpt == in_memory, (from_ckpt, in_memory)
+            assert serve_launch["flash_fwd"] > 0
+            assert serve_launch["paged_attention"] > 0
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        gb = state_bytes / 1e9
+        rec = dict(
+            checkpoint_bytes=nbytes, checkpoint_files=len(files),
+            state_bytes=state_bytes,
+            snapshot_ms=seconds["snapshot"][0] * 1e3,
+            snapshot_gb_per_s=gb / seconds["snapshot"][0],
+            write_upload_ms=seconds["write_upload"][0] * 1e3,
+            write_upload_gb_per_s=nbytes / 1e9 / seconds["write_upload"][0],
+            verify_ms=seconds["verify"][0] * 1e3,
+            verify_gb_per_s=nbytes / 1e9 / seconds["verify"][0],
+            load_ms=seconds["load"][0] * 1e3,
+            load_gb_per_s=gb / seconds["load"][0],
+            loss_a=[round(m["loss"], 6) for m in rep_a],
+            loss_b=[round(m["loss"], 6) for m in rep_b],
+            worst_resumed_loss_rel=worst, restored_leaves=len(restored),
+            serve_startup_ms=startup_s * 1e3,
+            identical_streams=len(from_ckpt),
+        )
+        self.report("checkpoint", "gpt2-small bf16 save/verify/resume, "
+                    "fp32 serve from checkpoint", rec)
+        launches = {n: launch_a[n] + launch_b[n] + serve_launch[n]
+                    for n in launch_a}
+        del eng, model
+        torch.cuda.empty_cache()
+        return launches
+
+    # -- phase 12: the pre-trained fixture ---------------------------------------
+    def fixture_phase(self):
+        """ensure_fixture on the card (trains it: the mono pair at fp32,
+        seq 64), again (loads it, no training), then serves
+        ``{"model": "fixture"}`` from its directory: the greedy
+        continuation of each phrase must follow the phrase's cycle."""
+        import shutil
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.serving import build_engine, fixture
+
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-fixture-")
+        losses = []
+        fit = fixture._fit
+
+        def recorded(model, steps):
+            losses.append(fit(model, steps))
+            return losses[-1]
+
+        fixture._fit = recorded
+        try:
+            for k in _build.KERNELS.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            _m, _p, path = fixture.ensure_fixture(tmp)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            train_launch = {n: k.launches for n, k in _build.KERNELS.items()}
+            t0 = time.perf_counter()
+            _m, _p, again = fixture.ensure_fixture(tmp)
+            load_s = time.perf_counter() - t0
+            assert again == path and len(losses) == 1, losses
+            assert losses[0] <= 0.05, losses
+
+            phrases = fixture.fixture_phrases()
+            for k in _build.KERNELS.values():
+                k.launches = 0
+            os.environ["DTPU_SERVING_CHECKPOINT"] = path
+            try:
+                eng = build_engine({"model": "fixture"})
+            finally:
+                os.environ.pop("DTPU_SERVING_CHECKPOINT")
+            streams = self.greedy_streams(eng, [p * 2 for p in phrases], 20)
+            serve_launch = {n: k.launches for n, k in _build.KERNELS.items()}
+        finally:
+            fixture._fit = fit
+            shutil.rmtree(tmp, ignore_errors=True)
+        hits = sum(int(a == b) for p, got in zip(phrases, streams)
+                   for a, b in zip(got, (p * 2)[:20]))
+        accuracy = hits / (len(phrases) * 20)
+        assert accuracy >= 0.95, (accuracy, streams)
+        steps = fixture.TRAIN_STEPS
+        assert train_launch["flash_fwd_mono"] == 2 * steps, train_launch
+        assert train_launch["flash_bwd_mono"] == 2 * steps, train_launch
+        assert serve_launch["flash_fwd"] > 0, serve_launch
+        assert serve_launch["paged_attention"] > 0, serve_launch
+        self.report("fixture", "tiny GPT fp32 pre-trained on the phrase "
+                    "corpus, served from its checkpoint", dict(
+                        train_steps=steps, final_loss=losses[0],
+                        train_s=train_s, load_s=load_s,
+                        phrases=len(phrases), continuation_accuracy=accuracy,
+                        **{f"{n}_launches": v for n, v in
+                           {**{k: train_launch[k] for k in
+                               ("flash_fwd_mono", "flash_bwd_mono")},
+                            **{k: serve_launch[k] for k in
+                               ("flash_fwd", "paged_attention")}}.items()}))
+        del eng
+        return {n: train_launch[n] + serve_launch[n] for n in train_launch}
+
+    def greedy_streams(self, eng, prompts, new_tokens):
+        """Every prompt submitted before the engine starts (so two
+        engines batch them alike), greedy → the token streams."""
+        reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        eng.start()
+        try:
+            res = [r.result(timeout=600) for r in reqs]
+        finally:
+            eng.stop()
+        assert all(r["reason"] == "length" for r in res), res
+        return [r["tokens"] for r in res]
 
     # -- phase 7: one fp32 step, card against CPU ----------------------------------
     def train_parity_phase(self, route="mono"):
@@ -1307,6 +1608,11 @@ def main() -> int:
     launches.update({n: v for n, v in smoke.train_32k_phase().items()
                      if n in ("flash_bwd_dq", "flash_bwd_dkv")})
     smoke.train_packed_phase()
+
+    # -- phases 11 and 12: checkpoints and the fixture ---------------------------------
+    for phase in (smoke.checkpoint_phase, smoke.fixture_phase):
+        for name, count in phase().items():
+            launches[name] += count
 
     kernels = []
     mono_shape = "B8 S1024 H12 D64 causal bf16"

@@ -3,7 +3,9 @@
 Port of ``determined_tpu/core/_context.py`` trimmed to the off-cluster
 path: ``init()`` with no ``DTPU_MASTER`` in the environment returns dummy
 contexts (``_dummy_init``), the official way to run trial code outside a
-cluster (notebooks, tests, ``chip_smoke.py``).
+cluster (notebooks, tests, ``chip_smoke.py``). Checkpoints go to a local
+shared-filesystem directory: ``checkpoint_storage``, or
+``~/.dtpu/checkpoints`` when it is not given.
 """
 from __future__ import annotations
 
@@ -11,10 +13,12 @@ import logging
 import os
 from typing import Optional
 
+from determined_tpu_torch.core._checkpoint import DummyCheckpointContext
 from determined_tpu_torch.core._distributed import DummyDistributedContext
 from determined_tpu_torch.core._preempt import DummyPreemptContext
 from determined_tpu_torch.core._searcher import DummySearcherContext
 from determined_tpu_torch.core._train import DummyTrainContext
+from determined_tpu_torch.storage import from_config as storage_from_config
 
 logger = logging.getLogger("determined_tpu_torch.core")
 
@@ -25,24 +29,28 @@ class Context:
         *,
         distributed: DummyDistributedContext,
         train: DummyTrainContext,
+        checkpoint: DummyCheckpointContext,
         preempt: DummyPreemptContext,
         searcher: DummySearcherContext,
     ) -> None:
         self.distributed = distributed
         self.train = train
+        self.checkpoint = checkpoint
         self.preempt = preempt
         self.searcher = searcher
 
 
 def _dummy_init(*, checkpoint_storage: Optional[str] = None) -> Context:
-    if checkpoint_storage is not None:
-        raise NotImplementedError(
-            "checkpoint storage is not ported yet (the checkpoint-"
-            "interchange slice)"
-        )
+    dist = DummyDistributedContext()
+    storage = storage_from_config(
+        {"type": "shared_fs", "host_path": checkpoint_storage}
+        if checkpoint_storage
+        else None
+    )
     return Context(
-        distributed=DummyDistributedContext(),
+        distributed=dist,
         train=DummyTrainContext(),
+        checkpoint=DummyCheckpointContext(dist, storage),
         preempt=DummyPreemptContext(),
         searcher=DummySearcherContext(),
     )

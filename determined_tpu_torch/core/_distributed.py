@@ -11,3 +11,7 @@ class DummyDistributedContext:
     @property
     def is_chief(self) -> bool:
         return True
+
+    @property
+    def size(self) -> int:
+        return 1

@@ -644,7 +644,8 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]
 def load_jax_params(model: GPT, tree: Dict[str, Any], *,
                     serving_copy: bool = False) -> GPT:
     """Fill `model`'s parameters from the reference's parameter pytree,
-    given as nested dicts of numpy arrays (``jax.device_get(params)``).
+    given as nested dicts of numpy arrays (``jax.device_get(params)``) or
+    of tensors (``trainer._checkpoint.load_pytree``).
 
     Every key and every shape is checked before anything is written:
     a key missing on either side raises ``KeyError``, a shape mismatch
@@ -662,7 +663,9 @@ def load_jax_params(model: GPT, tree: Dict[str, Any], *,
         )
     arrays = {}
     for name, p in params.items():
-        arr = np.asarray(flat[name], dtype=np.float32)
+        arr = flat[name]
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.tensor(np.asarray(arr, dtype=np.float32))
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(
                 f"parameter {name}: shape {tuple(arr.shape)} != "
@@ -671,7 +674,7 @@ def load_jax_params(model: GPT, tree: Dict[str, Any], *,
         arrays[name] = arr
     with torch.no_grad():
         for name, p in params.items():
-            p.copy_(torch.tensor(arrays[name]))
+            p.copy_(arrays[name])
     model._compute.clear()
     if serving_copy:
         model.cache_compute_weights()

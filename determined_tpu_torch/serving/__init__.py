@@ -4,7 +4,10 @@
 - ``kv_cache``  — the page pool's host-side free list;
 - ``engine``    — iteration-level continuous batching over packed prefill
   and paged decode, with SLO-aware admission and load shedding;
-- ``service``   — ``build_engine`` from a config's `serving:` section.
+- ``service``   — ``build_engine`` from a config's `serving:` section,
+  with weights from a checkpoint (``DTPU_SERVING_CHECKPOINT``);
+- ``fixture``   — the pre-trained ``fixture`` model's checkpoint
+  (``ensure_fixture``).
 """
 from determined_tpu_torch.serving.config import ServingConfig  # noqa: F401
 from determined_tpu_torch.serving.engine import (  # noqa: F401

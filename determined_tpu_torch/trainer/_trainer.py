@@ -17,15 +17,25 @@ train to each op's length with periodic validation and report boundaries
 - validation runs ``model.eval_metrics`` under ``torch.no_grad()`` and
   averages over batches.
 
-The step runs on CUDA unless the caller passes ``device="cpu"``.
-Checkpoints (``checkpoint_period`` / ``latest_checkpoint``: the
-checkpoint-interchange slice), a device mesh (the multi-device slice),
-profiling, TensorBoard and ``smaller_is_better=False`` (read only by the
-cluster's searcher: the exec slice) are refused by name.
+Checkpoints are the reference's on-disk format (``trainer/_checkpoint.py``):
+``fit(checkpoint_period=...)`` saves the named state view (``step``,
+``params``, ``opt_state``) plus ``trainer_state.json`` at each period, at
+preemption and at the end; the device→host snapshot blocks the step loop,
+the files and the upload run on a background writer.
+``fit(latest_checkpoint=...)`` verifies and restores one (a JAX-written
+one too) and fast-forwards the data stream past the batches it consumed.
+
+The step runs on CUDA unless the caller passes ``device="cpu"``. A device
+mesh (the multi-device slice), profiling, TensorBoard,
+``smaller_is_better=False`` (read only by the cluster's searcher: the exec
+slice) and the orbax checkpoint format (it needs JAX) are refused by name.
 """
 from __future__ import annotations
 
+import json
 import logging
+import os
+import tempfile
 import time
 from typing import Any, Dict, List, Optional, Union
 
@@ -36,11 +46,16 @@ from determined_tpu_torch import core as core_mod
 from determined_tpu_torch._device import resolve_device
 from determined_tpu_torch.core._searcher import DummySearcherContext
 from determined_tpu_torch.models.base import Model
+from determined_tpu_torch.storage.base import CorruptCheckpointError
+from determined_tpu_torch.trainer import _checkpoint as ckpt_io
 from determined_tpu_torch.trainer import _sentinel, optim
 from determined_tpu_torch.trainer._trial import TorchTrial
 from determined_tpu_torch.trainer._units import Batch, TrainUnit, to_batches
 
 logger = logging.getLogger("determined_tpu_torch.trainer")
+
+TRAINER_METADATA = "trainer_state.json"
+ORBAX_SUBDIR = "orbax"  # presence marks an orbax/ocdbt-format checkpoint
 
 
 class Trainer:
@@ -57,7 +72,17 @@ class Trainer:
         mesh: Any = None,
         profiling: bool = False,
         tensorboard_dir: Optional[str] = None,
+        checkpoint_format: str = "npy",
     ) -> None:
+        if checkpoint_format == "orbax":
+            raise NotImplementedError(
+                "checkpoint_format='orbax' needs orbax, a JAX library; the "
+                "port writes the reference's 'npy' format"
+            )
+        if checkpoint_format != "npy":
+            raise ValueError(
+                f"checkpoint_format {checkpoint_format!r} (one of: npy, orbax)"
+            )
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh (sharded parameters and batches) comes with "
@@ -84,7 +109,10 @@ class Trainer:
 
         torch.manual_seed(seed)
         self.model: Model = trial.build_model(self.device)
-        self._params = [p for p in self.model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in self.model.named_parameters()
+                 if p.requires_grad]
+        self._names = [n for n, _ in named]
+        self._params = [p for _, p in named]
         for p in self._params:
             if p.device != self.device:
                 raise ValueError(
@@ -93,8 +121,17 @@ class Trainer:
                 )
         self._tx = trial.build_optimizer()
         self._opt_state = self._tx.init([p.detach() for p in self._params])
+        # Seeded once and passed to model.loss; the port's models draw
+        # nothing from it (no dropout), so a checkpoint holds no generator
+        # state. (The reference's step RNG, fold_in(base_rng, step), is a
+        # function of the step alone.)
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._step = 0
+        self._ckpt_writer = ckpt_io.AsyncCheckpointWriter()
+        #: batches the data stream is ahead of the step counter: 0 until
+        #: the sentinel's rollback (a later slice) skips poisoned windows.
+        #: Persisted in the trainer metadata.
+        self._data_offset = 0
         self._steps_skipped = 0     # lifetime non-finite skips (host view)
         self._skips = torch.zeros((), dtype=torch.int32, device=self.device)
         self._last_throughput = 0.0
@@ -140,6 +177,110 @@ class Trainer:
             sentinel_skipped=(~ok).to(torch.int32), sentinel_skips=self._skips,
         )
         return metrics
+
+    # -- checkpoint --------------------------------------------------------
+    def _state_view(self) -> Dict[str, Any]:
+        """The train state under the reference's names (live tensors)."""
+        return ckpt_io.state_view(self._step, self._names,
+                                  [p.detach() for p in self._params],
+                                  self._opt_state)
+
+    def _save_checkpoint(self, *, sync: bool = False) -> Optional[str]:
+        """Checkpoint the train state.
+
+        Async by default: the step loop blocks only for joining any
+        previous save and the device→host snapshot; the .npy files,
+        ``trainer_state.json`` and the upload run on the writer thread.
+        `sync=True` waits and returns the storage_id (preemption, exit).
+        """
+        # Join first: two host copies of the state at once could exhaust
+        # host memory at scale.
+        self._ckpt_writer.wait()
+        steps = self._step
+        snapshot = ckpt_io.snapshot_pytree(self._state_view())
+        checkpoint_ctx = self.core.checkpoint
+        seed = self.seed
+        data_offset = self._data_offset
+
+        def work() -> str:
+            with tempfile.TemporaryDirectory() as tmp:
+                written = ckpt_io.write_snapshot(snapshot, tmp)
+                with open(os.path.join(tmp, TRAINER_METADATA), "w") as f:
+                    json.dump({"steps_completed": steps, "seed": seed,
+                               "data_offset": data_offset}, f)
+                written.append(TRAINER_METADATA)
+                storage_id = checkpoint_ctx.upload(
+                    tmp, metadata={"steps_completed": steps}, paths=written)
+            logger.info("saved checkpoint %s at step %d", storage_id, steps)
+            return storage_id
+
+        self._ckpt_writer.submit(work)
+        if sync:
+            return self._ckpt_writer.wait()
+        return None
+
+    def _restore_with_fallback(self, storage_id: str) -> None:
+        """Restore `storage_id`; on CorruptCheckpointError or a storage
+        failure try the next candidate of
+        ``core.checkpoint.restore_candidates``. Off-cluster that list is
+        just `storage_id`, so the failure propagates."""
+        candidates = self.core.checkpoint.restore_candidates(storage_id)
+        last_err: Optional[Exception] = None
+        for uuid_ in candidates:
+            try:
+                self._restore_checkpoint(uuid_)
+            except (CorruptCheckpointError, OSError) as e:
+                last_err = e
+                logger.error(
+                    "checkpoint %s failed verification (%s); %s", uuid_, e,
+                    "trying the previous verified checkpoint"
+                    if uuid_ != candidates[-1] else "no older checkpoint left",
+                )
+                continue
+            if uuid_ != storage_id:
+                logger.warning(
+                    "resumed from older verified checkpoint %s (newest %s "
+                    "was corrupt)", uuid_, storage_id,
+                )
+            return
+        assert last_err is not None
+        raise last_err
+
+    def _restore_checkpoint(self, storage_id: str) -> None:
+        """Verify and read the whole checkpoint, then write it into the
+        parameters (in place), the optimizer state and the step: a
+        checkpoint that fails verification or has a drifted leaf leaves
+        the trainer untouched."""
+        self._ckpt_writer.wait()  # never read while a save is in flight
+        with self.core.checkpoint.restore_path(storage_id) as path:
+            if os.path.isdir(os.path.join(path, ORBAX_SUBDIR)):
+                raise NotImplementedError(
+                    f"checkpoint {storage_id} is in the orbax format, which "
+                    "needs JAX; the port reads the 'npy' format"
+                )
+            view = ckpt_io.load_pytree(path, self._state_view())
+            data_offset = 0
+            md_path = os.path.join(path, TRAINER_METADATA)
+            if os.path.exists(md_path):
+                # The reference also writes a goodput ledger ("timeline"),
+                # which the port does not keep yet: ignored.
+                try:
+                    with open(md_path) as f:
+                        data_offset = int(json.load(f).get("data_offset", 0) or 0)
+                except (ValueError, OSError):
+                    logger.warning(
+                        "unreadable trainer metadata in %s; assuming no "
+                        "data offset", storage_id,
+                    )
+        params = ckpt_io.unnest(view["params"])
+        with torch.no_grad():
+            for name, p in zip(self._names, self._params):
+                p.copy_(params[name])
+        self._opt_state = ckpt_io.opt_state_from_view(
+            self._opt_state, view["opt_state"], self._names)
+        self._step = int(view["step"])
+        self._data_offset = data_offset
+        logger.info("restored checkpoint %s at step %d", storage_id, self._step)
 
     # -- validation --------------------------------------------------------
     @torch.no_grad()
@@ -208,25 +349,41 @@ class Trainer:
         latest_checkpoint: Optional[str] = None,
     ) -> Dict[str, float]:
         """Run the trial until the searcher closes it (one op of
-        max_length off-cluster). Returns the last validation metrics."""
-        if checkpoint_period is not None or latest_checkpoint is not None:
-            raise NotImplementedError(
-                "checkpoint_period / latest_checkpoint: checkpoints are not "
-                "ported yet (the checkpoint-interchange slice)"
-            )
+        max_length off-cluster), resuming from `latest_checkpoint` when
+        given. Returns the last validation metrics."""
         bpe = self.trial.batches_per_epoch
         val_period = to_batches(validation_period, bpe) if validation_period else 0
+        ckpt_period = to_batches(checkpoint_period, bpe) if checkpoint_period else 0
         rep_period = max(1, to_batches(report_period, bpe))
 
         searcher = self.core.searcher
         if max_length is not None:
             searcher = DummySearcherContext(length=to_batches(max_length, bpe))
+        if latest_checkpoint:
+            self._restore_with_fallback(latest_checkpoint)
+
+        # Fast-forward the stream past the batches consumed before this
+        # step, so a resumed run sees the data an uninterrupted one sees:
+        # through .skip(n) when the dataset has it (in place: it returns
+        # None or itself), else by discarding batches.
+        train_data = self.trial.build_training_data()
+        fast_forward = self._step + self._data_offset
+        skipped = False
+        if fast_forward and hasattr(train_data, "skip"):
+            result = train_data.skip(fast_forward)
+            skipped = result is None or result is train_data
+        train_iter = iter(train_data)
+        if not skipped:
+            for _ in range(fast_forward):
+                next(train_iter)
+
         chief = self.core.distributed.is_chief
-        train_iter = iter(self.trial.build_training_data())
         pending: List[Dict[str, torch.Tensor]] = []
         last_val: Dict[str, float] = {}
         t_report = time.time()
         step = self._step
+        last_ckpt_step = -1
+        preempted = False
         self.core.train.heartbeat_step(step)
 
         def flush_report() -> None:
@@ -238,36 +395,59 @@ class Trainer:
             pending = []
             t_report = time.time()
 
-        for op in searcher.operations():
-            target = to_batches(op.length, bpe)
-            preempted = False
-            while step < target:
-                batch = self._put_batch(next(train_iter))
-                pending.append(self._train_step(batch))
-                step += 1
-                self._step = step
-                if step % rep_period == 0 or step == target:
-                    flush_report()
-                    self.core.train.heartbeat_step(step)
-                    if chief:
-                        op.report_progress(float(step))
-                    if self.core.preempt.should_preempt():
-                        logger.info("preempted at step %d", step)
-                        preempted = True
-                        break
-                if val_period and step % val_period == 0 and step < target:
-                    last_val = self._validate()
-                    if last_val and chief:
+        # The finally-join keeps a raising step loop from abandoning an
+        # in-flight background save, and makes a failed save fail the run.
+        fit_error: Optional[BaseException] = None
+        try:
+            for op in searcher.operations():
+                target = to_batches(op.length, bpe)
+                while step < target:
+                    batch = self._put_batch(next(train_iter))
+                    pending.append(self._train_step(batch))
+                    step += 1
+                    self._step = step
+                    if step % rep_period == 0 or step == target:
+                        flush_report()
+                        self.core.train.heartbeat_step(step)
+                        if chief:
+                            op.report_progress(float(step))
+                        if self.core.preempt.should_preempt():
+                            self._save_checkpoint(sync=True)
+                            last_ckpt_step = step
+                            logger.info("preempted at step %d; exiting "
+                                        "cleanly", step)
+                            preempted = True
+                            break
+                    if val_period and step % val_period == 0 and step < target:
+                        last_val = self._validate()
+                        if last_val and chief:
+                            self.core.train.report_validation_metrics(step, last_val)
+                    if ckpt_period and step % ckpt_period == 0:
+                        flush_report()
+                        self._save_checkpoint()
+                        last_ckpt_step = step
+                if preempted:
+                    break
+                flush_report()
+                last_val = self._validate()
+                if chief:
+                    if last_val:
                         self.core.train.report_validation_metrics(step, last_val)
-            if preempted:
-                break
-            flush_report()
-            last_val = self._validate()
-            if chief:
-                if last_val:
-                    self.core.train.report_validation_metrics(step, last_val)
-                completion = {"batches_per_second": self._last_throughput,
-                              **last_val}
-                op.report_completed(
-                    float(completion.get(self.searcher_metric, 0.0)))
+                    completion = {"batches_per_second": self._last_throughput,
+                                  **last_val}
+                    op.report_completed(
+                        float(completion.get(self.searcher_metric, 0.0)))
+            if (ckpt_period or preempted) and last_ckpt_step != step:
+                self._save_checkpoint(sync=True)
+        except BaseException as e:
+            fit_error = e
+            raise
+        finally:
+            try:
+                self._ckpt_writer.wait()
+            except BaseException:
+                if fit_error is None:
+                    raise
+                # The loop's own exception is the primary failure.
+                logger.exception("background checkpoint failed during teardown")
         return last_val

@@ -169,6 +169,13 @@ def scale_by_learning_rate(learning_rate: ScalarOrSchedule
     return scale(-1 * learning_rate)
 
 
+def adam(learning_rate: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> GradientTransformation:
+    """optax.adam: Adam, then scale by −learning_rate."""
+    return chain(scale_by_adam(b1, b2, eps),
+                 scale_by_learning_rate(learning_rate))
+
+
 def adamw(learning_rate: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 1e-4
           ) -> GradientTransformation:

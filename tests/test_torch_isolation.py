@@ -1,8 +1,8 @@
 """The port imports torch and numpy, never JAX and nothing of the JAX
 package: an AST scan of every module of determined_tpu_torch and of
-chip_smoke.py, plus a fresh interpreter that imports the serving,
-trainer and core packages and finds no jax and no determined_tpu module
-loaded."""
+chip_smoke.py, plus a fresh interpreter that imports the serving (the fixture too),
+trainer, core, storage and common packages and finds no jax and no
+determined_tpu module loaded."""
 import ast
 import subprocess
 import sys
@@ -44,7 +44,11 @@ def test_port_never_imports_jax(source):
             "determined_tpu_torch.ops.flash_attention, "
             "determined_tpu_torch.ops.paged_attention, "
             "determined_tpu_torch.trainer, determined_tpu_torch.core, "
-            "determined_tpu_torch.trainer.profile\n"
+            "determined_tpu_torch.trainer.profile, "
+            "determined_tpu_torch.storage, determined_tpu_torch.common, "
+            "determined_tpu_torch.common.faults, "
+            "determined_tpu_torch.common.resilience, "
+            "determined_tpu_torch.serving.fixture\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))\n"

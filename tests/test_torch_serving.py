@@ -8,8 +8,11 @@ equality — fp32 on both sides, and greedy argmax is insensitive to the
 last-digit differences of summation order unless two logits tie), and
 every page must return to the pool. Admission errors, sheds and config
 validation behave the same; the options of later slices are refused by
-name, and build_engine without a device refuses a machine without CUDA.
+name, a checkpoint that fails verification is refused at startup, and
+build_engine without a device refuses a machine without CUDA.
 """
+import json
+
 import pytest
 import torch
 
@@ -197,10 +200,32 @@ def test_entry_points_refuse_missing_cuda(device, monkeypatch):
     pytest.param({"model": "tiny"}, {"DTPU_SERVING_CHECKPOINT": "/nonexistent"},
                  id="checkpoint"),
 ])
-def test_build_engine_refuses_checkpoints(cfg, env, monkeypatch):
+def test_build_engine_refuses_checkpoints(cfg, env, monkeypatch, tmp_path):
+    """A checkpoint that fails verification is a named refusal at startup:
+    the fixture model from a torn one (CorruptCheckpointError), and a
+    directory that does not exist (no manifest, no leaves)."""
+    from determined_tpu_torch.storage import CorruptCheckpointError
+    from determined_tpu_torch.storage.base import MANIFEST_FILE, file_digest
+    from determined_tpu_torch.trainer import _checkpoint as ckpt_io
+
+    if not env:
+        model = tgpt.GPT(tgpt.GPTConfig(
+            vocab_size=1024, n_layers=2, n_heads=4, d_model=128, d_ff=512,
+            seq_len=256, remat=False, dtype=torch.float32), device="cpu")
+        written = ckpt_io.save_pytree(
+            ckpt_io.nest(dict(model.named_parameters())), str(tmp_path))
+        files = {r: file_digest(str(tmp_path / r)) for r in written}
+        (tmp_path / MANIFEST_FILE).write_text(json.dumps({"version": 1,
+                                                          "files": files}))
+        torn = tmp_path / "blocks__wqkv.npy"
+        torn.write_bytes(torn.read_bytes()[:200])
+        env = {"DTPU_SERVING_CHECKPOINT": str(tmp_path)}
+        err = CorruptCheckpointError
+    else:
+        err = FileNotFoundError
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(UnsupportedServingFeature):
+    with pytest.raises(err):
         build_engine(cfg, device="cpu")
 
 

@@ -13,8 +13,8 @@ the JAX package's, on the CPU at fp32.
   ``load_jax_params``: every reported loss and grad norm, the skip
   accounting of a batch whose ``loss_mask`` is NaN, and the final
   parameters.
-- Refusals by name: checkpoints, a mesh, profiling, ``core.init()`` on a
-  cluster, health knobs of later slices.
+- Refusals by name: the orbax checkpoint format, a mesh, profiling,
+  ``core.init()`` on a cluster, health knobs of later slices.
 
 Tolerances: optimizer 1e-6 absolute on O(1) parameters (fp32, the same
 operation order as optax; pow and the norm's sum may differ by an ulp);
@@ -334,24 +334,36 @@ def test_trainer_refuses_later_slices_by_name(kwargs, match):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(checkpoint_period=Batch(2)), dict(latest_checkpoint="abc"),
+    dict(checkpoint_format="orbax"), dict(latest_checkpoint="orbax-ckpt"),
 ])
-def test_fit_refuses_checkpoints_by_name(kwargs):
-    trainer = Trainer(_TTrial(), tcore._dummy_init(), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint-interchange"):
+def test_fit_refuses_checkpoints_by_name(kwargs, tmp_path):
+    """The orbax format needs JAX: refused by name, as a trainer option
+    and as a checkpoint on disk (its ``orbax/`` directory), leaving the
+    trainer untouched."""
+    ctx = tcore._dummy_init(checkpoint_storage=str(tmp_path))
+    if "checkpoint_format" in kwargs:
+        with pytest.raises(NotImplementedError, match="orbax"):
+            Trainer(_TTrial(), ctx, device="cpu", **kwargs)
+        return
+    (tmp_path / "orbax-ckpt" / "orbax").mkdir(parents=True)
+    trainer = Trainer(_TTrial(), ctx, device="cpu")
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    with pytest.raises(NotImplementedError, match="orbax"):
         trainer.fit(max_length=Batch(1), **kwargs)
     assert trainer.steps_completed == 0
+    assert all(torch.equal(a, b.detach())
+               for a, b in zip(before, trainer.model.parameters()))
 
 
-def test_core_init_refuses_a_cluster(monkeypatch):
+def test_core_init_refuses_a_cluster(monkeypatch, tmp_path):
     monkeypatch.setenv("DTPU_MASTER", "http://127.0.0.1:1")
     with pytest.raises(NotImplementedError, match="exec slice"):
         tcore.init()
     monkeypatch.delenv("DTPU_MASTER")
     ctx = tcore.init()
     assert ctx.distributed.is_chief
-    with pytest.raises(NotImplementedError, match="checkpoint-interchange"):
-        tcore._dummy_init(checkpoint_storage="/tmp/x")
+    ctx = tcore._dummy_init(checkpoint_storage=str(tmp_path))
+    assert ctx.checkpoint._storage.base_path == str(tmp_path)
 
 
 def test_poisoned_step_is_skipped_in_place():

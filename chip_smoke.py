@@ -133,12 +133,45 @@ script exits non-zero without the final result line:
    each of the 12 phrases, prompted with the phrase twice, must follow
    the phrase's cycle in ≥ 95% of tokens, through ``flash_fwd`` and
    ``paged_attention``.
+13. serving-http — the reference bench's serving rung
+   (``SERVING_HTTP_CFG``: GPT-2-small bf16, seeded, 129 pages × 128, 8
+   slots, prefill 4 × 512) behind ``GenerationServer`` on 127.0.0.1,
+   driven by ``loadgen.drive`` over ``zipf_prefix_prompts(16,
+   corpus_size=4, prefix_len=256, suffix_len=16, seed=7)`` at
+   concurrency 8 and 32 new tokens, twice over the same list: cache off +
+   spec off, then cache on + spec ngram (draft 4, min match 2). Prints
+   tokens/s, TTFT p50 and p99, hit rate, proposed and accepted drafts,
+   the median decode iteration, and the launches of ``flash_fwd`` at the
+   cached-tail geometry (B 4, s_q 512, s_k 1536, kv_offset 1024) and of
+   ``paged_attention`` at 5 query rows. Every request ends with
+   ``length`` and 32 tokens, every page is back after ``flush()``, and
+   the second pass hits the cache, proposes drafts and launches both
+   kernels at those geometries.
+14. serving-parity — fp32 (TF32 off): GPT-2-small greedy streams of 6 of
+   those prompts × 16 tokens (in two waves, so the second hits the
+   cache) under cache off / spec off, cache on / spec off and cache on /
+   spec on, on the paged kernel and with ``DTPU_PAGED_ATTN=0``: every
+   emitted token is the full-context argmax of ``apply`` except at a
+   near-tie (top-2 margin < 1e-4), and all six configurations stream the
+   same tokens up to the first near-tie; ``flash_fwd`` must have run at
+   the cached-tail and the speculative gather geometry and
+   ``paged_attention`` at 5 query rows; then the pre-trained fixture
+   (trained anew in a temporary directory) on
+   ``corpus_ngram_prompts(8, fixture_phrases(), seed=7)``: spec on
+   streams exactly what spec off streams, with drafts accepted.
+
+Phase 3 also holds ``flash_fwd`` at the cached-tail geometry (separate
+query and key segment ids as ``_prefill_cached`` builds them, one row all
+padding) and at the speculative gather verify's (B 8, s_q 5, s_k 1029,
+kv_offset 1024, dead rows in query segment 2), and ``paged_attention`` at
+5 and 9 query rows with ragged ``q_lens``, in both dtypes.
 
 The last lines are the whole run's seconds, the kernels' JSON record
 (each kernel's ``launches`` summed over the main paths that run it:
-phases 4, 6, 8, 9, 11 and 12), the card's name and power limit, and ``{"ok":
-true, "device": {...}}``.
+phases 4, 6, 8, 9 and 11 to 14), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -171,6 +204,24 @@ ENGINE_CFG = {
     "model": "small", "page_size": 128, "num_pages": 65,
     "max_pages_per_request": 8, "max_batch_size": 8, "prefill_rows": 4,
     "prefill_seq": 512, "max_new_tokens": 64,
+}
+#: The serving rung of the reference's bench (``bench.py:672-684``): its
+#: engine geometry, its zipfian shared-prefix traffic and its draft.
+SERVING_HTTP_CFG = {
+    "model": "small", "page_size": 128, "num_pages": 129,
+    "max_pages_per_request": 8, "max_batch_size": 8, "prefill_rows": 4,
+    "prefill_seq": 512, "max_new_tokens": 128, "max_queue_depth": 64,
+}
+SERVING_HTTP_PROMPTS = dict(n_requests=16, corpus_size=4, prefix_len=256,
+                            suffix_len=16, seed=7, vocab=200)
+SERVING_HTTP_CONC = 8
+SERVING_HTTP_NEW_TOKENS = 32
+SERVING_HTTP_SPEC = {"mode": "ngram", "draft_len": 4, "min_match": 2}
+#: The reference bench's fixture serving geometry (``bench.py:698-702``).
+FIXTURE_SPEC_CFG = {
+    "model": "fixture", "page_size": 16, "num_pages": 65,
+    "max_pages_per_request": 4, "max_batch_size": 8, "prefill_rows": 4,
+    "prefill_seq": 64, "max_new_tokens": 32, "max_queue_depth": 64,
 }
 NEAR_TIE = 1e-4
 BLOCKED = ("flash_bwd_blocked", "flash_bwd_dq", "flash_bwd_dkv")
@@ -215,6 +266,39 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def cached_tail_segments(prefix_lens, tail_lens, s_q, s_p):
+    """The segment ids ``_prefill_cached`` gives ``prefill_kv_cached``:
+    queries 1 on each row's tail, 0 on padding; keys the row's live
+    prefix (1 below its cached length, 0 past it) then the queries'
+    ids."""
+    import numpy as np
+
+    qseg = np.zeros((len(tail_lens), s_q), np.int32)
+    for r, n in enumerate(tail_lens):
+        qseg[r, :n] = 1
+    pseg = (np.arange(s_p)[None, :]
+            < np.asarray(prefix_lens)[:, None]).astype(np.int32)
+    return qseg, np.concatenate([pseg, qseg], axis=1)
+
+
+def spec_gather_segments(b, q, s_max, seed):
+    """The segment ids ``decode_kv_spec``'s gather path gives flash
+    attention for `b` slots of `q` rows over an `s_max` window: ragged
+    lengths (one reaching the window's last page), q_lens in [1, q], slot
+    4 inactive. → (q [b, q], kv [b, s_max + q])."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q_lens = rng.integers(1, q + 1, size=b)
+    lengths = np.minimum(np.array([0, 1023, 517, 1, 260, 900, 128, 64][:b]),
+                         s_max - q_lens)
+    active = np.arange(b) != 4
+    win = (np.arange(s_max)[None, :] < lengths[:, None]) & active[:, None]
+    tail = (np.arange(q)[None, :] < q_lens[:, None]) & active[:, None]
+    return (np.where(tail, 1, 2).astype(np.int32),
+            np.concatenate([win, tail], axis=1).astype(np.int32))
 
 
 def packed_batch(b, s, seed, vocab):
@@ -265,8 +349,9 @@ class Smoke:
     def flash_case(self, name, dtype, *, b, s_q, s_k, kv_offset=0,
                    window=None, segs=None, seed=0, block=512):
         """flash_fwd against its plain version and SDPA. `segs`: None,
-        "packed" (seeded documents), "decode" (the gather-decode layout) or
-        an int32 [b, s_k] array of segment ids."""
+        "packed" (seeded documents), "decode" (the gather-decode layout),
+        "spec" (the speculative gather verify's), an int32 [b, s_k] array
+        of segment ids, or a (q [b, s_q], kv [b, s_k]) pair of them."""
         import numpy as np
         import torch
         import torch.nn.functional as F
@@ -280,7 +365,10 @@ class Smoke:
         k = self.randn((b, s_k, h, d), dtype, gen)
         v = self.randn((b, s_k, h, d), dtype, gen)
         qseg = kseg = None
-        if segs is not None and not isinstance(segs, str):
+        if isinstance(segs, tuple):
+            qseg, kseg = (torch.from_numpy(np.asarray(x, np.int32)).to(
+                self.dev) for x in segs)
+        elif segs is not None and not isinstance(segs, str):
             qseg = kseg = torch.from_numpy(np.asarray(segs, np.int32)).to(
                 self.dev)
         elif segs == "packed":
@@ -303,9 +391,17 @@ class Smoke:
             qseg = torch.from_numpy(
                 np.where(active, 1, 2).astype(np.int32)[:, None]
             ).to(self.dev)
+        elif segs == "spec":
+            # decode_kv_spec's gather layout: the committed window (pos <
+            # length) and the s_q fresh rows behind it; dead rows carry
+            # query segment 2, which no key carries
+            qseg, kseg = (torch.from_numpy(x).to(self.dev)
+                          for x in spec_gather_segments(b, s_q, s_k - s_q,
+                                                        seed))
         kw = dict(causal=True, window=window, kv_offset=kv_offset,
                   segment_ids=qseg, kv_segment_ids=kseg,
-                  block_q=min(block, s_q), block_k=min(block, s_k))
+                  block_q=tfa.fit_block(s_q, block),
+                  block_k=tfa.fit_block(s_k, block))
         fw = dict(causal=True, window=window, kv_offset=kv_offset,
                   segment_ids=qseg, kv_segment_ids=kseg)
         o_k, lse_k = tfa.flash_attention_lse(q, k, v, **kw)
@@ -352,12 +448,14 @@ class Smoke:
         return dict(tflops=flops / ms / 1e9, bound_share=bound_ms / ms)
 
     # -- phase 3: paged decode ------------------------------------------------
-    def paged_case(self, name, dtype, *, q_rows, ragged, seed=0, full=False):
+    def paged_case(self, name, dtype, *, q_rows, ragged, seed=0, full=False,
+                   max_q_len=5):
         """paged_attention against its plain version and gather + SDPA, 8
         pages of 128 tokens a slot, H 12, D 64: the engine's decode batch
-        (8 slots of ragged lengths, one inactive), or with `full` 32 slots
-        of 8 full pages (100.7 MB of bf16 K/V, where bytes and not latency
-        set the time). Two launches must agree bit for bit."""
+        (8 slots of ragged lengths, one inactive; `ragged`: q_lens drawn
+        from [1, max_q_len]), or with `full` 32 slots of 8 full pages
+        (100.7 MB of bf16 K/V, where bytes and not latency set the time).
+        Two launches must agree bit for bit."""
         import numpy as np
         import torch
         import torch.nn.functional as F
@@ -371,7 +469,7 @@ class Smoke:
         k_pool = self.randn((num_pages, ps, h, d), dtype, gen)
         v_pool = self.randn((num_pages, ps, h, d), dtype, gen)
         pt = rng.permutation(np.arange(1, num_pages)).reshape(b, p)
-        q_lens = (rng.integers(1, 6, size=b) if ragged
+        q_lens = (rng.integers(1, max_q_len + 1, size=b) if ragged
                   else np.ones(b, np.int64))
         if full:
             lengths = np.full(b, p * ps - 1)
@@ -1442,6 +1540,266 @@ class Smoke:
         assert all(r["reason"] == "length" for r in res), res
         return [r["tokens"] for r in res]
 
+    # -- phases 13 and 14: the rest of serving ------------------------------------
+    @contextlib.contextmanager
+    def launch_geometry(self):
+        """Record the geometry of every ``flash_fwd`` and
+        ``paged_attention`` launch inside the block, as ("flash_fwd", b,
+        s_q, s_k, kv_offset) and ("paged_attention", b, q_rows) tuples;
+        the launches and their counts are the wrappers' own."""
+        from determined_tpu_torch.ops import _build
+
+        log = []
+        kernels = (_build.FLASH_FWD, _build.PAGED_ATTENTION)
+
+        def recorder(k):
+            launch = type(k).launch
+
+            def recorded(*args):
+                launch(k, *args)
+                if k is _build.FLASH_FWD:
+                    log.append((k.name, args[9], args[11], args[12],
+                                args[-3]))
+                else:
+                    log.append((k.name, args[10], args[11]))
+            return recorded
+
+        for k in kernels:
+            k.launch = recorder(k)
+        try:
+            yield log
+        finally:
+            for k in kernels:
+                del k.launch
+
+    def serving_http_phase(self):
+        """GPT-2-small bf16 behind ``GenerationServer``, driven by
+        ``loadgen.drive`` over ``SERVING_HTTP_PROMPTS``: cache off + spec
+        off, then cache on + spec ngram, the same request list."""
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch.models import gpt
+        from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.serving import (
+            GenerationEngine,
+            GenerationServer,
+            ServingConfig,
+            loadgen,
+        )
+
+        model = gpt.GPT(gpt.small(), device=self.dev, seed=0)
+        prompts = loadgen.zipf_prefix_prompts(**SERVING_HTTP_PROMPTS)
+        n, m_new = len(prompts), SERVING_HTTP_NEW_TOKENS
+        launches = {k: 0 for k in _build.KERNELS}
+        recs = {}
+        for name, extra in (
+            ("cache-off spec-off", {}),
+            ("cache-on spec-ngram", {"prefix_cache": "on", "speculation":
+                                     SERVING_HTTP_SPEC}),
+        ):
+            eng = GenerationEngine(
+                model, None, ServingConfig(**SERVING_HTTP_CFG, **extra))
+            submitted, iter_s = [], []
+            submit, decode_iter = eng.submit, eng._decode_iter
+
+            def recording_submit(*a, _submit=submit, **kw):
+                req = _submit(*a, **kw)
+                submitted.append(req)
+                return req
+
+            def timed_iter(_decode_iter=decode_iter):
+                t0 = time.perf_counter()
+                _decode_iter()
+                iter_s.append(time.perf_counter() - t0)
+
+            eng.submit, eng._decode_iter = recording_submit, timed_iter
+            eng.start()
+            srv = GenerationServer(eng, host="127.0.0.1")
+            srv.start()
+            try:
+                warm = loadgen.drive(srv.url, 4, 4, prompt_len=8,
+                                     max_new_tokens=2, timeout_s=600.0)
+                assert warm.completed == 4, [t.error for t in warm.traces]
+                submitted.clear()
+                iter_s.clear()
+                for k in _build.KERNELS.values():
+                    k.launches = 0
+                with self.launch_geometry() as geometry:
+                    report = loadgen.drive(srv.url, n, SERVING_HTTP_CONC,
+                                           max_new_tokens=m_new,
+                                           timeout_s=600.0, prompts=prompts)
+                    torch.cuda.synchronize()
+                counts = {k: v.launches for k, v in _build.KERNELS.items()}
+                stats = eng.stats()
+            finally:
+                srv.stop()
+                eng.stop()
+            if eng.prefix_cache is not None:
+                eng.prefix_cache.flush()
+            assert eng.pool.pages_in_use == 0, eng.stats()
+            assert report.completed == n, [t.error for t in report.traces]
+            assert [r.finish_reason for r in submitted] == ["length"] * n
+            assert all(t.tokens == m_new and len(t.token_ids) == m_new
+                       and all(0 <= x < model.config.vocab_size
+                               for x in t.token_ids)
+                       for t in report.traces)
+            for k, v in counts.items():
+                launches[k] += v
+            tail = sum(g == ("flash_fwd", 4, 512, 1536, 1024)
+                       for g in geometry)
+            verify = sum(g[0] == "paged_attention" and g[2] == 5
+                         for g in geometry)
+            spec = stats["speculation"]
+            rec = dict(
+                requests=n, tokens=report.total_tokens,
+                tokens_per_s=report.tokens_per_sec,
+                ttft_p50_ms=report.ttft_percentile_ms(50),
+                ttft_p99_ms=report.ttft_percentile_ms(99),
+                hit_rate=stats["cache_hit_rate"],
+                proposed=spec["proposed_tokens"],
+                accepted=spec["accepted_tokens"],
+                decode_iterations=len(iter_s),
+                decode_iter_ms_p50=float(np.median(iter_s)) * 1e3,
+                flash_cached_tail_launches=tail,
+                paged_q5_launches=verify,
+                flash_launches=counts["flash_fwd"],
+                paged_launches=counts["paged_attention"],
+            )
+            self.report("serving-http", f"gpt2-small bf16 {name}", rec)
+            recs[name] = rec
+            del eng
+        on = recs["cache-on spec-ngram"]
+        assert on["hit_rate"] > 0 and on["proposed"] > 0, on
+        assert on["flash_cached_tail_launches"] > 0, on
+        assert on["paged_q5_launches"] > 0, on
+        del model
+        torch.cuda.empty_cache()
+        return launches
+
+    def parity_streams(self, model, cfg, prompts, new_tokens, waves=2):
+        """Greedy streams of `prompts` through a fresh engine, submitted
+        in `waves` (each waits for the one before, so a later wave can
+        hit the prefix cache) → (streams, stats)."""
+        from determined_tpu_torch.serving import GenerationEngine
+
+        eng = GenerationEngine(model, None, cfg)
+        eng.start()
+        try:
+            res = []
+            step = -(-len(prompts) // waves)
+            for i in range(0, len(prompts), step):
+                reqs = [eng.submit(p, max_new_tokens=new_tokens)
+                        for p in prompts[i:i + step]]
+                res += [r.result(timeout=600) for r in reqs]
+            stats = eng.stats()
+        finally:
+            eng.stop()
+        assert all(r["reason"] == "length" for r in res), res
+        return [r["tokens"] for r in res], stats
+
+    def serving_parity_phase(self):
+        """fp32 greedy streams of GPT-2-small across prefix cache and
+        speculation settings, on the paged and the gather path; then the
+        pre-trained fixture with speculation on and off."""
+        import shutil
+        import tempfile
+
+        import torch
+
+        from determined_tpu_torch.models import gpt
+        from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.serving import ServingConfig, fixture, loadgen
+
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        model = gpt.GPT(dataclasses.replace(gpt.small(), dtype=torch.float32),
+                        device=self.dev, seed=0)
+        prompts = loadgen.zipf_prefix_prompts(**SERVING_HTTP_PROMPTS)[:6]
+        configs = (("off", "off"), ("on", "off"), ("on", "ngram"))
+        streams, hits, accepted = {}, 0, 0
+        with self.launch_geometry() as geometry:
+            for kernel, env in (("paged", None), ("gather", "0")):
+                if env is None:
+                    os.environ.pop("DTPU_PAGED_ATTN", None)
+                else:
+                    os.environ["DTPU_PAGED_ATTN"] = env
+                for cache, spec in configs:
+                    cfg = ServingConfig(
+                        **SERVING_HTTP_CFG, prefix_cache=cache,
+                        speculation={**SERVING_HTTP_SPEC, "mode": spec})
+                    got, stats = self.parity_streams(model, cfg, prompts, 16)
+                    assert stats["decode_kernel"] == kernel, stats
+                    streams[(kernel, cache, spec)] = got
+                    hits += stats.get("prefix_cache", {}).get("hits", 0)
+                    accepted += stats["speculation"]["accepted_tokens"]
+        os.environ.pop("DTPU_PAGED_ATTN", None)
+        assert hits > 0, "the prefix cache never hit"
+        shapes = dict(
+            flash_cached_tail=("flash_fwd", 4, 512, 1536, 1024),
+            flash_spec_gather=("flash_fwd", 8, 5, 1029, 1024),
+            paged_q5=("paged_attention", 8, 5),
+        )
+        at_shape = {name: sum(g == shape for g in geometry)
+                    for name, shape in shapes.items()}
+        assert all(at_shape.values()), at_shape
+        near_ties, identical = 0, 0
+        base_key = ("paged", "off", "off")
+        for j, prompt in enumerate(prompts):
+            first_tie = {}
+            for key, got in streams.items():
+                seq = prompt + got[j]
+                logits = model.apply(torch.tensor([seq], device=self.dev))
+                top2 = logits[0].float().topk(2, dim=-1)
+                first_tie[key] = len(got[j])
+                for i in range(len(prompt) - 1, len(seq) - 1):
+                    if float(top2.values[i, 0] - top2.values[i, 1]) < NEAR_TIE:
+                        near_ties += 1
+                        first_tie[key] = min(first_tie[key],
+                                             i - (len(prompt) - 1))
+                        continue
+                    assert int(top2.indices[i, 0]) == seq[i + 1], (
+                        f"{key}: greedy divergence at position {i}")
+            base = streams[base_key][j]
+            for key, got in streams.items():
+                upto = min(first_tie[key], first_tie[base_key])
+                assert got[j][:upto] == base[:upto], (key, got[j], base)
+                identical += got[j] == base
+        self.report("serving-parity", "gpt2-small fp32 cache x spec x "
+                    "paged/gather", dict(
+                        prompts=len(prompts), tokens_per_stream=16,
+                        configs=len(streams), prefix_hits=hits,
+                        accepted=accepted, near_ties=near_ties,
+                        identical_streams=identical,
+                        **{f"{n}_launches": v for n, v in at_shape.items()}))
+        del model
+        torch.cuda.empty_cache()
+
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-fixture-spec-")
+        try:
+            fmodel, _params, _path = fixture.ensure_fixture(tmp)
+            prompts = loadgen.corpus_ngram_prompts(
+                8, fixture.fixture_phrases(), seed=7)
+            fixture_streams = {}
+            for spec in ("off", "ngram"):
+                cfg = ServingConfig(**FIXTURE_SPEC_CFG, speculation={
+                    **SERVING_HTTP_SPEC, "mode": spec})
+                fixture_streams[spec], stats = self.parity_streams(
+                    fmodel, cfg, prompts, 24, waves=1)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        spec = stats["speculation"]
+        assert fixture_streams["ngram"] == fixture_streams["off"], \
+            fixture_streams
+        assert spec["accepted_tokens"] > 0, spec
+        self.report("serving-parity", "fixture fp32 spec ngram vs off",
+                    dict(prompts=len(prompts), tokens_per_stream=24,
+                         identical_streams=len(prompts),
+                         proposed=spec["proposed_tokens"],
+                         accepted=spec["accepted_tokens"],
+                         acceptance_rate=spec["acceptance_rate"]))
+        return {k: v.launches for k, v in _build.KERNELS.items()}
+
     # -- phase 7: one fp32 step, card against CPU ----------------------------------
     def train_parity_phase(self, route="mono"):
         """One fp32 loss + gradient of GPT-2-small's width with 2 layers,
@@ -1552,12 +1910,25 @@ def main() -> int:
                          kv_offset=1023, segs="decode", seed=1)
         smoke.flash_case("window128", dtype, b=4, s_q=512, s_k=512,
                          window=128, seed=2)
+    # the serving path's other geometries: the prefix-cache tail prefill
+    # (4 tails of 512 against 8 cached pages + themselves) and the
+    # speculative gather verify (8 slots of 5 rows behind 8 pages)
+    tail_segs = cached_tail_segments((256, 384, 896, 0), (16, 128, 512, 0),
+                                     512, 1024)
+    for dtype in (bf16, fp32):
+        smoke.flash_case("cached-tail", dtype, b=4, s_q=512, s_k=1536,
+                         kv_offset=1024, segs=tail_segs, seed=3)
+        smoke.flash_case("spec-gather", dtype, b=8, s_q=5, s_k=1029,
+                         kv_offset=1024, segs="spec", seed=4)
     paged = {}
     for dtype in (bf16, fp32):
         paged[dtype] = smoke.paged_case("decode", dtype, q_rows=1,
                                         ragged=False)
         smoke.paged_case("ragged-qlens", dtype, q_rows=8, ragged=True,
                          seed=1)
+        for q_rows in (5, 9):   # the speculative verify, draft_len 4 and 8
+            smoke.paged_case(f"spec-verify-q{q_rows}", dtype, q_rows=q_rows,
+                             ragged=True, seed=q_rows, max_q_len=q_rows)
     smoke.paged_case("full", bf16, q_rows=1, ragged=False, seed=2, full=True)
     for dtype in (bf16, fp32):
         smoke.mono_case("causal", dtype, b=2, s=1024, causal=True,
@@ -1609,8 +1980,9 @@ def main() -> int:
                      if n in ("flash_bwd_dq", "flash_bwd_dkv")})
     smoke.train_packed_phase()
 
-    # -- phases 11 and 12: checkpoints and the fixture ---------------------------------
-    for phase in (smoke.checkpoint_phase, smoke.fixture_phase):
+    # -- phases 11 to 14: checkpoints, the fixture, the rest of serving -------------
+    for phase in (smoke.checkpoint_phase, smoke.fixture_phase,
+                  smoke.serving_http_phase, smoke.serving_parity_phase):
         for name, count in phase().items():
             launches[name] += count
 

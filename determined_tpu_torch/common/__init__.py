@@ -1,4 +1,6 @@
 """Host-side helpers of the port, copied from ``determined_tpu/common``
 and trimmed to what the port's slices use: ``faults`` (the fault-injection
-harness the storage layer is instrumented with) and ``resilience`` (the
-retry policy of its per-file transfers)."""
+harness the storage layer and the serving engine are instrumented with),
+``resilience`` (the retry policy of the storage layer's per-file
+transfers) and ``metrics`` (the counters, gauges and histograms the
+serving engine exports on ``/metrics``)."""

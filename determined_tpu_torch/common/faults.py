@@ -1,8 +1,8 @@
 """Deterministic fault injection at named sites.
 
 A copy of ``determined_tpu/common/faults.py``, trimmed to what the port's
-storage layer uses. A ``FaultPlan`` maps **site names**
-(``storage.upload``, ``storage.download``, ...) to a ``FaultSpec`` that
+storage layer and serving engine use. A ``FaultPlan`` maps **site names**
+(``storage.upload``, ``serving.decode``, ...) to a ``FaultSpec`` that
 says what goes wrong there:
 
 - ``failures``: the first N calls at the site raise ``InjectedFault``;

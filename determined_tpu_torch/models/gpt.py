@@ -14,9 +14,11 @@ full-sequence forward; directly in packed prefill and gather decode) and
 plain versions on the CPU.
 
 Serving: ``apply`` is the full-sequence forward without a graph.
-``prefill_kv`` and ``decode_kv`` (``kernel="paged"`` or ``"gather"``),
-the engine's methods, run under ``torch.no_grad()`` on detached
-compute-dtype casts (or the serving copy, ``cache_compute_weights``).
+``prefill_kv``, ``prefill_kv_cached`` (the prefix-cache tail),
+``decode_kv`` and ``decode_kv_spec`` (the speculative verify; both with
+``kernel="paged"`` or ``"gather"``), the engine's methods, run under
+``torch.no_grad()`` on detached compute-dtype casts (or the serving
+copy, ``cache_compute_weights``).
 
 Training: ``loss`` (next-token cross-entropy with ``loss_mask``, packed
 ``segment_ids``, pre-shifted ``targets`` and ``z_loss``; metrics
@@ -337,9 +339,12 @@ class GPT(Model):
     def _embed(self, tok: torch.Tensor, pos: torch.Tensor,
                tokens: torch.Tensor,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = tok[tokens.long()]
+        # F.embedding, not tok[ids]: its backward sums the rows of a
+        # repeated id in a fixed order; indexing's (index_put_ with
+        # accumulate) adds them by atomics in any order across CPU threads.
+        x = F.embedding(tokens.long(), tok)
         if positions is not None:
-            return x + pos[positions.long()]
+            return x + F.embedding(positions.long(), pos)
         return x + pos[: tokens.shape[1]]
 
     def _head(self, x: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
@@ -502,6 +507,170 @@ class GPT(Model):
             x = self._mlp_half(x, w)
         logits = self._serving_head(x)  # [B, 1, V]
         return logits[:, 0].float(), cache_k, cache_v
+
+    @torch.no_grad()
+    def prefill_kv_cached(
+        self,
+        tokens: torch.Tensor,
+        positions: torch.Tensor,
+        segment_ids: torch.Tensor,
+        prefix_k: torch.Tensor,
+        prefix_v: torch.Tensor,
+        prefix_seg: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Tail prefill that attends through an already-cached prefix.
+
+        The prefix-cache hit path: a request whose leading pages matched
+        the radix cache computes K/V only for its tail, and each layer
+        concatenates the gathered prefix K/V in front of the tail's own
+        and runs flash attention at ``kv_offset = Sp`` (the bottom-aligned
+        geometry decode uses), so query row r sees every live prefix key
+        and tail keys ≤ r: the causal mask of the full prompt.
+
+        tokens [B, S] int — ONE document tail per row; positions [B, S] —
+        ABSOLUTE positions (cached tokens + offset); segment_ids [B, S] —
+        1 on tail tokens, 0 on padding; prefix_k/prefix_v [L, B, Sp, H,
+        Dh] — each row's cached pages gathered contiguous; prefix_seg
+        [B, Sp] — 1 on live prefix positions, 0 past the row's prefix.
+
+        → (logits [B, S, V] compute dtype, k [L, B, S, H, Dh], v) — the
+        K/V of the TAIL only.
+        """
+        c = self.config
+        s = tokens.shape[1]
+        sp = prefix_k.shape[2]
+        x = self._serving_embed(tokens, positions)
+        bq = fit_block(s, c.flash_block_q)
+        bk = fit_block(sp + s, c.flash_block_k)
+        segment_ids = segment_ids.to(torch.int32)
+        kv_seg = torch.cat([prefix_seg.to(torch.int32), segment_ids], dim=1)
+        ks, vs = [], []
+        for i in range(c.n_layers):
+            w = self._serving_layer(i)
+            q, k, v = self._qkv(x, w)
+            ks.append(k)
+            vs.append(v)
+            o = flash_attention(
+                q,
+                torch.cat([prefix_k[i].to(k.dtype), k], dim=1),
+                torch.cat([prefix_v[i].to(v.dtype), v], dim=1),
+                causal=True, kv_offset=sp, block_q=bq, block_k=bk,
+                segment_ids=segment_ids, kv_segment_ids=kv_seg,
+            )
+            x = x + self._out_proj(o, w)
+            x = self._mlp_half(x, w)
+        return self._serving_head(x), torch.stack(ks), torch.stack(vs)
+
+    @torch.no_grad()
+    def decode_kv_spec(
+        self,
+        tokens: torch.Tensor,
+        lengths: torch.Tensor,
+        q_lens: torch.Tensor,
+        active: torch.Tensor,
+        cache_k: torch.Tensor,
+        cache_v: torch.Tensor,
+        page_table: torch.Tensor,
+        *,
+        q_pad: int = 1,
+        kernel: str = "gather",
+        block_h: Optional[int] = None,
+        interpret: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Draft-verify decode: score Q positions per slot in ONE step.
+
+        tokens [B, Q] int — row 0 is the slot's last committed token (at
+        position lengths[b]), rows 1..q_lens[b]−1 its draft (at positions
+        lengths[b] + r); rows past q_lens[b] are padding. q_lens [B] int —
+        real rows per slot (≥ 1; a plain slot rides with 1). The rest is
+        decode_kv's.
+
+        → (logits [B, Q, V] fp32, cache_k, cache_v): logits[b, r] predicts
+        position lengths[b] + r + 1. ALL Q rows' K/V are written at their
+        positions first (dead and pad rows to scratch page 0), so an
+        accepted prefix is already in the pool and a rejected tail sits
+        past the rewound length, masked by both kernels until it is
+        overwritten.
+
+        ``kernel="paged"``: the paged kernel with ``q_lens`` (row r sees
+        positions ≤ lengths + r). ``"gather"``: the committed window
+        [B, S_max] gathered with STRICT masking (pos < lengths) and the
+        Q fresh rows' K/V concatenated behind it at ``kv_offset = S_max``;
+        dead query rows take segment 2, which no key carries.
+        """
+        c = self.config
+        if kernel not in ("paged", "gather"):
+            raise ValueError(
+                f"decode_kv_spec kernel must be 'paged' or 'gather', "
+                f"got {kernel!r}"
+            )
+        n_layers, _n_pages, page_size, h, hd = cache_k.shape
+        b, q_n = tokens.shape
+        n_page_slots = page_table.shape[1]
+        s_max = n_page_slots * page_size
+        qpad = max(1, int(q_pad))
+        qp = -(-q_n // qpad) * qpad        # Q rounded up to the pad
+        dev = lengths.device
+        lengths = lengths.long()
+        q_lens = q_lens.long()
+        active = active.bool()
+        r = torch.arange(q_n, device=dev)
+        pos = lengths[:, None] + r[None, :]                    # [B, Q]
+        live = active[:, None] & (r[None, :] < q_lens[:, None])
+        x = self._serving_embed(tokens, torch.clamp(pos, 0, c.seq_len - 1))
+        widx = page_table.long()[
+            torch.arange(b, device=dev)[:, None],
+            torch.clamp(pos // page_size, 0, n_page_slots - 1),
+        ]
+        widx = torch.where(live, widx, 0)
+        woff = pos % page_size
+        if kernel == "gather":
+            kv_pos = torch.arange(s_max, device=dev)[None, :]
+            kv_seg_win = (kv_pos < lengths[:, None]) & active[:, None]
+            tail_r = torch.arange(qp, device=dev)[None, :]
+            tail_live = (tail_r < q_lens[:, None]) & active[:, None]
+            kv_seg = torch.cat([kv_seg_win, tail_live], dim=1).to(torch.int32)
+            q_seg = torch.where(tail_live, 1, 2).to(torch.int32)
+            bq = fit_block(qp, 128)
+            bk = fit_block(s_max + qp, c.flash_block_k)
+            pt_flat = page_table.long()
+        else:
+            pt32, len32, ql32, act32 = (
+                t.to(torch.int32).contiguous()
+                for t in (page_table, lengths, q_lens, active)
+            )
+
+        def pad_rows(t):
+            if qp == q_n:
+                return t
+            return torch.cat([t, t.new_zeros((b, qp - q_n, h, hd))], dim=1)
+
+        for i in range(n_layers):
+            w = self._serving_layer(i)
+            q, k_new, v_new = self._qkv(x, w)
+            cache_k[i].index_put_((widx, woff), k_new)
+            cache_v[i].index_put_((widx, woff), v_new)
+            q = pad_rows(q)
+            if kernel == "paged":
+                o = paged_attention(
+                    q, cache_k[i], cache_v[i], pt32, len32, act32,
+                    q_lens=ql32, block_h=block_h, interpret=interpret,
+                )[:, :q_n]
+            else:
+                k_full = cache_k[i][pt_flat].reshape(b, s_max, h, hd)
+                v_full = cache_v[i][pt_flat].reshape(b, s_max, h, hd)
+                o = flash_attention(
+                    q,
+                    torch.cat([k_full, pad_rows(k_new)], dim=1),
+                    torch.cat([v_full, pad_rows(v_new)], dim=1),
+                    causal=True, kv_offset=s_max,
+                    segment_ids=q_seg, kv_segment_ids=kv_seg,
+                    block_q=bq, block_k=bk,
+                )[:, :q_n]
+            x = x + self._out_proj(o, w)
+            x = self._mlp_half(x, w)
+        logits = self._serving_head(x)  # [B, Q, V]
+        return logits.float(), cache_k, cache_v
 
     # -- training forward --------------------------------------------------------
     def _attn_half(self, x: torch.Tensor, w: Dict[str, torch.Tensor],

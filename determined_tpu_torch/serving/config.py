@@ -5,9 +5,7 @@ Copied from ``determined_tpu/serving/config.py`` so that one `serving:`
 section validates identically in both packages: the whole tree is
 checked up front with every problem named (a typo'd `page_size` must
 fail at startup, not surface as a shape error deep inside the decode
-step). The port's engine refuses, by name, the values that belong to
-later slices of the port (``prefix_cache: on``, ``speculation.mode:
-ngram``, the ``fixture`` model).
+step).
 """
 from __future__ import annotations
 
@@ -38,8 +36,7 @@ KNOWN_SERVING_KEYS = {
     "speculation",
 }
 
-#: `fixture` is the reference's pre-trained tiny model; the port's
-#: build_engine refuses it until checkpoint interchange is ported.
+#: `fixture` is the pre-trained tiny model (``serving/fixture.py``).
 KNOWN_MODELS = ("tiny", "small", "medium", "fixture")
 
 KNOWN_DECODE_KERNELS = ("auto", "paged", "gather")
@@ -107,14 +104,13 @@ class ServingConfig:
     #: pages contiguous and runs the flash kernel. The DTPU_PAGED_ATTN
     #: env var overrides at engine build (0 = gather, 1 = paged).
     decode_kernel: str = "auto"
-    #: radix-tree prefix cache over page identity (`on` / `off`). The
-    #: port's engine serves `off` and refuses `on` by name until the
-    #: prefix cache is ported.
+    #: radix-tree prefix cache over page identity (`on` / `off`):
+    #: finished requests' full pages stay cached and later prompts that
+    #: share them prefill only their tail.
     prefix_cache: str = "off"
     #: speculative decoding: `{"mode": "off"|"ngram", "draft_len": int,
-    #: "min_match": int}`. The port's engine serves `off` and refuses
-    #: `ngram` (or DTPU_SPEC_DECODE=1) by name until speculation is
-    #: ported.
+    #: "min_match": int}`. DTPU_SPEC_DECODE overrides the mode at engine
+    #: build (0 = off, 1 = ngram).
     speculation: Any = dataclasses.field(
         default_factory=lambda: {"mode": "off"}
     )

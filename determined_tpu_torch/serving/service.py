@@ -1,25 +1,65 @@
-"""Building a generation engine from a config's `serving:` section.
+"""The generation service: ``build_engine`` and its HTTP surface.
 
-Port of ``determined_tpu/serving/service.py:build_engine``: the model
-table (``tiny``, ``small``, ``medium`` and the pre-trained ``fixture``),
-weights from ``DTPU_SERVING_CHECKPOINT`` (a manifest-verified checkpoint
-directory in ``save_pytree``'s layout, as the reference reads it) or a
-seeded random init. The HTTP surface (``GenerationServer``) and the task
-entry point arrive with the next serving slice.
+Port of ``determined_tpu/serving/service.py``. ``build_engine`` makes the
+model (``tiny``, ``small``, ``medium`` or the pre-trained ``fixture``)
+with weights from ``DTPU_SERVING_CHECKPOINT`` (a manifest-verified
+checkpoint directory in ``save_pytree``'s layout) or a seeded random
+init, and the engine over it. ``GenerationServer`` serves the engine on
+the standard library's ``ThreadingHTTPServer`` with the reference's wire
+protocol; every route flows through one instrumented dispatch:
+
+- ``POST /api/v1/generate`` — body ``{"prompt": [ids]}`` (or ``"text"``,
+  byte-tokenized) plus ``max_new_tokens`` / ``deadline_ms`` /
+  ``temperature`` / ``stream``. ``stream: true`` (default) answers
+  Server-Sent Events::
+
+      event: token    data: {"token": 17, "index": 0}
+      ...
+      event: done     data: {"reason": "length", "ttft_ms": ..., ...}
+
+  a mid-flight failure ends the stream with ``event: error``. Shed
+  requests answer 503 with a ``Retry-After`` header; impossible ones
+  (prompt exceeds the replica context) answer 400.
+- ``GET /api/v1/stats`` — the engine snapshot.
+- ``GET /healthz`` — liveness.
+- ``GET /metrics`` — the process-global registry, Prometheus text format
+  with exemplars.
+
+A W3C ``traceparent`` header's trace id rides with the request and names
+it in the TTFT and latency exemplars; the span export of the reference's
+trace plane is not ported. ``main`` (``python -m
+determined_tpu_torch.serving.service``) serves off-cluster only: proxy
+registration, the preemption poll, profiling and log shipping come with
+the exec layer, and ``main`` refuses by name when the cluster's
+``DTPU_MASTER`` and ``DTPU_ALLOCATION_ID`` are set.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
-from typing import Any, Dict, Optional, Union
+import re
+import signal
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from urllib.parse import parse_qs, urlparse
 
 import torch
 
 from determined_tpu_torch._device import resolve_device
+from determined_tpu_torch.common.metrics import REGISTRY as METRICS
 from determined_tpu_torch.models import gpt as gpt_mod
 from determined_tpu_torch.serving.config import ServingConfig
-from determined_tpu_torch.serving.engine import GenerationEngine
+from determined_tpu_torch.serving.engine import (
+    GenerationEngine,
+    PromptTooLong,
+    Request,
+    Shed,
+    UnsupportedServingFeature,
+)
 from determined_tpu_torch.serving.fixture import fixture_model_config
 from determined_tpu_torch.storage.base import verify_checkpoint_dir
 from determined_tpu_torch.trainer import _checkpoint as ckpt_io
@@ -30,6 +70,320 @@ _MODEL_CONFIGS = {
     "tiny": gpt_mod.tiny, "small": gpt_mod.small, "medium": gpt_mod.medium,
     "fixture": fixture_model_config,
 }
+
+SERVING_REQUESTS = METRICS.counter(
+    "dtpu_serving_api_requests_total",
+    "Serving HTTP requests by method, route pattern, and status.",
+    labels=("method", "route", "status"),
+)
+SERVING_LATENCY = METRICS.histogram(
+    "dtpu_serving_api_request_duration_seconds",
+    "Serving HTTP latency by method and route pattern (SSE generate "
+    "streams are observed at stream start: their duration is the "
+    "generation, not the route).",
+    labels=("method", "route"),
+)
+
+#: generous default body cap — prompts are token lists, not uploads.
+MAX_BODY_BYTES = 8 * 1024 * 1024
+
+_TRACEPARENT_RE = re.compile(
+    r"^[0-9a-f]{2}-([0-9a-f]{32})-([0-9a-f]{16})-[0-9a-f]{2}$")
+
+Handler = Callable[[Dict[str, Any], Dict[str, List[str]]], Any]
+
+#: The client's (trace_id, parent_span_id) of the request a handler
+#: thread is serving (from its ``traceparent`` header), or None.
+_REQUEST_TRACE = threading.local()
+
+
+class _SSEGenerate(Exception):
+    """Control flow: answer with the request's SSE token stream."""
+
+    def __init__(self, req: Request) -> None:
+        super().__init__("sse stream")
+        self.req = req
+
+
+class _PlainText(Exception):
+    def __init__(self, text: str, content_type: str) -> None:
+        super().__init__("plaintext")
+        self.text = text
+        self.content_type = content_type
+
+
+class _HttpError(Exception):
+    def __init__(self, status: int, message: str,
+                 headers: Optional[Dict[str, str]] = None) -> None:
+        super().__init__(message)
+        self.status = status
+        self.headers = headers or {}
+
+
+def tokenize(body: Dict[str, Any]) -> List[int]:
+    """Prompt tokens from a request body: explicit ``prompt`` ids win;
+    ``text`` falls back to byte-level ids (every model vocab here is
+    >= 256, so bytes are always in-vocab — a demo tokenizer, not BPE)."""
+    if "prompt" in body:
+        prompt = body["prompt"]
+        if not isinstance(prompt, list) or not all(
+            isinstance(t, int) and not isinstance(t, bool) for t in prompt
+        ):
+            raise _HttpError(400, "prompt must be a list of token ids")
+        return prompt
+    if "text" in body:
+        if not isinstance(body["text"], str):
+            raise _HttpError(400, "text must be a string")
+        return list(body["text"].encode("utf-8"))
+    raise _HttpError(400, "body must carry prompt (token ids) or text")
+
+
+def _num_field(body: Dict[str, Any], key: str) -> Optional[float]:
+    """Optional numeric body field; a non-numeric value is a 400 client
+    error, never a 500."""
+    v = body.get(key)
+    if v is None:
+        return None
+    if isinstance(v, bool) or not isinstance(v, (int, float)):
+        raise _HttpError(400, f"{key} must be a number")
+    return float(v)
+
+
+def parse_traceparent(header: Optional[str]) -> Optional[Tuple[str, str]]:
+    """(trace_id, parent_span_id) of a W3C ``traceparent`` header, or
+    None when it is absent or malformed."""
+    m = _TRACEPARENT_RE.match((header or "").strip().lower())
+    return (m.group(1), m.group(2)) if m else None
+
+
+def build_serving_routes(
+    engine: GenerationEngine,
+) -> List[Tuple[str, re.Pattern, Handler]]:
+    """The routes as (method, compiled path pattern, handler(body,
+    query)); a handler returns a JSON payload or raises one of the
+    control-flow exceptions above."""
+    def generate(body: Dict[str, Any], query: Dict[str, List[str]]):
+        prompt = tokenize(body)
+        deadline_ms = _num_field(body, "deadline_ms")
+        max_new = _num_field(body, "max_new_tokens")
+        temperature = _num_field(body, "temperature")
+        try:
+            req = engine.submit(
+                prompt,
+                max_new_tokens=int(max_new) if max_new is not None else None,
+                deadline_s=(
+                    deadline_ms / 1e3 if deadline_ms is not None else None
+                ),
+                temperature=temperature or 0.0,
+                trace=getattr(_REQUEST_TRACE, "value", None),
+            )
+        except PromptTooLong as e:
+            raise _HttpError(400, str(e))
+        except Shed as e:
+            # Under saturation the client backs off for Retry-After
+            # seconds instead of queueing into a deadline it cannot make.
+            raise _HttpError(
+                503, str(e),
+                headers={"Retry-After": f"{e.retry_after:g}"},
+            )
+        if body.get("stream", True):
+            raise _SSEGenerate(req)
+        return req.result()
+
+    def stats(body, query):
+        return engine.stats()
+
+    def healthz(body, query):
+        return {"status": "ok", **engine.stats()}
+
+    def metrics(body, query):
+        raise _PlainText(
+            METRICS.render(exemplars=True), "text/plain; version=0.0.4"
+        )
+
+    def route(method, pat, h):
+        return method, re.compile(f"^{pat}$"), h
+
+    return [
+        route("POST", r"/api/v1/generate", generate),
+        route("GET", r"/api/v1/stats", stats),
+        route("GET", r"/healthz", healthz),
+        route("GET", r"/metrics", metrics),
+    ]
+
+
+class GenerationServer:
+    """Standard-library ThreadingHTTPServer front end over a
+    GenerationEngine: one dispatch path carries the metrics; SSE
+    responses own their socket and close it when the stream ends."""
+
+    def __init__(self, engine: GenerationEngine, host: str = "127.0.0.1",
+                 port: int = 0) -> None:
+        routes = build_serving_routes(engine)
+
+        class _Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            # Nagle × delayed-ACK stalls small writes ~40 ms: fatal to
+            # SSE token TTFT on a keep-alive socket.
+            disable_nagle_algorithm = True
+
+            def log_message(self, fmt: str, *args: Any) -> None:
+                logger.debug("serving http: " + fmt, *args)
+
+            def _dispatch(self, method: str) -> None:
+                parsed = urlparse(self.path)
+                length = int(self.headers.get("Content-Length") or 0)
+                if length > MAX_BODY_BYTES:
+                    self._send(413, {"error": "request body too large"},
+                               close=True)
+                    return
+                body: Dict[str, Any] = {}
+                if length:
+                    raw = self.rfile.read(length)
+                    try:
+                        body = json.loads(raw or b"{}")
+                    except json.JSONDecodeError:
+                        self._send(400, {"error": "bad json"})
+                        return
+                    if not isinstance(body, dict):
+                        self._send(400, {"error": "body must be an object"})
+                        return
+                _REQUEST_TRACE.value = parse_traceparent(
+                    self.headers.get("traceparent"))
+                for m_, pat, handler in routes:
+                    if m_ != method or not pat.match(parsed.path):
+                        continue
+                    t_start = time.monotonic()
+                    finished = False
+
+                    def finish(status: int) -> None:
+                        # ONE observation per request wherever it
+                        # completes, SSE streams at stream start.
+                        nonlocal finished
+                        if finished:
+                            return
+                        finished = True
+                        SERVING_LATENCY.labels(method, pat.pattern).observe(
+                            time.monotonic() - t_start
+                        )
+                        SERVING_REQUESTS.labels(
+                            method, pat.pattern, str(status)
+                        ).inc()
+
+                    status_code = 200
+                    try:
+                        try:
+                            outcome = (
+                                "json",
+                                handler(body, parse_qs(parsed.query)),
+                            )
+                        except _SSEGenerate as es:
+                            outcome = ("sse", es.req)
+                        except _PlainText as pt:
+                            outcome = ("plain", pt)
+                        except _HttpError as e:
+                            outcome = ("http_error", e)
+                        kind, payload = outcome
+                        if kind == "sse":
+                            finish(200)
+                            self._stream_sse(payload)
+                            return
+                        if kind == "json":
+                            self._send(
+                                200, payload if payload is not None else {}
+                            )
+                        elif kind == "plain":
+                            data = payload.text.encode()
+                            self.send_response(200)
+                            self.send_header(
+                                "Content-Type", payload.content_type
+                            )
+                            self.send_header(
+                                "Content-Length", str(len(data))
+                            )
+                            self.end_headers()
+                            self.wfile.write(data)
+                        else:
+                            status_code = payload.status
+                            self._send(
+                                payload.status, {"error": str(payload)},
+                                headers=payload.headers,
+                            )
+                    except (BrokenPipeError, ConnectionResetError):
+                        status_code = 0
+                    except Exception as e:  # noqa: BLE001
+                        status_code = 500
+                        logger.exception(
+                            "serving handler error %s %s", method, parsed.path
+                        )
+                        self._send(500, {"error": str(e)})
+                    finally:
+                        finish(status_code)
+                    return
+                self._send(404, {"error": f"no route {method} {parsed.path}"})
+
+            def _stream_sse(self, req: Request) -> None:
+                """Token events as they leave the engine; the stream owns
+                the socket (no keep-alive reuse after an open-ended
+                response)."""
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("Connection", "close")
+                self.close_connection = True
+                self.end_headers()
+                try:
+                    for i, (kind, payload) in enumerate(req.stream()):
+                        if kind == "token":
+                            data = json.dumps({"token": payload, "index": i})
+                        elif kind == "done":
+                            data = json.dumps(payload)
+                        else:
+                            data = json.dumps({"error": payload})
+                        self.wfile.write(
+                            f"id: {i}\nevent: {kind}\ndata: {data}\n\n"
+                            .encode()
+                        )
+                        self.wfile.flush()
+                except (BrokenPipeError, ConnectionResetError, OSError):
+                    pass  # client went away; the engine finishes regardless
+
+            def _send(self, status: int, payload: Dict[str, Any],
+                      close: bool = False,
+                      headers: Optional[Dict[str, str]] = None) -> None:
+                data = json.dumps(payload).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
+                if close:
+                    self.send_header("Connection", "close")
+                    self.close_connection = True
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self) -> None:  # noqa: N802
+                self._dispatch("GET")
+
+            def do_POST(self) -> None:  # noqa: N802
+                self._dispatch("POST")
+
+        self._httpd = ThreadingHTTPServer((host, port), _Handler)
+        self._httpd.daemon_threads = True
+        self.port = self._httpd.server_address[1]
+        self.url = f"http://{host}:{self.port}"
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="serving-http", daemon=True
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
 
 
 def build_engine(serving_cfg: Dict[str, Any],
@@ -58,3 +412,52 @@ def build_engine(serving_cfg: Dict[str, Any],
             ckpt_dir, ckpt_io.nest(dict(model.named_parameters())))
         logger.info("serving params restored from %s", ckpt_dir)
     return GenerationEngine(model, params, cfg, device=dev)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """Entry point: ``python -m determined_tpu_torch.serving.service
+    [--host H] [--port P] [--config JSON] [--device cpu]``.
+
+    Reads the serving section from ``--config`` or DTPU_SERVING_CONFIG
+    (JSON), serves on the given port (0: an OS-assigned one, logged) until
+    SIGINT or SIGTERM, then drains. Off-cluster only: on a cluster
+    (DTPU_MASTER and DTPU_ALLOCATION_ID set) it refuses by name, because
+    proxy registration and the preemption poll are not ported."""
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=0)
+    parser.add_argument("--config", default="", help="serving config JSON")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the CUDA card)")
+    args = parser.parse_args(argv)
+    if os.environ.get("DTPU_MASTER") and os.environ.get("DTPU_ALLOCATION_ID"):
+        raise UnsupportedServingFeature(
+            "serving.service main on a cluster (DTPU_MASTER and "
+            "DTPU_ALLOCATION_ID are set) is not ported yet: proxy "
+            "registration, the preemption poll, profiling and log shipping "
+            "come with the exec layer; unset them to serve off-cluster"
+        )
+    raw = args.config or os.environ.get("DTPU_SERVING_CONFIG", "") or "{}"
+    engine = build_engine(json.loads(raw), device=args.device)
+    engine.start()
+    server = GenerationServer(engine, host=args.host, port=args.port)
+    server.start()
+    logger.info("generation service on %s", server.url)
+    print(f"generation service on {server.url}", flush=True)
+    done = threading.Event()
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, lambda *_: done.set())
+    try:
+        done.wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+        engine.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

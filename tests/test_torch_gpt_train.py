@@ -114,6 +114,29 @@ def test_training_forward_reads_the_live_parameters():
     assert g.dtype == torch.float32 and float(g.abs().sum()) > 0
 
 
+def test_cpu_gradients_repeat_bit_for_bit():
+    """Three backward passes of one batch give the same gradient leaves
+    bit for bit on a multi-threaded CPU: the embedding's backward (tied
+    token rows, repeated ids) sums in a fixed order. At the fixture's
+    geometry (vocab 1024, d 128, 8 × 64 tokens of a phrase corpus) the
+    token rows repeat enough for an unordered sum to show."""
+    from determined_tpu_torch.serving import fixture as tfixture
+
+    model = tgpt.GPT(tfixture.fixture_model_config(), device="cpu")
+    tokens = torch.from_numpy(tfixture._corpus_batch(
+        np.random.default_rng(0), tfixture.fixture_phrases(),
+        tfixture.TRAIN_BATCH, tfixture.TRAIN_SEQ))
+    params = list(model.parameters())
+    first = None
+    for _ in range(3):
+        loss, _ = model.loss({"tokens": tokens})
+        grads = torch.autograd.grad(loss, params)
+        if first is None:
+            first = grads
+        for (name, _), g, f in zip(model.named_parameters(), grads, first):
+            assert torch.equal(g, f), name
+
+
 def test_config_arithmetic_matches_reference():
     for name in ("small", "medium", "tiny"):
         jc, tc = getattr(jgpt, name)(), getattr(tgpt, name)()

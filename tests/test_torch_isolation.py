@@ -1,8 +1,9 @@
-"""The port imports torch and numpy, never JAX and nothing of the JAX
-package: an AST scan of every module of determined_tpu_torch and of
-chip_smoke.py, plus a fresh interpreter that imports the serving (the fixture too),
-trainer, core, storage and common packages and finds no jax and no
-determined_tpu module loaded."""
+"""The port imports torch and numpy, never JAX, nothing of the JAX
+package and not ``requests`` (the card's machine lacks it): an AST scan
+of every module of determined_tpu_torch and of chip_smoke.py, plus a
+fresh interpreter that imports the serving (the fixture, the HTTP service,
+the load generator and the proposer too), trainer, core, storage and common
+packages and finds none of them loaded."""
 import ast
 import subprocess
 import sys
@@ -11,7 +12,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "determined_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "determined_tpu", "requests")
 SOURCES = sorted(
     str(p.relative_to(ROOT))
     for p in [*(ROOT / "determined_tpu_torch").rglob("*.py"),
@@ -48,7 +49,11 @@ def test_port_never_imports_jax(source):
             "determined_tpu_torch.storage, determined_tpu_torch.common, "
             "determined_tpu_torch.common.faults, "
             "determined_tpu_torch.common.resilience, "
-            "determined_tpu_torch.serving.fixture\n"
+            "determined_tpu_torch.common.metrics, "
+            "determined_tpu_torch.serving.fixture, "
+            "determined_tpu_torch.serving.service, "
+            "determined_tpu_torch.serving.loadgen, "
+            "determined_tpu_torch.serving.speculation\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))\n"

@@ -7,9 +7,11 @@ the gather decode paths: greedy token streams must be identical (exact
 equality — fp32 on both sides, and greedy argmax is insensitive to the
 last-digit differences of summation order unless two logits tie), and
 every page must return to the pool. Admission errors, sheds and config
-validation behave the same; the options of later slices are refused by
-name, a checkpoint that fails verification is refused at startup, and
-build_engine without a device refuses a machine without CUDA.
+validation behave the same; a checkpoint that fails verification is
+refused at startup, and build_engine without a device refuses a machine
+without CUDA. The prefix cache, speculation and the HTTP service have
+their own files (test_torch_prefix_cache.py, test_torch_speculation.py,
+test_torch_serving_service.py).
 """
 import json
 
@@ -29,7 +31,6 @@ from determined_tpu_torch.serving import (
     PromptTooLong,
     ServingConfig,
     Shed,
-    UnsupportedServingFeature,
     build_engine,
 )
 from determined_tpu_torch.serving import config as tconfig
@@ -172,18 +173,6 @@ def test_config_errors_match(case):
     assert str(err.value) == "invalid serving config: " + "; ".join(errs)
 
 
-@pytest.mark.parametrize("overrides,env", [
-    pytest.param({"prefix_cache": "on"}, {}, id="prefix-cache"),
-    pytest.param({"speculation": {"mode": "ngram"}}, {}, id="ngram"),
-    pytest.param({}, {"DTPU_SPEC_DECODE": "1"}, id="ngram-env"),
-])
-def test_later_slice_options_refused(weights, overrides, env, monkeypatch):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(UnsupportedServingFeature):
-        _port_engine(weights[2], **overrides)
-
-
 @pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
 def test_entry_points_refuse_missing_cuda(device, monkeypatch):
     """No GPU and no explicit CPU request: a named error, never a silent
@@ -242,3 +231,16 @@ def test_build_engine_serves_on_cpu():
     stats = eng.stats()
     assert stats["pages_in_use"] == 0 and stats["prefill_batches"] == 1
     assert stats["decode_iterations"] == 3
+
+
+def test_decode_latency_compare_runs_both_paths(weights):
+    """Both kernel paths time over copies of the pool: the keys are the
+    reference's, the times positive, the live pool untouched."""
+    eng = _port_engine(weights[2])
+    pool_before = eng.cache_k.clone()
+    out = eng.decode_latency_compare(iters=2)
+    assert set(out) == {"s_max", "batch", "decode_iter_ms_paged",
+                        "decode_iter_ms_gather"}
+    assert out["s_max"] == 64 and out["batch"] == 4
+    assert out["decode_iter_ms_paged"] > 0 and out["decode_iter_ms_gather"] > 0
+    assert torch.equal(eng.cache_k, pool_before)

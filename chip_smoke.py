@@ -159,6 +159,32 @@ script exits non-zero without the final result line:
    (trained anew in a temporary directory) on
    ``corpus_ngram_prompts(8, fixture_phrases(), seed=7)``: spec on
    streams exactly what spec off streams, with drafts accepted.
+15. train-health — the train phase's trial (GPT-2-small, bf16 over fp32
+   masters, B 8 × 1024) on an indexed stream (batch i from seed 1000 +
+   i mod 4, O(1) ``skip``, every index recorded) under
+   ``health=TRAIN_HEALTH`` (``max_consecutive_skips`` 2, ``spike_zscore``
+   6, ``spike_min_history`` 4), ``checkpoint_period=Batch(4)``,
+   ``report_period=Batch(1)``, ``profiling=True`` and a temporary
+   ``tensorboard_dir``. Non-finite drill: ``fit`` to step 8, then to 16
+   with ``train.nonfinite`` ``failures=2``: two skipped steps, one
+   rollback to the step-8 checkpoint (the restored state bitwise the
+   step-8 state), ``_data_offset`` 2, the recorder 0..17 (indices 8 and
+   9 poisoned, steps 9–16 on 10..17). Spike drill: to 24 with
+   ``train.spike`` ``failures=1``: the ×1e6 step applied and reported,
+   a second rollback, ``_data_offset`` 3. Every report finite, the last
+   loss below the first, per step (poisoned and spiked ones too) 12
+   ``flash_fwd_mono`` and 12 ``flash_bwd_mono`` launches and nothing
+   else. The ``profiling`` group carries the phase fractions (summing to
+   1 within 1e-6), 0 < ``goodput_pct`` < 100, ``rollback_lost_s`` > 0,
+   ``step_flops`` and, from the profiler agent, ``device0_bytes_in_use``
+   above the parameters and Adam state (1.49 GB); the tfevents file,
+   read back with ``read_scalars``, holds every reported loss and is
+   synced to checkpoint storage; a fresh ``Trainer`` resuming the final
+   checkpoint trains on index 27 with ``ledger_restarts`` 1. Prints each
+   rollback restore's blocking ms (verify + load), then the median step
+   ms with the sentinel, timeline, profiler agent and TensorBoard all on
+   and all off (``DTPU_TIMELINE=0``, default health, no profiling) over
+   ``HEALTH_COST_ROUNDS`` interleaved rounds of ``HEALTH_COST_STEPS``.
 
 Phase 3 also holds ``flash_fwd`` at the cached-tail geometry (separate
 query and key segment ids as ``_prefill_cached`` builds them, one row all
@@ -168,7 +194,7 @@ kv_offset 1024, dead rows in query segment 2), and ``paged_attention`` at
 
 The last lines are the whole run's seconds, the kernels' JSON record
 (each kernel's ``launches`` summed over the main paths that run it:
-phases 4, 6, 8, 9 and 11 to 14), the card's name and power limit, and
+phases 4, 6, 8, 9 and 11 to 15), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -200,6 +226,11 @@ LONG_STEPS = 3        # long16k rung, full width and depth
 LONG32_STEPS = 2      # long32k rung, full width and depth
 PACKED_STEPS = 5      # packed documents, B=8 x 1024
 PLAIN_SEQ = 4096      # second long-context reading, plain backward on all heads
+#: phase train-health: the sentinel's settings, and the cost rounds
+TRAIN_HEALTH = {"max_consecutive_skips": 2, "spike_zscore": 6.0,
+                "spike_min_history": 4}
+HEALTH_COST_ROUNDS = 3
+HEALTH_COST_STEPS = 20
 ENGINE_CFG = {
     "model": "small", "page_size": 128, "num_pages": 65,
     "max_pages_per_request": 8, "max_batch_size": 8, "prefill_rows": 4,
@@ -1801,6 +1832,297 @@ class Smoke:
         return {k: v.launches for k, v in _build.KERNELS.items()}
 
     # -- phase 7: one fp32 step, card against CPU ----------------------------------
+    # -- phase 15: the health sentinel, the timeline, TensorBoard, profiler -----
+    def train_health_phase(self):
+        """The headline trial on an indexed stream (batch i from seed 1000
+        + i mod 4; O(1) skip; every index recorded) under the health
+        sentinel, the timeline, the profiler agent and TensorBoard: the
+        non-finite drill (fit to 8, then to 16 with steps 9-10 poisoned:
+        two skips, one rollback to step 8, the parameters bitwise the
+        step-8 checkpoint's), the spike drill (to 24 with step 17 ×1e6:
+        a second rollback), the ledger, scalars and card memory in the
+        reports, a fresh trainer resuming the ledger; then the step ms
+        with all of it on and all of it off, interleaved."""
+        import math
+        import shutil
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch import core
+        from determined_tpu_torch.common import faults
+        from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.storage import shared
+        from determined_tpu_torch.tensorboard import read_scalars
+        from determined_tpu_torch.trainer import Batch, Trainer
+        from determined_tpu_torch.trainer import _checkpoint as ckpt_io
+        from determined_tpu_torch.trainer.profile import RepeatedBatchTrial
+
+        class IndexedTrial(RepeatedBatchTrial):
+            def __init__(self, record):
+                super().__init__(8, 1024)
+                self.record = record
+                self.batches = {}
+
+            def build_training_data(self):
+                trial = self
+
+                class Stream:
+                    i = 0
+
+                    def skip(self, n):
+                        self.i += n
+
+                    def __iter__(self):
+                        return self
+
+                    def __next__(self):
+                        i, self.i = self.i, self.i + 1
+                        trial.record.append(i)
+                        if i % 4 not in trial.batches:
+                            rng = np.random.default_rng(1000 + i % 4)
+                            trial.batches[i % 4] = {"tokens": rng.integers(
+                                0, trial.config.vocab_size,
+                                (trial.batch, trial.config.seq_len),
+                            ).astype(np.int32)}
+                        return trial.batches[i % 4]
+
+                return Stream()
+
+        def plan(site, n):
+            return faults.plan_active(faults.FaultPlan(
+                {site: faults.FaultSpec(failures=n)}))
+
+        def counts():
+            return {n: k.launches for n, k in _build.KERNELS.items()}
+
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-health-")
+        store, tb = os.path.join(tmp, "ckpt"), os.path.join(tmp, "tb")
+        record, per_step, restores = [], [], []
+        seconds = {"verify": [], "load": []}
+        real = {"verify": shared.verify_checkpoint_dir,
+                "load": ckpt_io.load_pytree}
+
+        def timed(key):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = real[key](*args, **kwargs)
+                seconds[key].append(time.perf_counter() - t0)
+                return out
+            return call
+
+        ctx = core.init(checkpoint_storage=store)
+        trainer = Trainer(IndexedTrial(record), ctx, health=TRAIN_HEALTH,
+                          profiling=True, tensorboard_dir=tb)
+        n_layers = trainer.model.config.n_layers
+        step_fn, restore_fn = trainer._train_step, trainer._restore_with_fallback
+
+        def counted_step(batch, poison=1.0):
+            before = counts()
+            out = step_fn(batch, poison)
+            per_step.append({n: v - before[n] for n, v in counts().items()})
+            return out
+
+        def timed_restore(storage_id):
+            torch.cuda.synchronize()  # the steps before are not its time
+            t0 = time.perf_counter()
+            restore_fn(storage_id)
+            restores.append(time.perf_counter() - t0)
+            if len(restores) == 1:
+                restored.update(ckpt_io.snapshot_pytree(trainer._state_view()))
+
+        def drop_older(keep):
+            """Delete every checkpoint but `keep` (at most three of 1.49
+            GB live on the disk at once)."""
+            for sid in os.listdir(store):
+                if sid not in (keep, "tensorboard"):
+                    ctx.checkpoint.delete(sid)
+
+        restored = {}
+        trainer._train_step = counted_step
+        trainer._restore_with_fallback = timed_restore
+        shared.verify_checkpoint_dir = timed("verify")
+        ckpt_io.load_pytree = timed("load")
+        period = dict(report_period=Batch(1), checkpoint_period=Batch(4))
+        try:
+            torch.cuda.synchronize()
+            for k in _build.KERNELS.values():
+                k.launches = 0
+            # 1. the non-finite drill
+            trainer.fit(max_length=Batch(8), **period)
+            at8 = ckpt_io.snapshot_pytree(trainer._state_view())
+            assert record == list(range(8)), record
+            drop_older(trainer._last_ckpt_id)
+            with plan("train.nonfinite", 2):
+                trainer.fit(max_length=Batch(16), **period)
+            assert (trainer.steps_skipped, trainer.rollbacks,
+                    trainer._data_offset) == (2, 1, 2), trainer._data_offset
+            # 0..7, then 8 and 9 (poisoned), then 10..17 for steps 9-16
+            assert record == list(range(18)), record
+            assert sorted(restored) == sorted(at8)
+            for name, arr in at8.items():
+                assert np.array_equal(restored[name], arr), name
+            del at8
+            restored.clear()
+            drop_older(trainer._last_ckpt_id)
+            # 2. the spike drill
+            with plan("train.spike", 1):
+                trainer.fit(max_length=Batch(24), **period)
+            assert (trainer.steps_skipped, trainer.rollbacks,
+                    trainer._data_offset) == (2, 2, 3)
+            assert record == list(range(27)), record
+            final = trainer._last_ckpt_id
+            drop_older(final)
+        finally:
+            shared.verify_checkpoint_dir = real["verify"]
+            ckpt_io.load_pytree = real["load"]
+        try:
+            reports = [(s, m) for g, s, m in ctx.train._reported
+                       if g == "training"]
+            assert len(reports) == 8 + 10 + 9 == len(per_step), len(reports)
+            for s, m in reports:
+                assert all(math.isfinite(v) for v in m.values()), (s, m)
+            skipped = [s for s, m in reports if m["sentinel_skipped"]]
+            assert skipped == [9, 10], skipped
+            losses = [m["loss"] for _, m in reports if "loss" in m]
+            assert losses[-1] < losses[0], losses
+            assert max(losses) > 1e5  # the spiked step, applied and reported
+            for i, step in enumerate(per_step):
+                got = {n: v for n, v in step.items() if v}
+                assert got == dict(flash_fwd_mono=n_layers,
+                                   flash_bwd_mono=n_layers), (i, step)
+
+            # 3. the ledger, the profiler's samples, TensorBoard
+            prof = [m for g, _, m in ctx.train._reported if g == "profiling"]
+            ledger = [m for m in prof if "goodput_pct" in m]
+            samples = [m for m in prof if "memory_used_bytes" in m]
+            assert len(ledger) == len(reports)
+            for m in ledger:
+                frac = sum(m[f"{p}_frac"] for p in
+                           ("data_wait", "h2d_put", "report", "checkpoint",
+                            "step"))
+                assert abs(frac - 1.0) <= 1e-6, m
+            last = ledger[-1]
+            assert 0.0 < last["goodput_pct"] < 100.0, last
+            assert last["rollback_lost_s"] > 0 and last["ledger_rollbacks"] == 2
+            flops = {m["step_flops"] for m in ledger if "step_flops" in m}
+            assert flops == {trainer.model.train_flops_per_token() * 8 * 1024}
+            state_bytes = sum(p.numel() * 4 * 3 for p in trainer._params)
+            assert samples and max(m["device0_bytes_in_use"]
+                                   for m in samples) > state_bytes, samples
+            (tb_file,) = os.listdir(tb)
+            tb_losses = [(e["step"], e["scalars"]["loss"])
+                         for e in read_scalars(os.path.join(tb, tb_file))
+                         if "loss" in e["scalars"]]
+            want = [(s, m["loss"]) for s, m in reports if "loss" in m]
+            assert [s for s, _ in tb_losses] == [s for s, _ in want]
+            for (s, got), (_, loss) in zip(tb_losses, want):
+                assert abs(got - loss) <= 1e-6 * abs(loss), (s, got, loss)
+            synced = os.listdir(os.path.join(store, "tensorboard", "local"))
+            assert synced == [tb_file], synced
+            trainer._train_step = step_fn
+            del trainer
+            torch.cuda.empty_cache()
+
+            # a fresh trainer resumes the final checkpoint and its ledger
+            resumed_record = []
+            ctx2 = core.init(checkpoint_storage=store)
+            resumed = Trainer(IndexedTrial(resumed_record), ctx2,
+                              health=TRAIN_HEALTH)
+            resumed.fit(max_length=Batch(25), report_period=Batch(1),
+                        latest_checkpoint=final)
+            assert resumed_record == [27], resumed_record
+            resumed_ledger = [m for g, _, m in ctx2.train._reported
+                              if g == "profiling"][-1]
+            assert resumed_ledger["ledger_restarts"] == 1, resumed_ledger
+            assert resumed_ledger["ledger_rollbacks"] == 2, resumed_ledger
+            launches = counts()  # the drills and the resumed step
+            del resumed
+            torch.cuda.empty_cache()
+
+            # 4. cost: all on against all off, interleaved
+            cost = self.health_cost()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        rec = dict(
+            steps=len(reports), rollbacks=2, steps_skipped=2, data_offset=3,
+            records=len(record), loss_first=losses[0], loss_last=losses[-1],
+            goodput_pct=last["goodput_pct"],
+            rollback_lost_s=last["rollback_lost_s"],
+            productive_s=last["productive_s"],
+            step_frac=last["total_step_frac"],
+            data_wait_frac=last["total_data_wait_frac"],
+            checkpoint_frac=last["total_checkpoint_frac"],
+            step_flops=last["step_flops"],
+            device0_bytes_in_use_max=max(m["device0_bytes_in_use"]
+                                         for m in samples),
+            device0_hbm_util_max=max(m["device0_hbm_util"] for m in samples),
+            profiler_reports=len(samples), tb_losses=len(tb_losses),
+            resumed_restarts=resumed_ledger["ledger_restarts"],
+            **{f"restore{i + 1}_ms": s * 1e3 for i, s in enumerate(restores)},
+            **{f"verify{i + 1}_ms": s * 1e3
+               for i, s in enumerate(seconds["verify"])},
+            **{f"load{i + 1}_ms": s * 1e3
+               for i, s in enumerate(seconds["load"])},
+            **cost,
+            **{f"{n}_launches": v for n, v in launches.items() if v},
+        )
+        self.report("train-health", "gpt2-small bf16 B8x1024 sentinel "
+                    "timeline profiler tensorboard", rec)
+        return launches
+
+    def health_cost(self):
+        """Median step ms of the headline trial with the sentinel (spike
+        detector on), the timeline, the profiler agent and TensorBoard all
+        on, and all off (DTPU_TIMELINE=0, default health, no profiling),
+        in HEALTH_COST_ROUNDS interleaved rounds of HEALTH_COST_STEPS."""
+        import shutil
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch import core
+        from determined_tpu_torch.profiler import ProfilerAgent
+        from determined_tpu_torch.trainer import Batch, Trainer
+        from determined_tpu_torch.trainer.profile import RepeatedBatchTrial
+
+        tb = tempfile.mkdtemp(prefix="chip-smoke-health-tb-")
+        os.environ["DTPU_TIMELINE"] = "0"
+        try:
+            off = Trainer(RepeatedBatchTrial(8, 1024), core._dummy_init())
+        finally:
+            del os.environ["DTPU_TIMELINE"]
+        on = Trainer(RepeatedBatchTrial(8, 1024), core._dummy_init(),
+                     health=TRAIN_HEALTH, profiling=True, tensorboard_dir=tb)
+        assert not off.timeline.enabled and on.timeline.enabled
+        ms = {"on": [], "off": []}
+        for trainer in (on, off):  # warm-up, not counted
+            trainer.fit(max_length=Batch(2), report_period=Batch(1))
+        for r in range(HEALTH_COST_ROUNDS):
+            for name in (("on", "off") if r % 2 == 0 else ("off", "on")):
+                trainer = on if name == "on" else off
+                if trainer is on:  # the agent samples during one fit only
+                    on._profiler = ProfilerAgent(on.core.train)
+                n = len(trainer.core.train._reported)
+                trainer.fit(max_length=Batch(trainer.steps_completed
+                                             + HEALTH_COST_STEPS),
+                            report_period=Batch(1))
+                ms[name] += [1e3 / m["batches_per_second"] for g, _, m in
+                             trainer.core.train._reported[n:]
+                             if g == "training"]
+        del on, off
+        torch.cuda.empty_cache()
+        shutil.rmtree(tb, ignore_errors=True)
+        assert len(ms["on"]) == len(ms["off"]) == \
+            HEALTH_COST_ROUNDS * HEALTH_COST_STEPS
+        med_on, med_off = (float(np.median(ms[k])) for k in ("on", "off"))
+        return dict(step_ms_on=med_on, step_ms_off=med_off,
+                    step_ms_on_minus_off=med_on - med_off,
+                    cost_rounds=HEALTH_COST_ROUNDS,
+                    cost_steps=HEALTH_COST_STEPS)
+
     def train_parity_phase(self, route="mono"):
         """One fp32 loss + gradient of GPT-2-small's width with 2 layers,
         batch 1 x seq 1024, on the card and on the CPU from the same
@@ -1980,9 +2302,11 @@ def main() -> int:
                      if n in ("flash_bwd_dq", "flash_bwd_dkv")})
     smoke.train_packed_phase()
 
-    # -- phases 11 to 14: checkpoints, the fixture, the rest of serving -------------
+    # -- phases 11 to 15: checkpoints, the fixture, the rest of serving, the
+    # -- rest of the training loop ---------------------------------------------------
     for phase in (smoke.checkpoint_phase, smoke.fixture_phase,
-                  smoke.serving_http_phase, smoke.serving_parity_phase):
+                  smoke.serving_http_phase, smoke.serving_parity_phase,
+                  smoke.train_health_phase):
         for name, count in phase().items():
             launches[name] += count
 

@@ -1,8 +1,9 @@
 """Deterministic fault injection at named sites.
 
 A copy of ``determined_tpu/common/faults.py``, trimmed to what the port's
-storage layer and serving engine use. A ``FaultPlan`` maps **site names**
-(``storage.upload``, ``serving.decode``, ...) to a ``FaultSpec`` that
+storage layer, serving engine and trainer use. A ``FaultPlan`` maps **site
+names** (``storage.upload``, ``serving.decode``, ``train.nonfinite``, ...)
+to a ``FaultSpec`` that
 says what goes wrong there:
 
 - ``failures``: the first N calls at the site raise ``InjectedFault``;
@@ -15,23 +16,27 @@ says what goes wrong there:
   retry layer overwrites with the full file; a process that dies instead
   leaves a torn object that the checkpoint manifest refuses to restore.
 
-Plans install programmatically (``install`` / ``plan_active``). The
-reference also reads a plan from the ``DTPU_FAULT_PLAN`` environment
-variable for spawned task processes; the port has no task launcher yet
-(the exec slice), so it does not. Instrumented sites are cheap when no
-plan is active: one ``_plan is None`` check.
+Plans install programmatically (``install`` / ``plan_active``) or from
+the ``DTPU_FAULT_PLAN`` environment variable (JSON, read once, at the
+first instrumented call): ``DTPU_FAULT_PLAN='{"train.nonfinite":
+{"failures": 2}}'`` turns a training run into the sentinel's drill.
+Instrumented sites are cheap when no plan is active: one ``None`` check.
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
+import os
 import random
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional
 
 logger = logging.getLogger("determined_tpu_torch.faults")
+
+ENV_VAR = "DTPU_FAULT_PLAN"
 
 
 class InjectedFault(OSError):
@@ -58,6 +63,14 @@ class FaultSpec:
     torn_fraction: float = 0.5  # fraction of bytes kept by a torn write
     max_failures: Optional[int] = None  # cap on error_rate failures (None = unlimited)
 
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "FaultSpec":
+        known = {f for f in cls.__dataclass_fields__}  # type: ignore[attr-defined]
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown FaultSpec keys: {sorted(unknown)}")
+        return cls(**{k: d[k] for k in d})
+
 
 @dataclass
 class _SiteState:
@@ -79,6 +92,27 @@ class FaultPlan:
         self.seed = seed
         self._state: Dict[str, _SiteState] = {}
         self._lock = threading.Lock()
+
+    @classmethod
+    def from_json(cls, text: str) -> "FaultPlan":
+        doc = json.loads(text)
+        seed = int(doc.pop("seed", 0)) if isinstance(doc, dict) else 0
+        sites = {
+            site: FaultSpec.from_dict(spec) for site, spec in doc.items()
+        }
+        return cls(sites, seed=seed)
+
+    @classmethod
+    def from_env(cls) -> Optional["FaultPlan"]:
+        text = os.environ.get(ENV_VAR, "")
+        if not text:
+            return None
+        try:
+            return cls.from_json(text)
+        except (ValueError, TypeError) as e:
+            # A malformed plan must not silently disable the drill it was
+            # meant to run.
+            raise ValueError(f"bad {ENV_VAR}: {e}") from e
 
     def _spec(self, site: str) -> Optional[FaultSpec]:
         spec = self.sites.get(site)
@@ -153,19 +187,37 @@ class FaultPlan:
 
 # -- module-level active plan -------------------------------------------------
 _plan: Optional[FaultPlan] = None
+_env_loaded = False
 _install_lock = threading.Lock()
 
 
 def install(plan: Optional[FaultPlan]) -> None:
     """Activate `plan` (None deactivates)."""
-    global _plan
+    global _plan, _env_loaded
     with _install_lock:
         _plan = plan
+        _env_loaded = True  # an explicit install wins over the env var
 
 
 def clear() -> None:
-    """Deactivate any plan."""
-    install(None)
+    """Deactivate any plan and forget the env var was read (the next
+    instrumented call reads DTPU_FAULT_PLAN again)."""
+    global _plan, _env_loaded
+    with _install_lock:
+        _plan = None
+        _env_loaded = False
+
+
+def active() -> Optional[FaultPlan]:
+    """The active plan: the installed one, else DTPU_FAULT_PLAN's (read
+    once), else None."""
+    global _plan, _env_loaded
+    if not _env_loaded:
+        with _install_lock:
+            if not _env_loaded:
+                _plan = FaultPlan.from_env()
+                _env_loaded = True
+    return _plan
 
 
 @contextlib.contextmanager
@@ -181,7 +233,7 @@ def plan_active(plan: FaultPlan) -> Iterator[FaultPlan]:
 def inject(site: str) -> None:
     """Instrumented-site hook: apply latency and possibly raise
     InjectedFault. No-op when no plan is active."""
-    plan = _plan
+    plan = active()
     if plan is not None:
         plan.decide(site)
 
@@ -190,7 +242,7 @@ def torn_write(site: str) -> Optional[float]:
     """Instrumented-upload hook: the fraction of bytes to keep for a
     scheduled torn write at `site`, or None. The caller writes the
     truncated bytes and then raises InjectedFault(site, "torn write")."""
-    plan = _plan
+    plan = active()
     if plan is None:
         return None
     return plan.take_torn_write(site)

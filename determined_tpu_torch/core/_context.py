@@ -38,6 +38,9 @@ class Context:
         self.checkpoint = checkpoint
         self.preempt = preempt
         self.searcher = searcher
+        #: the cluster's view of this task (trial id, config, latest
+        #: checkpoint); None off-cluster, as in the reference.
+        self.info = None
 
 
 def _dummy_init(*, checkpoint_storage: Optional[str] = None) -> Context:

@@ -258,6 +258,11 @@ class GPT(Model):
         #: (cache_compute_weights), keyed by parameter name.
         self._compute: Dict[str, torch.Tensor] = {}
 
+    def train_flops_per_token(self) -> float:
+        """The config's fwd+bwd FLOPs per token (the trainer's
+        ``step_flops``)."""
+        return self.config.train_flops_per_token()
+
     @property
     def device(self) -> torch.device:
         return self.tok_embed.device

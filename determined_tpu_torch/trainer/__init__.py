@@ -1,5 +1,7 @@
 """Trainer layer of the port: TorchTrial + the Trainer fit loop, the
-optimizer chain (``optim``) and the non-finite guard (``_sentinel``).
+optimizer chain (``optim``), the health sentinel (``_sentinel``: the
+non-finite guard, the loss-spike detector; rollback-and-skip in the
+loop) and the step timeline with its goodput ledger (``_timeline``).
 
 Port of ``determined_tpu/trainer`` for one device, off-cluster (see
 ``_trainer.py``).

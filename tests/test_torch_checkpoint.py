@@ -12,8 +12,8 @@
 - Names: for ``chain(clip, adamw)`` at a constant rate and over a
   warmup-cosine schedule, and for ``adam``, the port writes exactly the
   JAX ``Trainer``'s ``.npy`` names, ``tree.json`` and ``metadata.json``,
-  and the same ``trainer_state.json`` keys but the reference's
-  ``timeline``.
+  and the same ``trainer_state.json``, its goodput ``timeline`` included
+  (the same fields; the seconds are each run's own).
 - Manifests: each package's ``verify_checkpoint_dir`` accepts the other's
   checkpoints and refuses a truncated or bit-flipped file, which leaves
   the port's trainer untouched.
@@ -255,8 +255,13 @@ def test_port_writes_the_jax_names(recipe, tree, tmp_path):
     with open(os.path.join(j, "trainer_state.json")) as fj, \
             open(os.path.join(t, "trainer_state.json")) as ft:
         jmd, tmd = json.load(fj), json.load(ft)
-    assert set(jmd) - set(tmd) == {"timeline"} and set(tmd) <= set(jmd)
-    assert {k: jmd[k] for k in tmd} == tmd
+    assert set(tmd) == set(jmd)
+    jtl, ttl = jmd.pop("timeline"), tmd.pop("timeline")
+    assert tmd == jmd
+    # the goodput ledger: the same fields; its seconds are each run's own
+    assert set(ttl) == set(jtl)
+    for key in ("trial_id", "rollbacks", "restarts", "resizes"):
+        assert ttl[key] == jtl[key], key
     for name, arr in _leaves(j).items():
         tarr = np.load(os.path.join(t, name + ".npy"))
         assert (tarr.dtype, tarr.shape) == (arr.dtype, arr.shape), name

@@ -2,8 +2,9 @@
 package and not ``requests`` (the card's machine lacks it): an AST scan
 of every module of determined_tpu_torch and of chip_smoke.py, plus a
 fresh interpreter that imports the serving (the fixture, the HTTP service,
-the load generator and the proposer too), trainer, core, storage and common
-packages and finds none of them loaded."""
+the load generator and the proposer too), trainer (the timeline too),
+core, storage and common packages, the TensorBoard writer and the
+profiler agent, and finds none of them loaded."""
 import ast
 import subprocess
 import sys
@@ -53,7 +54,10 @@ def test_port_never_imports_jax(source):
             "determined_tpu_torch.serving.fixture, "
             "determined_tpu_torch.serving.service, "
             "determined_tpu_torch.serving.loadgen, "
-            "determined_tpu_torch.serving.speculation\n"
+            "determined_tpu_torch.serving.speculation, "
+            "determined_tpu_torch.tensorboard, "
+            "determined_tpu_torch.profiler, "
+            "determined_tpu_torch.trainer._timeline\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))\n"

@@ -186,6 +186,30 @@ script exits non-zero without the final result line:
    and all off (``DTPU_TIMELINE=0``, default health, no profiling) over
    ``HEALTH_COST_ROUNDS`` interleaved rounds of ``HEALTH_COST_STEPS``.
 
+16. exec — the exec layer off the cluster, launched as the agent
+   launches a trial (``DTPU_*`` trial variables, no master, no
+   ``DTPU_JAX_PLATFORM``: the card). ``harness.run`` in process of the
+   built-in ``SyntheticTrial`` with ``model: gpt2-small``, B 8 × 1024,
+   8 batches (``searcher.max_length``), a checkpoint every 4, a report
+   every batch, shared_fs storage in a temporary directory: exit 0, per
+   step exactly 12 ``flash_fwd_mono`` and 12 ``flash_bwd_mono`` and no
+   other kernel, checkpoints at 4 and 8 with their manifests (the step-8
+   one verified); then resumed from the step-4 checkpoint through
+   ``DTPU_LATEST_CHECKPOINT``: exit 0, losses of steps 5–8 within 1e-3
+   relative of the first run's. Prints the median step ms read from the
+   tfevents the harness wrote (steps 3–8 without 5, whose window holds
+   the step-4 save) beside the same trial's through ``Trainer.fit``
+   directly (same steps) and phase 6's. Then ``GPT2PretrainTrial``
+   (``gpt.small()``) over two 4M-token uint16 shards from
+   ``write_token_shard`` on the native loader, 6 batches: finite
+   losses, the mono pair on every step; the loader's batches/s alone
+   (200 batches) beside the step rate. ``LearnableTrial`` (mnist-mlp,
+   60 batches: the loss falls by a quarter) and ``SyntheticTrial``
+   cifar-cnn (4 batches, finite), neither launching a port kernel.
+   Last, ``python -m determined_tpu_torch.exec.harness`` with
+   ``DTPU_ENTRYPOINT``: mnist-mlp exits 0 (its wall s printed),
+   ``CrashingTrial`` exits 1 with its message on stderr.
+
 Phase 3 also holds ``flash_fwd`` at the cached-tail geometry (separate
 query and key segment ids as ``_prefill_cached`` builds them, one row all
 padding) and at the speculative gather verify's (B 8, s_q 5, s_k 1029,
@@ -194,7 +218,7 @@ kv_offset 1024, dead rows in query segment 2), and ``paged_attention`` at
 
 The last lines are the whole run's seconds, the kernels' JSON record
 (each kernel's ``launches`` summed over the main paths that run it:
-phases 4, 6, 8, 9 and 11 to 15), the card's name and power limit, and
+phases 4, 6, 8, 9 and 11 to 16), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -1230,9 +1254,9 @@ class Smoke:
             assert step["flash_fwd_mono"] == n_layers, (i, step)
             assert step["flash_bwd_mono"] == n_layers, (i, step)
             assert step["flash_fwd"] == 0, (i, step)
-        self.report("train", "gpt2-small bf16 remat=False",
-                    self.train_record(reports, launches, peak_gb, cfg, b, s,
-                                      warm=2))
+        rec = self.train_record(reports, launches, peak_gb, cfg, b, s, warm=2)
+        self.train_step_ms = rec["step_ms_median"]  # phase exec's yardstick
+        self.report("train", "gpt2-small bf16 remat=False", rec)
         return launches
 
     def train_long_phase(self):
@@ -2123,6 +2147,290 @@ class Smoke:
                     cost_rounds=HEALTH_COST_ROUNDS,
                     cost_steps=HEALTH_COST_STEPS)
 
+    # -- phase 16: the exec layer, off the cluster -------------------------------
+    def harness_run(self, entrypoint, hparams, config, task, store, **env):
+        """``harness.run(entrypoint)`` in this process with the trial
+        variables set as the agent sets them (no ``DTPU_JAX_PLATFORM``:
+        the card), the launch counters set to 0 just before and read just
+        after → (exit code, per-step launches, the run's launches, its
+        training scalars by step from the tfevents it wrote, wall s)."""
+        import glob
+        import tempfile
+
+        import torch
+
+        from determined_tpu_torch.exec import harness
+        from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.tensorboard import read_scalars
+        from determined_tpu_torch.trainer import Trainer
+
+        env = {"DTPU_TRIAL_ID": "1", "DTPU_TASK_ID": task,
+               "DTPU_HPARAMS": json.dumps(hparams),
+               "DTPU_EXPERIMENT_CONFIG": json.dumps(config),
+               "DTPU_CHECKPOINT_STORAGE": json.dumps(
+                   {"type": "shared_fs", "host_path": store}), **env}
+        keys = {k for k in os.environ if k.startswith("DTPU_")} | set(env)
+        saved = {k: os.environ.get(k) for k in keys}
+        per_step = []
+        step_fn = Trainer._train_step
+
+        def counted_step(trainer, batch, poison=1.0):
+            before = {n: k.launches for n, k in _build.KERNELS.items()}
+            out = step_fn(trainer, batch, poison)
+            per_step.append({n: k.launches - before[n]
+                             for n, k in _build.KERNELS.items()})
+            return out
+
+        for k in keys:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        Trainer._train_step = counted_step
+        try:
+            torch.cuda.synchronize()
+            for k in _build.KERNELS.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            rc = harness.run(entrypoint)
+            wall = time.perf_counter() - t0
+            launches = {n: k.launches for n, k in _build.KERNELS.items()}
+        finally:
+            Trainer._train_step = step_fn
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        torch.cuda.empty_cache()
+        scalars = {}
+        tb = os.path.join(tempfile.gettempdir(), f"dtpu-tb-{task}")
+        for path in glob.glob(os.path.join(tb, "events.out.tfevents.*")):
+            for ev in read_scalars(path):
+                if "batches_per_second" in ev["scalars"]:
+                    scalars[ev["step"]] = ev["scalars"]
+        return rc, per_step, launches, scalars, wall
+
+    def exec_phase(self):
+        """The exec layer off the cluster on the card: harness.run of the
+        built-in SyntheticTrial (gpt2-small, B 8 x 1024, 8 batches,
+        checkpoints at 4 and 8), resumed from step 4; the GPT-2 pretrain
+        trial over two uint16 shards on the native loader; the vision
+        trials; then ``python -m determined_tpu_torch.exec.harness`` in a
+        subprocess, clean and crashing."""
+        import shutil
+        import subprocess as sp
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch import core
+        from determined_tpu_torch.data import lm_dataset, native
+        from determined_tpu_torch.data import write_token_shard
+        from determined_tpu_torch.exec.builtin_trials import SyntheticTrial
+        from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.storage.base import verify_checkpoint_dir
+        from determined_tpu_torch.trainer import Batch, Trainer
+
+        builtin = "determined_tpu_torch.exec.builtin_trials"
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-exec-")
+        store = os.path.join(tmp, "ckpt")
+        tag = f"chip-smoke-{os.getpid()}"
+        tasks = [f"{tag}-{n}" for n in ("a", "b", "gpt2", "mlp", "cnn")]
+        total = {n: 0 for n in _build.KERNELS}
+        rec = {}
+
+        def checkpoints():
+            """{storage id: steps} (the store also holds ``tensorboard/``)"""
+            out = {}
+            for d in os.listdir(store):
+                md = os.path.join(store, d, "metadata.json")
+                if os.path.exists(md):
+                    with open(md) as f:
+                        out[d] = json.load(f)["steps_completed"]
+            return out
+
+        def mono_only(per_step, n_steps, what):
+            assert len(per_step) == n_steps, (what, len(per_step))
+            for i, step in enumerate(per_step):
+                for name, n in step.items():
+                    want = 12 if name in ("flash_fwd_mono",
+                                          "flash_bwd_mono") else 0
+                    assert n == want, (what, i, name, n)
+
+        def step_ms(scalars, skip):
+            """Median of 1e3 / batches_per_second over the steps not in
+            `skip` (warm-up, and the step whose window holds a save)."""
+            return float(np.median([1e3 / m["batches_per_second"]
+                                    for s, m in scalars.items()
+                                    if s not in skip]))
+
+        def add(launches):
+            for n, v in launches.items():
+                total[n] += v
+
+        try:
+            # 1. gpt2-small through the harness, checkpoints at 4 and 8
+            hp = {"model": "gpt2-small", "batch_size": 8, "seq_len": 1024,
+                  "lr": 3e-4}
+            cfg = {"searcher": {"name": "single", "metric": "loss",
+                                "max_length": {"batches": 8}},
+                   "min_checkpoint_period": {"batches": 4},
+                   "scheduling_unit": 1}
+            rc, per_step, launches, run_a, wall_a = self.harness_run(
+                f"{builtin}:SyntheticTrial", hp, cfg, tasks[0], store)
+            assert rc == 0, rc
+            mono_only(per_step, 8, "gpt2-small")
+            add(launches)
+            assert sorted(run_a) == list(range(1, 9)), sorted(run_a)
+            losses_a = [run_a[s]["loss"] for s in range(1, 9)]
+            assert all(np.isfinite(losses_a)), losses_a
+            by_step = {s: c for c, s in checkpoints().items()}
+            assert sorted(by_step) == [4, 8], by_step
+            for ckpt in by_step.values():
+                with open(os.path.join(store, ckpt, "manifest.json")) as f:
+                    assert json.load(f)["files"], ckpt
+            assert verify_checkpoint_dir(os.path.join(store, by_step[8]))
+            # resumed from step 4 through DTPU_LATEST_CHECKPOINT
+            rc, per_step, launches, run_b, wall_b = self.harness_run(
+                f"{builtin}:SyntheticTrial", hp, cfg, tasks[1], store,
+                DTPU_LATEST_CHECKPOINT=by_step[4])
+            assert rc == 0, rc
+            mono_only(per_step, 4, "gpt2-small resumed")
+            add(launches)
+            assert sorted(run_b) == [5, 6, 7, 8], sorted(run_b)
+            resume_rel = max(abs(run_b[s]["loss"] - run_a[s]["loss"])
+                             / abs(run_a[s]["loss"]) for s in range(5, 9))
+            assert resume_rel <= 1e-3, resume_rel
+            harness_ms = step_ms(run_a, skip={1, 2, 5})
+            # the same trial through Trainer.fit directly (no harness, no
+            # checkpoints), read over the same steps
+            ctx = core._dummy_init()
+            trainer = Trainer(SyntheticTrial(hp), ctx)
+            for k in _build.KERNELS.values():
+                k.launches = 0
+            trainer.fit(max_length=Batch(8), report_period=Batch(1))
+            add({n: k.launches for n, k in _build.KERNELS.items()})
+            direct = {step: m for _, step, m in ctx.train._reported
+                      if "batches_per_second" in m}
+            direct_ms = step_ms(direct, skip={1, 2, 5})
+            del trainer, ctx
+            torch.cuda.empty_cache()
+            rec.update(
+                gpt2_rc=0, gpt2_steps=8, gpt2_loss_first=losses_a[0],
+                gpt2_loss_last=losses_a[-1], gpt2_wall_s=wall_a,
+                checkpoints="4,8", resumed_rc=0, resumed_wall_s=wall_b,
+                resumed_loss_max_rel=resume_rel,
+                harness_step_ms_median=harness_ms,
+                direct_step_ms_median=direct_ms,
+                harness_minus_direct_ms=harness_ms - direct_ms,
+                train_phase_step_ms_median=self.train_step_ms,
+                harness_minus_train_ms=harness_ms - self.train_step_ms)
+
+            # 2. the GPT-2 pretrain trial on the native loader
+            rng = np.random.default_rng(11)
+            for i in range(2):
+                write_token_shard(os.path.join(tmp, f"tokens-{i}.bin"),
+                                  rng.integers(0, 50257, 4_000_000))
+            shards = [os.path.join(tmp, "tokens-*.bin")]
+            assert native.load_library() is not None, "native loader"
+            data = lm_dataset(shards, 8, 1024, 50304, seed=0)
+            assert data.native
+            t0 = time.perf_counter()
+            for _ in range(200):
+                next(data)
+            loader_bps = 200 / (time.perf_counter() - t0)
+            data.close()
+            hp = {"model_config": {}, "batch_size": 8, "token_shards": shards,
+                  "lr": 3e-4, "warmup_steps": 2, "decay_steps": 100}
+            cfg = {"searcher": {"name": "single", "metric": "loss",
+                                "max_length": {"batches": 6}},
+                   "scheduling_unit": 1}
+            rc, per_step, launches, run, wall = self.harness_run(
+                "determined_tpu_torch.examples.gpt2_trial:GPT2PretrainTrial",
+                hp, cfg, tasks[2], store)
+            assert rc == 0, rc
+            mono_only(per_step, 6, "gpt2 pretrain")
+            add(launches)
+            losses = [run[s]["loss"] for s in sorted(run)]
+            assert len(losses) == 6 and all(np.isfinite(losses)), losses
+            pretrain_ms = step_ms(run, skip={1, 2})
+            rec.update(pretrain_rc=0, pretrain_steps=6,
+                       pretrain_loss_last=losses[-1], pretrain_wall_s=wall,
+                       pretrain_step_ms_median=pretrain_ms,
+                       pretrain_steps_per_s=1e3 / pretrain_ms,
+                       loader_batches_per_s=loader_bps)
+
+            # 3. the vision trials (library convolutions and matmuls; no
+            # port kernel)
+            cfg = {"searcher": {"name": "single", "metric": "loss",
+                                "max_length": {"batches": 60}},
+                   "scheduling_unit": 10}
+            rc, per_step, launches, run, wall = self.harness_run(
+                f"{builtin}:LearnableTrial",
+                {"model": "mnist-mlp", "batch_size": 128, "lr": 3e-3}, cfg,
+                tasks[3], store)
+            assert rc == 0 and len(per_step) == 60, (rc, len(per_step))
+            assert not any(launches.values()), launches
+            losses = [run[s]["loss"] for s in sorted(run)]
+            assert losses[-1] < 0.75 * losses[0], losses
+            rec.update(mlp_rc=0, mlp_loss_first=losses[0],
+                       mlp_loss_last=losses[-1], mlp_wall_s=wall)
+            cfg = {"searcher": {"name": "single", "metric": "loss",
+                                "max_length": {"batches": 4}},
+                   "scheduling_unit": 1}
+            rc, per_step, launches, run, wall = self.harness_run(
+                f"{builtin}:SyntheticTrial",
+                {"model": "cifar-cnn", "batch_size": 32}, cfg, tasks[4],
+                store)
+            assert rc == 0 and len(per_step) == 4, (rc, len(per_step))
+            assert not any(launches.values()), launches
+            losses = [run[s]["loss"] for s in sorted(run)]
+            assert len(losses) == 4 and all(np.isfinite(losses)), losses
+            rec.update(cnn_rc=0, cnn_loss_last=losses[-1], cnn_wall_s=wall)
+
+            # 4. the module launch in a subprocess, as the agent spawns it
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith("DTPU_")}
+            env.update(
+                DTPU_TRIAL_ID="2", TMPDIR=tmp,
+                DTPU_CHECKPOINT_STORAGE=json.dumps(
+                    {"type": "shared_fs", "host_path": store}),
+                DTPU_EXPERIMENT_CONFIG=json.dumps(
+                    {"searcher": {"name": "single", "metric": "loss",
+                                  "max_length": {"batches": 8}},
+                     "tensorboard": False}))
+            root = os.path.dirname(os.path.abspath(__file__))
+            for trial, hparams, want in (
+                    ("SyntheticTrial", {"model": "mnist-mlp",
+                                        "batch_size": 32}, 0),
+                    ("CrashingTrial", {"crash_message":
+                                       "chip smoke: deliberate crash"}, 1)):
+                t0 = time.perf_counter()
+                out = sp.run(
+                    [sys.executable, "-m", "determined_tpu_torch.exec.harness"],
+                    cwd=root, capture_output=True, text=True, timeout=300,
+                    env=dict(env, DTPU_ENTRYPOINT=f"{builtin}:{trial}",
+                             DTPU_HPARAMS=json.dumps(hparams)))
+                wall = time.perf_counter() - t0
+                assert out.returncode == want, (trial, out.returncode,
+                                                out.stderr[-3000:])
+                if want:
+                    assert "trial failed" in out.stderr, out.stderr[-3000:]
+                    assert "chip smoke: deliberate crash" in out.stderr
+                rec[f"subprocess_{trial}_rc"] = out.returncode
+                rec[f"subprocess_{trial}_wall_s"] = wall
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+            for task in tasks:
+                shutil.rmtree(os.path.join(tempfile.gettempdir(),
+                                           f"dtpu-tb-{task}"),
+                              ignore_errors=True)
+        rec.update({f"{n}_launches": v for n, v in total.items() if v})
+        self.report("exec", "harness off the cluster: gpt2-small B8x1024 "
+                    "+ resume, GPT-2 pretrain on shards, mnist-mlp, "
+                    "cifar-cnn, module launch", rec)
+        return total
+
     def train_parity_phase(self, route="mono"):
         """One fp32 loss + gradient of GPT-2-small's width with 2 layers,
         batch 1 x seq 1024, on the card and on the CPU from the same
@@ -2302,11 +2610,11 @@ def main() -> int:
                      if n in ("flash_bwd_dq", "flash_bwd_dkv")})
     smoke.train_packed_phase()
 
-    # -- phases 11 to 15: checkpoints, the fixture, the rest of serving, the
-    # -- rest of the training loop ---------------------------------------------------
+    # -- phases 11 to 16: checkpoints, the fixture, the rest of serving, the
+    # -- rest of the training loop, the exec layer ----------------------------------
     for phase in (smoke.checkpoint_phase, smoke.fixture_phase,
                   smoke.serving_http_phase, smoke.serving_parity_phase,
-                  smoke.train_health_phase):
+                  smoke.train_health_phase, smoke.exec_phase):
         for name, count in phase().items():
             launches[name] += count
 

@@ -5,8 +5,8 @@ Only the off-cluster ("dummy") contexts are ported: metrics are kept in
 memory, checkpoints go to a local shared-filesystem directory, the
 searcher hands out one operation, preemption never fires and there is one
 process. On-cluster mode (``DTPU_MASTER`` set) comes with the exec slice
-and a multi-process gang with the multi-device slice; each is refused by
-name.
+on the cluster (``exec/harness.py`` runs off it) and a multi-process gang
+with the multi-device slice; each is refused by name.
 """
 from determined_tpu_torch.core._checkpoint import (
     METADATA_FILE,

@@ -63,8 +63,9 @@ def init(*, checkpoint_storage: Optional[str] = None) -> Context:
     if os.environ.get("DTPU_MASTER") is not None:
         raise NotImplementedError(
             "core.init() on a cluster (DTPU_MASTER is set) is not ported "
-            "yet: the master session, live contexts and the launch layer "
-            "come with the exec slice; unset DTPU_MASTER to run off-cluster"
+            "yet: the master session and the live contexts come with the "
+            "exec slice on the cluster (ROADMAP queue 1, item 3); unset "
+            "DTPU_MASTER to run off-cluster"
         )
     logger.info("no cluster detected; core.init() in dummy (off-cluster) mode")
     return _dummy_init(checkpoint_storage=checkpoint_storage)

@@ -1,0 +1,1 @@
+"""Example trials of the port (counterparts of the repo's ``examples/``)."""

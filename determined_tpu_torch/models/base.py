@@ -10,8 +10,9 @@ logical-axis sharding table arrives with the multi-device slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -34,3 +35,46 @@ class Model(nn.Module):
         """Validation metrics for one batch; default reuses loss()."""
         loss, metrics = self.loss(batch)
         return dict(metrics, loss=loss)
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """Nested dicts → (dotted name, leaf) pairs: the reference's keypaths
+    as ``named_parameters`` names them."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
+def load_params(model: nn.Module, tree: Dict[str, Any]) -> None:
+    """Fill `model`'s parameters from the reference's parameter pytree,
+    given as nested dicts of numpy arrays (``jax.device_get(params)``) or
+    of tensors (``trainer._checkpoint.load_pytree``).
+
+    Every key and every shape is checked before anything is written:
+    a key missing on either side raises ``KeyError``, a shape mismatch
+    ``ValueError``."""
+    flat = dict(_flatten(tree))
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(flat))
+    unexpected = sorted(set(flat) - set(params))
+    if missing or unexpected:
+        raise KeyError(
+            f"parameter tree does not match {type(model).__name__}: "
+            f"missing {missing}, unexpected {unexpected}"
+        )
+    arrays = {}
+    for name, p in params.items():
+        arr = flat[name]
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.tensor(np.asarray(arr, dtype=np.float32))
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(
+                f"parameter {name}: shape {tuple(arr.shape)} != "
+                f"{tuple(p.shape)}"
+            )
+        arrays[name] = arr
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(arrays[name])

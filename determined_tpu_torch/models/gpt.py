@@ -45,16 +45,20 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from determined_tpu_torch._device import resolve_device
 from determined_tpu_torch.models import attention as attn_mod
-from determined_tpu_torch.models.base import Metrics, Model
+from determined_tpu_torch.models.base import (  # noqa: F401 (_flatten: tests)
+    Metrics,
+    Model,
+    _flatten,
+    load_params,
+)
 from determined_tpu_torch.ops.flash_attention import (
     fit_block,
     flash_attention,
@@ -807,48 +811,14 @@ def remat_attention(config: GPTConfig) -> bool:
 # ---------------------------------------------------------------------------
 # Weight carry-over from the JAX package
 # ---------------------------------------------------------------------------
-def _flatten(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    for key, value in tree.items():
-        if isinstance(value, dict):
-            yield from _flatten(value, f"{prefix}{key}.")
-        else:
-            yield f"{prefix}{key}", value
-
-
 def load_jax_params(model: GPT, tree: Dict[str, Any], *,
                     serving_copy: bool = False) -> GPT:
-    """Fill `model`'s parameters from the reference's parameter pytree,
-    given as nested dicts of numpy arrays (``jax.device_get(params)``) or
-    of tensors (``trainer._checkpoint.load_pytree``).
-
-    Every key and every shape is checked before anything is written:
-    a key missing on either side raises ``KeyError``, a shape mismatch
-    ``ValueError``. ``serving_copy`` then makes the compute-dtype copy
-    (``GPT.cache_compute_weights``); without it any earlier copy is
+    """Fill `model`'s parameters from the reference's parameter pytree
+    (``models.base.load_params``: every key and shape checked before
+    anything is written). ``serving_copy`` then makes the compute-dtype
+    copy (``GPT.cache_compute_weights``); without it any earlier copy is
     dropped, so the forward casts the new values per call."""
-    flat = dict(_flatten(tree))
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(flat))
-    unexpected = sorted(set(flat) - set(params))
-    if missing or unexpected:
-        raise KeyError(
-            f"parameter tree does not match {type(model).__name__}: "
-            f"missing {missing}, unexpected {unexpected}"
-        )
-    arrays = {}
-    for name, p in params.items():
-        arr = flat[name]
-        if not isinstance(arr, torch.Tensor):
-            arr = torch.tensor(np.asarray(arr, dtype=np.float32))
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(
-                f"parameter {name}: shape {tuple(arr.shape)} != "
-                f"{tuple(p.shape)}"
-            )
-        arrays[name] = arr
-    with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(arrays[name])
+    load_params(model, tree)
     model._compute.clear()
     if serving_copy:
         model.cache_compute_weights()

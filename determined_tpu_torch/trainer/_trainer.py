@@ -39,8 +39,7 @@ past the batches it consumed.
 The step runs on CUDA unless the caller passes ``device="cpu"``. Refused
 by name: a device mesh and ``health.divergence_check_period`` (the
 replica audit; the multi-device slice), ``resume_event="resize"`` (the
-elastic slice), ``smaller_is_better=False`` (read only by the cluster's
-searcher: the exec slice) and the orbax checkpoint format (it needs JAX).
+elastic slice) and the orbax checkpoint format (it needs JAX).
 The operator-triggered profile capture arrives on the master's heartbeat,
 which the off-cluster context never delivers.
 """
@@ -105,12 +104,6 @@ class Trainer:
                 "a device mesh (sharded parameters and batches) comes with "
                 "the multi-device slice; the Trainer runs on one device"
             )
-        if not smaller_is_better:
-            raise NotImplementedError(
-                "smaller_is_better=False: only the cluster's searcher reads "
-                "it, and the off-cluster searcher ranks nothing; it comes "
-                "with the exec slice"
-            )
         if resume_event == "resize":
             raise NotImplementedError(
                 "resume_event='resize' (an elastic in-place resize resumed "
@@ -132,6 +125,9 @@ class Trainer:
         self.core = core_context or core_mod.init()
         self.seed = seed
         self.searcher_metric = searcher_metric
+        #: stored as the reference does; only the cluster's searcher
+        #: ranks by it, and nothing in the loop reads it.
+        self.smaller_is_better = smaller_is_better
         self._spike = _sentinel.SpikeDetector(self.sentinel)
 
         torch.manual_seed(seed)

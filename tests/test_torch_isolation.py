@@ -3,8 +3,10 @@ package and not ``requests`` (the card's machine lacks it): an AST scan
 of every module of determined_tpu_torch and of chip_smoke.py, plus a
 fresh interpreter that imports the serving (the fixture, the HTTP service,
 the load generator and the proposer too), trainer (the timeline too),
-core, storage and common packages, the TensorBoard writer and the
-profiler agent, and finds none of them loaded."""
+core, storage and common packages, the TensorBoard writer, the
+profiler agent, the exec layer (harness, built-in trials), the data
+layer (the native loader's binding too), the vision models and the
+GPT-2 pretrain example, and finds none of them loaded."""
 import ast
 import subprocess
 import sys
@@ -57,7 +59,15 @@ def test_port_never_imports_jax(source):
             "determined_tpu_torch.serving.speculation, "
             "determined_tpu_torch.tensorboard, "
             "determined_tpu_torch.profiler, "
-            "determined_tpu_torch.trainer._timeline\n"
+            "determined_tpu_torch.trainer._timeline, "
+            "determined_tpu_torch.exec, "
+            "determined_tpu_torch.exec.harness, "
+            "determined_tpu_torch.exec.builtin_trials, "
+            "determined_tpu_torch.data, determined_tpu_torch.data.native, "
+            "determined_tpu_torch.models.vision, "
+            "determined_tpu_torch.examples, "
+            "determined_tpu_torch.examples.gpt2_trial, "
+            "determined_tpu_torch._info\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(','.join(bad))\n"

@@ -323,7 +323,6 @@ def test_trainer_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(mesh=object()), "multi-device slice"),
-    (dict(smaller_is_better=False), "smaller_is_better"),
     (dict(health={"divergence_check_period": 10}),
      "divergence_check_period.*multi-device slice"),
     (dict(resume_event="resize"), "resize.*elastic slice"),
@@ -331,6 +330,17 @@ def test_trainer_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
 def test_trainer_refuses_later_slices_by_name(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         Trainer(_TTrial(), tcore._dummy_init(), device="cpu", **kwargs)
+
+
+def test_trainer_stores_smaller_is_better():
+    """The harness passes the searcher's ``smaller_is_better``; the
+    Trainer stores it, as the reference's does, and trains either way."""
+    for flag in (True, False):
+        trainer = Trainer(_TTrial(), tcore._dummy_init(), device="cpu",
+                          smaller_is_better=flag)
+        assert trainer.smaller_is_better is flag
+        trainer.fit(max_length=Batch(1))
+        assert trainer.steps_completed == 1
 
 
 @pytest.mark.parametrize("kwargs", [

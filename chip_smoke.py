@@ -209,6 +209,44 @@ script exits non-zero without the final result line:
    Last, ``python -m determined_tpu_torch.exec.harness`` with
    ``DTPU_ENTRYPOINT``: mnist-mlp exits 0 (its wall s printed),
    ``CrashingTrial`` exits 1 with its message on stderr.
+17. cluster — the exec layer on the cluster, against ``StandInMaster``
+   (the master's routes for a trial and a serving replica, on
+   127.0.0.1; the card's machine cannot run the reference master). The
+   trial: ``python -m determined_tpu_torch.exec.harness`` in a
+   subprocess (through ``COUNTING_BOOT``, which runs the module as
+   ``-m`` does and writes its launch counts and per-step counts at exit)
+   with the variables the agent sets — ``DTPU_MASTER``, the allocation,
+   task and trial variables, ``DTPU_SESSION_TOKEN``,
+   ``DTPU_TRACEPARENT``, ``DTPU_PROFILE=1``, ``DTPU_LOG_SHIP=1``,
+   shared_fs storage — running ``SyntheticTrial`` gpt2-small B 8 × 1024
+   on a searcher operation of 12 batches with a checkpoint every 4. The
+   stand-in hands a profile-capture directive to the step-4 heartbeat
+   (one traced step) and sets the preemption signal at the step-8
+   heartbeat: the trial
+   saves, acknowledges and exits 0; relaunched with
+   ``DTPU_LATEST_CHECKPOINT`` = the checkpoint it registered, it
+   finishes at 12, posts ``searcher/completed`` and exits 0. Held: the
+   training metrics of every step 1–12, exactly once; the registered
+   checkpoints verify on disk; the losses within 1e-3 relative of the
+   same trial run uninterrupted off the cluster in this process (no
+   checkpoints; the replica below starts meanwhile); per
+   step exactly 12 ``flash_fwd_mono`` and 12 ``flash_bwd_mono`` and no
+   other kernel; ``trial.run`` → ``trial.fit`` → ``trial.first_step``
+   spans of both launches under ``DTPU_TRACEPARENT``'s trace; profile
+   windows tagged ``step`` and ``checkpoint``; one uploaded
+   ``torch.profiler`` trace and its ``complete`` POST; shipped log lines
+   carrying the trace id; the bearer token on every request and an
+   ``X-Request-Id`` on every POST. The replica: ``python -m
+   determined_tpu_torch.serving.service`` the same way with
+   ``DTPU_SERVING_CONFIG`` = phase 13's cache-off rung (GPT-2-small
+   bf16), found through its proxy registration and driven by
+   ``loadgen.drive`` over phase 13's prompts with a ``traceparent`` on
+   each request: every request's ``serving.request`` span with its
+   ``serving.queue``, ``serving.prefill`` and ``serving.decode`` children
+   under the client's trace; then the preemption signal, and the replica
+   drains and exits 0. Prints the cluster path's median step ms beside
+   phase 16's off-cluster one and the replica's tokens/s beside phase
+   13's.
 
 Phase 3 also holds ``flash_fwd`` at the cached-tail geometry (separate
 query and key segment ids as ``_prefill_cached`` builds them, one row all
@@ -218,7 +256,7 @@ kv_offset 1024, dead rows in query segment 2), and ``paged_attention`` at
 
 The last lines are the whole run's seconds, the kernels' JSON record
 (each kernel's ``launches`` summed over the main paths that run it:
-phases 4, 6, 8, 9 and 11 to 16), the card's name and power limit, and
+phases 4, 6, 8, 9 and 11 to 17), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -230,6 +268,34 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12
+CLUSTER_STEPS = 12    # the cluster phase's searcher operation
+#: ``python -c COUNTING_BOOT <module> <out.json> <args...>`` runs
+#: ``<module>`` as ``python -m <module> <args...>`` does and, at exit,
+#: writes the process's kernel launch counts and the trainer's per-step
+#: counts to ``<out.json>`` (the counts live in that process).
+COUNTING_BOOT = """
+import atexit, json, runpy, sys
+module, out = sys.argv[1], sys.argv[2]
+sys.argv = [module] + sys.argv[3:]
+from determined_tpu_torch.ops import _build
+from determined_tpu_torch.trainer import Trainer
+per_step = []
+step_fn = Trainer._train_step
+def counted(trainer, batch, poison=1.0):
+    before = {n: k.launches for n, k in _build.KERNELS.items()}
+    result = step_fn(trainer, batch, poison)
+    per_step.append({n: k.launches - before[n]
+                     for n, k in _build.KERNELS.items()})
+    return result
+Trainer._train_step = counted
+def dump():
+    with open(out, "w") as f:
+        json.dump({"launches": {n: k.launches
+                                for n, k in _build.KERNELS.items()},
+                   "per_step": per_step}, f)
+atexit.register(dump)
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
 FLASH_SOURCE = "determined_tpu_torch/ops/csrc/flash_fwd.cu"
 FLASH_REPLACES = "determined_tpu/ops/flash_attention.py:236"
 PAGED_SOURCE = "determined_tpu_torch/ops/csrc/paged_attention.cu"
@@ -362,6 +428,266 @@ def packed_batch(b, s, seed, vocab):
     from determined_tpu_torch.trainer.profile import packed_batch as batch
 
     return batch(b, s, seed, vocab)
+
+
+class StandInMaster:
+    """A stand-in for the reference master (``determined_tpu/master/
+    api_server.py``) that answers only the routes the port's trial and
+    serving replica call, with the master's answer shapes, on
+    ``ThreadingHTTPServer`` at 127.0.0.1. The card's machine cannot run
+    the reference master (it imports ``requests``).
+
+    Every request is recorded as ``(method, path, headers, body)``. The
+    master's part is scripted: ``op_length`` is the searcher operation
+    every trial gets until it posts ``searcher/completed``;
+    ``capture_at_step`` hands one ``profile_capture`` directive to the
+    first chief heartbeat at or past that step; ``preempt_after_step``
+    sets the beating allocation's preemption signal once a heartbeat
+    reports that step; ``preempt(alloc)`` sets it by hand. The preemption
+    long-poll holds until the signal is set or its ``timeout_seconds``
+    pass. ``tests/test_torch_cluster.py`` holds every answer's keys and
+    value types against the live master's."""
+
+    ROUTES = (
+        ("POST", r"/api/v1/trials/(\d+)/metrics", "_metrics"),
+        ("POST", r"/api/v1/trials/(\d+)/progress", "_empty"),
+        ("POST", r"/api/v1/trials/(\d+)/status", "_empty"),
+        ("GET", r"/api/v1/trials/(\d+)/searcher/operation", "_operation"),
+        ("POST", r"/api/v1/trials/(\d+)/searcher/progress", "_empty"),
+        ("POST", r"/api/v1/trials/(\d+)/searcher/completed", "_completed"),
+        ("GET", r"/api/v1/trials/(\d+)/checkpoints", "_trial_checkpoints"),
+        ("POST", r"/api/v1/checkpoints", "_checkpoint"),
+        ("POST", r"/api/v1/allocations/([\w.\-]+)/progress", "_beat"),
+        ("GET", r"/api/v1/allocations/([\w.\-]+)/signals/preemption",
+         "_preemption"),
+        ("POST", r"/api/v1/allocations/([\w.\-]+)/signals/ack_preemption",
+         "_ack"),
+        ("POST", r"/api/v1/allocations/([\w.\-]+)/proxy", "_proxy"),
+        ("POST", r"/api/v1/traces/ingest", "_spans"),
+        ("POST", r"/api/v1/profiles/ingest", "_windows"),
+        ("POST", r"/api/v1/logs/ingest", "_lines"),
+        ("POST", r"/api/v1/profiles/captures/([\w\-]+)/complete",
+         "_capture_complete"),
+    )
+
+    def __init__(self, op_length: int = 1) -> None:
+        import re
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.op_length = op_length
+        self.capture_at_step = None
+        self.capture_steps = 2
+        self.preempt_after_step = None
+        self.requests = []
+        self.checkpoints = {}       # uuid -> the registration body
+        self.spans, self.windows, self.lines = [], [], []
+        self.captures = {}          # id -> the capture record
+        self.proxies = {}           # allocation -> (host, port)
+        self.completed = {}         # trial id -> searcher/completed body
+        self.acked = set()
+        self._preempt = set()
+        self._cond = threading.Condition()
+        self._routes = [(m, re.compile(f"^{p}$"), getattr(self, h))
+                        for m, p, h in self.ROUTES]
+        stand_in = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            disable_nagle_algorithm = True
+
+            def log_message(self, *args):
+                pass
+
+            def _dispatch(self, method):
+                from urllib.parse import parse_qs, urlparse
+
+                length = int(self.headers.get("Content-Length") or 0)
+                raw = self.rfile.read(length) if length else b""
+                body = json.loads(raw) if raw else {}
+                url = urlparse(self.path)
+                with stand_in._cond:
+                    stand_in.requests.append(
+                        (method, url.path, dict(self.headers.items()), body))
+                status, payload = 404, {"error": f"no route {url.path}"}
+                for m, pat, handler in stand_in._routes:
+                    match = pat.match(url.path)
+                    if m == method and match:
+                        status, payload = 200, handler(
+                            match.groups(), body, parse_qs(url.query),
+                            self.client_address[0])
+                        break
+                data = json.dumps(payload).encode()
+                try:
+                    self.send_response(status)
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
+                except (BrokenPipeError, ConnectionResetError):
+                    pass  # a task that exited mid long-poll
+
+            def do_GET(self):  # noqa: N802
+                self._dispatch("GET")
+
+            def do_POST(self):  # noqa: N802
+                self._dispatch("POST")
+
+        self._httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._httpd.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self._httpd.server_address[1]}"
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="stand-in-master", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        with self._cond:
+            self._preempt.add("*")   # release held long-polls
+            self._cond.notify_all()
+        self._httpd.shutdown()
+        self._httpd.server_close()
+
+    def preempt(self, alloc: str) -> None:
+        with self._cond:
+            self._preempt.add(alloc)
+            self._cond.notify_all()
+
+    def _preempted(self, alloc: str) -> bool:
+        return alloc in self._preempt or "*" in self._preempt
+
+    # -- the routes: answers shaped as api_server.py's -----------------------
+    def _empty(self, groups, body, query, client):
+        return {}
+
+    def _metrics(self, groups, body, query, client):
+        return {}
+
+    def _operation(self, groups, body, query, client):
+        with self._cond:
+            if int(groups[0]) in self.completed:
+                return {"completed": True, "op": None}
+        return {"op": {"length": self.op_length}, "completed": False}
+
+    def _completed(self, groups, body, query, client):
+        with self._cond:
+            self.completed[int(groups[0])] = body
+        return {}
+
+    def _checkpoint(self, groups, body, query, client):
+        import time as time_mod
+
+        with self._cond:
+            self.checkpoints[body["uuid"]] = dict(
+                body, report_time=time_mod.time())
+        return {}
+
+    def _trial_checkpoints(self, groups, body, query, client):
+        with self._cond:
+            rows = [
+                {"uuid": u, "trial_id": b.get("trial_id"),
+                 "task_id": b.get("task_id", ""),
+                 "allocation_id": b.get("allocation_id", ""),
+                 "report_time": b["report_time"], "state": b["state"],
+                 "resources": b.get("resources", []),
+                 "metadata": b.get("metadata", {}),
+                 "steps_completed": int((b.get("metadata") or {}).get(
+                     "steps_completed") or 0)}
+                for u, b in self.checkpoints.items()
+                if b.get("trial_id") == int(groups[0])
+                and b["state"] == "COMPLETED"]
+        return {"checkpoints": sorted(
+            rows, key=lambda r: r["steps_completed"])}
+
+    def _beat(self, groups, body, query, client):
+        import secrets
+
+        alloc, step = groups[0], int(body.get("step", 0))
+        resp = {}
+        with self._cond:
+            if (self.preempt_after_step is not None
+                    and step >= self.preempt_after_step):
+                self._preempt.add(alloc)
+                self._cond.notify_all()
+            if (int(body.get("rank", 0)) == 0
+                    and self.capture_at_step is not None
+                    and step >= self.capture_at_step):
+                self.capture_at_step = None
+                cid = "cap-" + secrets.token_hex(6)
+                self.captures[cid] = {"id": cid, "steps": self.capture_steps}
+                resp["profile_capture"] = {"id": cid,
+                                           "steps": self.capture_steps}
+        return resp
+
+    def _preemption(self, groups, body, query, client):
+        import time as time_mod
+
+        alloc = groups[0]
+        wait = float((query.get("timeout_seconds") or ["60"])[0])
+        deadline = time_mod.time() + wait
+        with self._cond:
+            while not self._preempted(alloc):
+                left = deadline - time_mod.time()
+                if left <= 0:
+                    break
+                self._cond.wait(timeout=min(left, 1.0))
+            return {"preempt": self._preempted(alloc)}
+
+    def _ack(self, groups, body, query, client):
+        with self._cond:
+            self.acked.add(groups[0])
+        return {}
+
+    def _proxy(self, groups, body, query, client):
+        with self._cond:
+            self.proxies[groups[0]] = (body.get("host") or client,
+                                       int(body["port"]))
+            self._cond.notify_all()
+        return {"url": f"/proxy/{groups[0]}/"}
+
+    def _spans(self, groups, body, query, client):
+        with self._cond:
+            self.spans.extend(body.get("spans") or [])
+        return {"stored": len(body.get("spans") or [])}
+
+    def _windows(self, groups, body, query, client):
+        with self._cond:
+            self.windows.extend(body.get("windows") or [])
+        return {"stored": {"accepted": len(body.get("windows") or []),
+                           "rejected": 0}}
+
+    def _lines(self, groups, body, query, client):
+        with self._cond:
+            self.lines.extend(body.get("lines") or [])
+        return {"stored": len(body.get("lines") or [])}
+
+    def _capture_complete(self, groups, body, query, client):
+        import time as time_mod
+
+        with self._cond:
+            cap = self.captures.setdefault(
+                groups[0], {"id": groups[0], "steps": self.capture_steps})
+            cap.update(artifact=body.get("artifact", ""),
+                       error=body.get("error", ""))
+            now = time_mod.time()
+            return {
+                "id": groups[0], "kind": "trial", "ident": "1",
+                "steps": cap["steps"],
+                "state": "failed" if cap["error"] else "completed",
+                "created_at": now, "delivered_at": now, "completed_at": now,
+                "artifact": cap["artifact"] or None,
+                "error": cap["error"] or None,
+            }
+
+    def wait_for(self, predicate, timeout: float, what: str):
+        """Block until `predicate()` (called under the lock) is true."""
+        import time as time_mod
+
+        deadline = time_mod.time() + timeout
+        with self._cond:
+            while not predicate():
+                left = deadline - time_mod.time()
+                assert left > 0, f"stand-in master: timed out waiting for {what}"
+                self._cond.wait(timeout=min(left, 0.5))
 
 
 class Smoke:
@@ -1723,6 +2049,8 @@ class Smoke:
             )
             self.report("serving-http", f"gpt2-small bf16 {name}", rec)
             recs[name] = rec
+            if name == "cache-off spec-off":
+                self.serving_http_tps = rec["tokens_per_s"]
             del eng
         on = recs["cache-on spec-ngram"]
         assert on["hit_rate"] > 0 and on["proposed"] > 0, on
@@ -2325,6 +2653,7 @@ class Smoke:
                 harness_minus_direct_ms=harness_ms - direct_ms,
                 train_phase_step_ms_median=self.train_step_ms,
                 harness_minus_train_ms=harness_ms - self.train_step_ms)
+            self.exec_step_ms = harness_ms
 
             # 2. the GPT-2 pretrain trial on the native loader
             rng = np.random.default_rng(11)
@@ -2429,6 +2758,315 @@ class Smoke:
         self.report("exec", "harness off the cluster: gpt2-small B8x1024 "
                     "+ resume, GPT-2 pretrain on shards, mnist-mlp, "
                     "cifar-cnn, module launch", rec)
+        return total
+
+    def counted_launch(self, module, args, env, out, log):
+        """``python -m <module> <args>`` in a subprocess, through
+        ``COUNTING_BOOT`` (its launch counts land in `out` at exit), with
+        stdout and stderr in `log`."""
+        import subprocess as sp
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        with open(log, "w") as f:
+            return sp.Popen([sys.executable, "-c", COUNTING_BOOT, module, out,
+                             *args], cwd=root, env=env, stdout=f,
+                            stderr=sp.STDOUT)
+
+    def cluster_phase(self):
+        """The exec layer on the cluster against ``StandInMaster``: a
+        gpt2-small trial preempted at step 8 and resumed to 12, then a
+        GPT-2-small replica driven through its proxy registration and
+        preempted."""
+        import http.client
+        import secrets
+        import shutil
+        import tempfile
+        import threading
+
+        import numpy as np
+
+        from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.serving import loadgen
+        from determined_tpu_torch.storage.base import verify_checkpoint_dir
+
+        t_phase = time.perf_counter()
+        builtin = "determined_tpu_torch.exec.builtin_trials"
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-cluster-")
+        store = os.path.join(tmp, "ckpt")
+        master = StandInMaster(op_length=CLUSTER_STEPS)
+        master.capture_at_step, master.capture_steps = 4, 1
+        master.preempt_after_step = 8
+        token = secrets.token_hex(16)
+        trace_id = secrets.token_hex(16)
+        hp = {"model": "gpt2-small", "batch_size": 8, "seq_len": 1024,
+              "lr": 3e-4}
+        cfg = {"searcher": {"name": "single", "metric": "loss",
+                            "max_length": {"batches": CLUSTER_STEPS}},
+               "min_checkpoint_period": {"batches": 4},
+               "scheduling_unit": 1}
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("DTPU_")}
+        env.update(TMPDIR=tmp, DTPU_MASTER=master.url,
+                   DTPU_SESSION_TOKEN=token, DTPU_CLUSTER_ID="chip-smoke",
+                   DTPU_PROFILE="1", DTPU_PROFILE_WINDOW_S="1",
+                   DTPU_PROFILE_HZ="49",
+                   DTPU_LOG_SHIP="1")
+        trial_env = dict(
+            env, DTPU_TASK_ID="trial-1", DTPU_TASK_TYPE="TRIAL",
+            DTPU_TRIAL_ID="1", DTPU_EXPERIMENT_ID="1", DTPU_TRIAL_SEED="0",
+            DTPU_HPARAMS=json.dumps(hp),
+            DTPU_EXPERIMENT_CONFIG=json.dumps(dict(cfg, tensorboard=False)),
+            DTPU_CHECKPOINT_STORAGE=json.dumps(
+                {"type": "shared_fs", "host_path": store}),
+            DTPU_ENTRYPOINT=f"{builtin}:SyntheticTrial")
+        total = {n: 0 for n in _build.KERNELS}
+        rec = {}
+        replica = None
+
+        def mono_only(per_step, n_steps, what):
+            assert len(per_step) == n_steps, (what, len(per_step))
+            for i, step in enumerate(per_step):
+                for name, n in step.items():
+                    want = 12 if name in ("flash_fwd_mono",
+                                          "flash_bwd_mono") else 0
+                    assert n == want, (what, i, name, n)
+
+        def launch_trial(run, **extra):
+            parent = secrets.token_hex(8)
+            out = os.path.join(tmp, f"trial-{run}.json")
+            t0 = time.perf_counter()
+            proc = self.counted_launch(
+                "determined_tpu_torch.exec.harness", [], dict(
+                    trial_env, DTPU_ALLOCATION_ID=f"1.1.{run}",
+                    DTPU_TRIAL_RUN_ID=str(run),
+                    DTPU_TRACEPARENT=f"00-{trace_id}-{parent}-01", **extra),
+                out, os.path.join(tmp, f"trial-{run}.log"))
+            try:
+                rc = proc.wait(timeout=900)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            wall = time.perf_counter() - t0
+            with open(os.path.join(tmp, f"trial-{run}.log")) as f:
+                log = f.read()
+            assert rc == 0, (run, rc, log[-4000:])
+            with open(out) as f:
+                counts = json.load(f)
+            for n, v in counts["launches"].items():
+                total[n] += v
+            return parent, counts["per_step"], wall
+
+        def training_steps():
+            return [b for m, p, h, b in master.requests
+                    if m == "POST" and p == "/api/v1/trials/1/metrics"
+                    and b["group"] == "training"]
+
+        try:
+            # 1. the trial, preempted after step 8
+            parent_a, per_step_a, wall_a = launch_trial(0)
+            steps_a = [b["steps_completed"] for b in training_steps()]
+            preempted = steps_a[-1]
+            assert 8 <= preempted < CLUSTER_STEPS, steps_a
+            assert "1.1.0" in master.acked, master.acked
+            mono_only(per_step_a, preempted, "cluster trial")
+            by_step = {b["metadata"]["steps_completed"]: u
+                       for u, b in master.checkpoints.items()}
+            assert preempted in by_step and 4 in by_step, by_step
+            # 2. relaunched from the checkpoint it registered
+            master.preempt_after_step = None
+            parent_b, per_step_b, wall_b = launch_trial(
+                1, DTPU_LATEST_CHECKPOINT=by_step[preempted])
+            mono_only(per_step_b, CLUSTER_STEPS - preempted,
+                      "cluster trial resumed")
+            reports = training_steps()
+            assert [b["steps_completed"] for b in reports] == list(
+                range(1, CLUSTER_STEPS + 1)), [b["steps_completed"]
+                                               for b in reports]
+            assert master.completed[1]["length"] == CLUSTER_STEPS, \
+                master.completed
+            by_step = {b["metadata"]["steps_completed"]: u
+                       for u, b in master.checkpoints.items()}
+            assert CLUSTER_STEPS in by_step, by_step
+            for u, b in master.checkpoints.items():
+                assert b["state"] == "COMPLETED" and b["trial_id"] == 1, b
+                assert verify_checkpoint_dir(os.path.join(store, u)), u
+                assert "manifest.json" in b["resources"], b["resources"]
+            # the replica starts (3. below) while the same trial runs
+            # uninterrupted, off the cluster, in this process, without
+            # checkpoints: its losses are the resumed run's reference
+            out = os.path.join(tmp, "replica.json")
+            log = os.path.join(tmp, "replica.log")
+            t_replica = time.perf_counter()
+            replica = self.counted_launch(
+                "determined_tpu_torch.serving.service",
+                ["--host", "127.0.0.1"], dict(
+                    env, DTPU_ALLOCATION_ID="cmd.1.0", DTPU_TASK_ID="cmd-1",
+                    DTPU_TASK_TYPE="SERVING",
+                    DTPU_SERVING_CONFIG=json.dumps(SERVING_HTTP_CFG)),
+                out, log)
+            rc, per_step, launches, run, wall = self.harness_run(
+                f"{builtin}:SyntheticTrial", hp, {
+                    k: v for k, v in cfg.items()
+                    if k != "min_checkpoint_period"},
+                "chip-smoke-cluster-ref", os.path.join(tmp, "ckpt-ref"))
+            assert rc == 0, rc
+            mono_only(per_step, CLUSTER_STEPS, "uninterrupted")
+            for n, v in launches.items():
+                total[n] += v
+            rel = max(abs(b["metrics"]["loss"] - run[b["steps_completed"]][
+                "loss"]) / abs(run[b["steps_completed"]]["loss"])
+                for b in reports)
+            assert rel <= 1e-3, rel
+            # the trial's spans, parented under DTPU_TRACEPARENT
+            spans = [sp_ for sp_ in master.spans if sp_["traceId"] == trace_id]
+            for parent in (parent_a, parent_b):
+                runs = [sp_ for sp_ in spans if sp_["name"] == "trial.run"
+                        and sp_.get("parentSpanId") == parent]
+                assert len(runs) == 1, (parent, spans)
+                fits = [sp_ for sp_ in spans if sp_["name"] == "trial.fit"
+                        and sp_.get("parentSpanId") == runs[0]["spanId"]]
+                assert len(fits) == 1, spans
+                firsts = [sp_ for sp_ in spans
+                          if sp_["name"] == "trial.first_step"
+                          and sp_.get("parentSpanId") == fits[0]["spanId"]]
+                assert len(firsts) == 1, spans
+            phases = {smp.get("phase") for w in master.windows
+                      if w["target"] == "trial:1.r0" for smp in w["samples"]}
+            assert {"step", "checkpoint"} <= phases, phases
+            done = [c for c in master.captures.values() if "artifact" in c]
+            assert len(done) == 1 and not done[0]["error"], master.captures
+            artifact = os.path.join(store, done[0]["artifact"])
+            traces = [f for f in os.listdir(artifact)
+                      if f.endswith(".pt.trace.json")]
+            assert traces, os.listdir(artifact)
+            assert any(ln.get("trace") == trace_id for ln in master.lines), \
+                master.lines[:3]
+            for m, p, h, b in master.requests:
+                assert h.get("Authorization") == f"Bearer {token}", (m, p)
+                if m == "POST":
+                    assert h.get("X-Request-Id"), (m, p)
+
+            def step_ms(bodies, skip):
+                return float(np.median([1e3 / b["metrics"][
+                    "batches_per_second"] for b in bodies
+                    if b["steps_completed"] not in skip]))
+
+            # warm-up steps, the traced step, the windows of async saves
+            skip = {1, 2, 5, 9, preempted + 1, preempted + 2}
+            cluster_ms = step_ms(reports, skip)
+            rec.update(
+                trial_rc=0, preempted_at=preempted, resumed_rc=0,
+                steps=CLUSTER_STEPS, wall_s=wall_a, resumed_wall_s=wall_b,
+                loss_first=reports[0]["metrics"]["loss"],
+                loss_last=reports[-1]["metrics"]["loss"],
+                loss_max_rel=rel, checkpoints=len(master.checkpoints),
+                spans=len(master.spans), profile_windows=len(master.windows),
+                log_lines=len(master.lines), requests=len(master.requests),
+                capture_files=len(traces),
+                cluster_step_ms_median=cluster_ms,
+                exec_step_ms_median=self.exec_step_ms,
+                cluster_minus_exec_ms=cluster_ms - self.exec_step_ms,
+                cluster_over_exec_pct=100.0 * (cluster_ms / self.exec_step_ms
+                                               - 1.0))
+
+            # 3. the serving replica
+            proc = replica
+            try:
+                master.wait_for(lambda: "cmd.1.0" in master.proxies
+                                or proc.poll() is not None, 600,
+                                "the replica's proxy registration")
+                replica_up_s = time.perf_counter() - t_replica
+                assert proc.poll() is None, open(log).read()[-4000:]
+                url = f"http://127.0.0.1:{master.proxies['cmd.1.0'][1]}"
+                warm = loadgen.drive(url, 4, 4, prompt_len=8,
+                                     max_new_tokens=2, timeout_s=600.0)
+                assert warm.completed == 4, [t.error for t in warm.traces]
+                prompts = loadgen.zipf_prefix_prompts(**SERVING_HTTP_PROMPTS)
+                issued, lock = [], threading.Lock()
+                request = http.client.HTTPConnection.request
+
+                def traced(conn, method, target, body=None, headers=None,
+                           **kw):
+                    headers = dict(headers or {})
+                    if target.endswith("/api/v1/generate"):
+                        ctx = (secrets.token_hex(16), secrets.token_hex(8))
+                        with lock:
+                            issued.append(ctx)
+                        headers["traceparent"] = f"00-{ctx[0]}-{ctx[1]}-01"
+                    return request(conn, method, target, body=body,
+                                   headers=headers, **kw)
+
+                http.client.HTTPConnection.request = traced
+                try:
+                    report = loadgen.drive(url, len(prompts),
+                                           SERVING_HTTP_CONC,
+                                           max_new_tokens=SERVING_HTTP_NEW_TOKENS,
+                                           timeout_s=600.0, prompts=prompts)
+                finally:
+                    http.client.HTTPConnection.request = request
+                assert report.completed == len(prompts), [
+                    t.error for t in report.traces]
+                assert all(len(t.token_ids) == SERVING_HTTP_NEW_TOKENS
+                           for t in report.traces)
+                assert len(issued) == len(prompts), len(issued)
+
+                def request_spans():
+                    out_ = {}
+                    for sp_ in master.spans:
+                        out_.setdefault(sp_["traceId"], []).append(sp_)
+                    return out_
+
+                master.wait_for(lambda: all(
+                    any(sp_["name"] == "serving.decode" for sp_ in
+                        request_spans().get(t, [])) for t, _ in issued),
+                    60, "the replica's request spans")
+                by_trace = request_spans()
+                for t, parent in issued:
+                    roots = [sp_ for sp_ in by_trace[t]
+                             if sp_["name"] == "serving.request"]
+                    assert len(roots) == 1 and roots[0].get(
+                        "parentSpanId") == parent, by_trace[t]
+                    kids = {sp_["name"] for sp_ in by_trace[t]
+                            if sp_.get("parentSpanId") == roots[0]["spanId"]}
+                    assert kids == {"serving.queue", "serving.prefill",
+                                    "serving.decode"}, kids
+                master.preempt("cmd.1.0")
+                rc = proc.wait(timeout=120)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            assert rc == 0, (rc, open(log).read()[-4000:])
+            with open(out) as f:
+                counts = json.load(f)["launches"]
+            assert counts["flash_fwd"] > 0 and counts["paged_attention"] > 0, \
+                counts
+            for n, v in counts.items():
+                total[n] += v
+            rec.update(
+                replica_rc=rc, replica_requests=len(prompts),
+                replica_tokens=report.total_tokens,
+                replica_tokens_per_s=report.tokens_per_sec,
+                serving_http_tokens_per_s=self.serving_http_tps,
+                replica_ttft_p50_ms=report.ttft_percentile_ms(50),
+                replica_flash_launches=counts["flash_fwd"],
+                replica_paged_launches=counts["paged_attention"],
+                replica_up_s=replica_up_s)
+        finally:
+            if replica is not None and replica.poll() is None:
+                replica.kill()
+                replica.wait()
+            master.stop()
+            shutil.rmtree(tmp, ignore_errors=True)
+            shutil.rmtree(os.path.join(tempfile.gettempdir(),
+                                       "dtpu-tb-chip-smoke-cluster-ref"),
+                          ignore_errors=True)
+        rec.update({f"{n}_launches": v for n, v in total.items() if v})
+        rec["phase_s"] = time.perf_counter() - t_phase
+        self.report("cluster", "trial and replica as tasks of a stand-in "
+                    "master: gpt2-small B8x1024 preempted and resumed, "
+                    "GPT-2-small bf16 replica", rec)
         return total
 
     def train_parity_phase(self, route="mono"):
@@ -2610,11 +3248,12 @@ def main() -> int:
                      if n in ("flash_bwd_dq", "flash_bwd_dkv")})
     smoke.train_packed_phase()
 
-    # -- phases 11 to 16: checkpoints, the fixture, the rest of serving, the
-    # -- rest of the training loop, the exec layer ----------------------------------
+    # -- phases 11 to 17: checkpoints, the fixture, the rest of serving, the
+    # -- rest of the training loop, the exec layer off and on the cluster ---------
     for phase in (smoke.checkpoint_phase, smoke.fixture_phase,
                   smoke.serving_http_phase, smoke.serving_parity_phase,
-                  smoke.train_health_phase, smoke.exec_phase):
+                  smoke.train_health_phase, smoke.exec_phase,
+                  smoke.cluster_phase):
         for name, count in phase().items():
             launches[name] += count
 

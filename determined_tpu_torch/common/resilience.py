@@ -1,24 +1,57 @@
-"""The retry policy of the port's storage transfers.
+"""Retry policies and circuit breakers of the port.
 
-A copy of ``determined_tpu/common/resilience.py``'s ``RetryPolicy`` and
-``STORAGE_RETRY``: exponential backoff with **deterministic jitter** (a
-sha256 of ``(key, attempt)``, so tests see reproducible timing), attempt
-and deadline caps, and a retryable-exception predicate. Left out until
-their slices land: the circuit breakers and the HTTP ``Retry-After``
-pacing (the master session, exec slice) and the ``dtpu_retries_total``
-counter (the metrics plane, ``ROADMAP.md`` queue 1, item 5).
+A copy of ``determined_tpu/common/resilience.py`` for the storage
+transfers and the master session (``common/api_session.py``):
+
+- ``RetryPolicy``: exponential backoff with **deterministic jitter** (a
+  sha256 of ``(key, attempt)``, so tests see reproducible timing), attempt
+  and deadline caps, and a retryable-exception predicate; a 429 or 503
+  carrying ``Retry-After`` sets the pause (``retry_after_hint``), clamped
+  to the policy's ``max_delay``. Every retry taken counts in
+  ``dtpu_retries_total{key}``.
+- ``CircuitBreaker``: per-endpoint closed → open → half-open over
+  consecutive failures; an open circuit fails fast with
+  ``CircuitOpenError``. Transitions into open count in
+  ``dtpu_circuit_opens_total{endpoint}``, the state sits in
+  ``dtpu_circuit_state{endpoint}``.
+- ``CircuitBreakerRegistry``: the thread-safe per-key breaker map (the
+  Session keys by route shape).
+- ``shed_backoff``: the pause a telemetry shipper honours after a 429.
+
+Sleeps and clocks are injectable. Left out: the agents' never-give-up
+supervision policy and its ``Backoff`` sequence (the agent is not ported).
 """
 from __future__ import annotations
 
 import hashlib
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple, Type
 
 from determined_tpu_torch.common.faults import InjectedFault
+from determined_tpu_torch.common.metrics import REGISTRY
+
+RETRIES = REGISTRY.counter(
+    "dtpu_retries_total",
+    "Retry attempts taken by RetryPolicy.call, by policy key.",
+    labels=("key",),
+)
+CIRCUIT_STATE = REGISTRY.gauge(
+    "dtpu_circuit_state",
+    "Circuit-breaker state per endpoint: 0 closed, 1 half-open, 2 open.",
+    labels=("endpoint",),
+)
+CIRCUIT_OPENS = REGISTRY.counter(
+    "dtpu_circuit_opens_total",
+    "Circuit-breaker transitions into the open state, by endpoint.",
+    labels=("endpoint",),
+)
+_STATE_CODE = {"closed": 0.0, "half-open": 1.0, "open": 2.0}
 
 # Transient-infrastructure default: connection resets, timeouts, filesystem
-# hiccups, and injected faults.
+# hiccups, and injected faults. The session's HTTP errors subclass OSError,
+# so its transport failures are covered too.
 DEFAULT_RETRYABLE: Tuple[Type[BaseException], ...] = (
     ConnectionError,
     TimeoutError,
@@ -35,6 +68,61 @@ NON_RETRYABLE_OS: Tuple[Type[BaseException], ...] = (
     IsADirectoryError,
     NotADirectoryError,
 )
+
+
+def retry_after_hint(exc: BaseException) -> Optional[float]:
+    """The ``Retry-After`` seconds carried by a 429 or 503 response
+    (``exc.response``), else None. Junk values — the HTTP-date form,
+    non-numeric strings, negatives — yield None, and the caller's own
+    backoff computes the pause."""
+    resp = getattr(exc, "response", None)
+    if resp is None or getattr(resp, "status_code", None) not in (429, 503):
+        return None
+    headers = getattr(resp, "headers", None)
+    if headers is None:
+        return None
+    try:
+        raw = headers.get("Retry-After")
+    except Exception:  # noqa: BLE001 — malformed mapping: no hint
+        return None
+    if raw is None:
+        return None
+    try:
+        value = float(raw)
+    except (TypeError, ValueError):
+        return None
+    return value if value >= 0 else None
+
+
+def shed_backoff(
+    exc: BaseException, *, default_s: float = 1.0, cap_s: float = 5.0
+) -> Optional[float]:
+    """Pause (seconds) a shipper honours when `exc` is an ingest shed — an
+    HTTP 429 from the master's admission layer, or the
+    ``client.ingest_backoff`` fault site — else None. A 429 without a
+    parseable ``Retry-After`` still backs off ``default_s``; the hint is
+    clamped to ``cap_s``."""
+    if (
+        isinstance(exc, InjectedFault)
+        and getattr(exc, "site", "") == "client.ingest_backoff"
+    ):
+        return default_s
+    resp = getattr(exc, "response", None)
+    if getattr(resp, "status_code", None) != 429:
+        return None
+    hint = retry_after_hint(exc)
+    return min(hint, cap_s) if hint is not None else default_s
+
+
+class CircuitOpenError(ConnectionError):
+    """Fail-fast: the endpoint's circuit is open (recent consecutive
+    failures). Subclasses ConnectionError so transport-failure handlers
+    treat it as the outage it signals."""
+
+    def __init__(self, key: str, retry_at: float) -> None:
+        super().__init__(f"circuit open for {key}")
+        self.key = key
+        self.retry_at = retry_at
 
 
 def _jitter_fraction(key: str, attempt: int) -> float:
@@ -73,6 +161,8 @@ class RetryPolicy:
         return raw
 
     def should_retry(self, exc: BaseException) -> bool:
+        if isinstance(exc, CircuitOpenError):
+            return False  # fail fast: the breaker's whole point
         if isinstance(exc, NON_RETRYABLE_OS) and not isinstance(
             exc, InjectedFault
         ):
@@ -89,7 +179,8 @@ class RetryPolicy:
         clock: Callable[[], float] = time.monotonic,
     ) -> Any:
         """Run `fn` under this policy; `retry_if` overrides the
-        exception-class predicate. The final failure propagates as-is."""
+        exception-class predicate (the Session's status-code rules). The
+        final failure propagates as-is."""
         predicate = retry_if or self.should_retry
         start = clock()
         attempt = 0
@@ -102,14 +193,150 @@ class RetryPolicy:
                 if attempt + 1 >= self.max_attempts:
                     raise
                 pause = self.delay(attempt, key=key)
+                # Server-provided pacing wins over the computed backoff,
+                # clamped to this policy's own ceiling.
+                hint = retry_after_hint(e)
+                if hint is not None:
+                    pause = min(hint, self.max_delay)
                 if (
                     self.deadline_s is not None
                     and clock() - start + pause > self.deadline_s
                 ):
                     raise
+                RETRIES.labels(key or "unkeyed").inc()
                 sleep(pause)
                 attempt += 1
 
+
+@dataclass
+class _BreakerState:
+    failures: int = 0
+    state: str = "closed"         # closed | open | half-open
+    opened_at: float = 0.0
+    probing: bool = False
+
+
+class CircuitBreaker:
+    """Closed/open/half-open breaker over consecutive failures. The caller
+    decides what counts as a failure: an HTTP 404 is a healthy endpoint
+    giving an unwelcome answer."""
+
+    def __init__(
+        self,
+        key: str = "",
+        failure_threshold: int = 8,
+        reset_timeout: float = 5.0,
+        clock: Callable[[], float] = time.monotonic,
+    ) -> None:
+        self.key = key
+        self.failure_threshold = failure_threshold
+        self.reset_timeout = reset_timeout
+        self._clock = clock
+        self._s = _BreakerState()
+        self._lock = threading.Lock()
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            self._maybe_half_open()
+            return self._s.state
+
+    def _maybe_half_open(self) -> None:
+        if (
+            self._s.state == "open"
+            and self._clock() - self._s.opened_at >= self.reset_timeout
+        ):
+            self._s.state = "half-open"
+            self._s.probing = False
+            self._set_state_gauge()
+
+    def _set_state_gauge(self) -> None:
+        if self.key:
+            CIRCUIT_STATE.labels(self.key).set(_STATE_CODE[self._s.state])
+
+    def open_until(self) -> float:
+        """Clock time when the next half-open probe is admitted (0.0 when
+        the circuit is closed)."""
+        with self._lock:
+            if self._s.state == "closed":
+                return 0.0
+            return self._s.opened_at + self.reset_timeout
+
+    def allow(self) -> bool:
+        """May a call proceed now? In half-open exactly one probe is
+        admitted until its outcome is recorded."""
+        with self._lock:
+            self._maybe_half_open()
+            if self._s.state == "closed":
+                return True
+            if self._s.state == "half-open" and not self._s.probing:
+                self._s.probing = True
+                return True
+            return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            was_open = self._s.state != "closed"
+            self._s = _BreakerState()
+            if was_open:
+                self._set_state_gauge()
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self._s.failures += 1
+            self._s.probing = False
+            if self._s.state == "half-open" or (
+                self._s.state == "closed"
+                and self._s.failures >= self.failure_threshold
+            ):
+                self._s.state = "open"
+                self._s.opened_at = self._clock()
+                self._set_state_gauge()
+                if self.key:
+                    CIRCUIT_OPENS.labels(self.key).inc()
+
+    def call(self, fn: Callable[[], Any]) -> Any:
+        """Run `fn` through the breaker: CircuitOpenError when open;
+        records success or failure from the call's outcome."""
+        if not self.allow():
+            raise CircuitOpenError(self.key, self.open_until())
+        try:
+            result = fn()
+        except BaseException:
+            self.record_failure()
+            raise
+        self.record_success()
+        return result
+
+
+class CircuitBreakerRegistry:
+    """Thread-safe per-key breaker map (one breaker per endpoint)."""
+
+    def __init__(
+        self,
+        failure_threshold: int = 8,
+        reset_timeout: float = 5.0,
+        clock: Callable[[], float] = time.monotonic,
+    ) -> None:
+        self._kw = dict(
+            failure_threshold=failure_threshold,
+            reset_timeout=reset_timeout,
+            clock=clock,
+        )
+        self._breakers: dict = {}
+        self._lock = threading.Lock()
+
+    def get(self, key: str) -> CircuitBreaker:
+        with self._lock:
+            b = self._breakers.get(key)
+            if b is None:
+                b = CircuitBreaker(key, **self._kw)  # type: ignore[arg-type]
+                self._breakers[key] = b
+            return b
+
+
+#: Control-plane HTTP (Session): quick first retry, bounded tail.
+API_RETRY = RetryPolicy(max_attempts=6, base_delay=0.1, max_delay=5.0)
 
 #: Object-store transfers: per-file retries; the caller (the checkpoint
 #: writer) runs on a background thread, so a longer tail is affordable.

@@ -1,12 +1,12 @@
-"""Core API of the port, off-cluster: the trial<->platform surface that
-``Trainer.fit`` calls (port of ``determined_tpu/core``).
+"""Core API of the port: the trial<->platform surface that ``Trainer.fit``
+calls (port of ``determined_tpu/core``).
 
-Only the off-cluster ("dummy") contexts are ported: metrics are kept in
-memory, checkpoints go to a local shared-filesystem directory, the
-searcher hands out one operation, preemption never fires and there is one
-process. On-cluster mode (``DTPU_MASTER`` set) comes with the exec slice
-on the cluster (``exec/harness.py`` runs off it) and a multi-process gang
-with the multi-device slice; each is refused by name.
+``init()`` returns the live contexts on a cluster (``DTPU_MASTER`` set:
+metrics, heartbeats, checkpoints, searcher operations and preemption
+through the master's REST API) and the dummy ones off it (metrics kept in
+memory, checkpoints in a local shared-filesystem directory, one searcher
+operation, no preemption). A gang of one process: a multi-process gang
+comes with the multi-device slice and is refused by name.
 """
 from determined_tpu_torch.core._checkpoint import (
     METADATA_FILE,
@@ -16,12 +16,16 @@ from determined_tpu_torch.core._checkpoint import (
 )
 from determined_tpu_torch.core._context import Context, _dummy_init, init
 from determined_tpu_torch.core._distributed import DummyDistributedContext
-from determined_tpu_torch.core._preempt import DummyPreemptContext
+from determined_tpu_torch.core._preempt import (
+    DummyPreemptContext,
+    PreemptContext,
+)
 from determined_tpu_torch.core._searcher import (
     DummySearcherContext,
+    SearcherContext,
     SearcherOperation,
 )
-from determined_tpu_torch.core._train import DummyTrainContext
+from determined_tpu_torch.core._train import DummyTrainContext, TrainContext
 
 __all__ = [
     "Context",
@@ -33,6 +37,9 @@ __all__ = [
     "DummySearcherContext",
     "DummyTrainContext",
     "METADATA_FILE",
+    "PreemptContext",
+    "SearcherContext",
     "SearcherOperation",
+    "TrainContext",
     "merge_metadata",
 ]

@@ -1,12 +1,17 @@
-"""CheckpointContext: checkpoint upload/download + metadata, off-cluster.
+"""CheckpointContext: checkpoint upload/download + metadata.
 
-Port of ``determined_tpu/core/_checkpoint.py`` for a gang of one with no
-master session: ``upload`` writes the data files, then ``metadata.json``,
-then commits ONE manifest over all of them (the commit point), under a
-fresh uuid ``storage_id``; ``restore_path`` yields a verified local
-directory. ``shard=True`` is accepted with a gang of one (it is then the
-same upload); a multi-process gang comes with the multi-device slice, and
-reporting to the master (the ``Session``) with the exec slice.
+Port of ``determined_tpu/core/_checkpoint.py`` for a gang of one:
+``upload`` writes the data files, then ``metadata.json``, then commits ONE
+manifest over all of them (the commit point), under a fresh uuid
+``storage_id``, and — on a cluster — registers the committed checkpoint
+with the master (``POST /api/v1/checkpoints``: uuid, task, allocation,
+trial, resources, metadata, state ``COMPLETED``). ``restore_path`` yields
+a verified local directory; ``restore_candidates`` lists the fallback
+chain, on a cluster the trial's earlier completed checkpoints newest
+first (``GET /api/v1/trials/<id>/checkpoints``). ``shard=True`` is
+accepted with a gang of one (it is then the same upload); an upload from
+a multi-process gang comes with the multi-device slice (ROADMAP queue 1,
+item 4).
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import tempfile
 import uuid
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
-from determined_tpu_torch.core._distributed import DummyDistributedContext
+from determined_tpu_torch.common.api_session import Session
 from determined_tpu_torch.storage.base import MANIFEST_FILE, StorageManager
 
 logger = logging.getLogger("determined_tpu_torch.core")
@@ -44,11 +49,19 @@ def merge_metadata(all_metadata: List[Optional[Dict[str, Any]]]) -> Dict[str, An
 class CheckpointContext:
     def __init__(
         self,
-        distributed: DummyDistributedContext,
+        distributed: Any,
         storage_manager: StorageManager,
+        session: Optional[Session] = None,
+        task_id: str = "",
+        allocation_id: str = "",
+        trial_id: Optional[int] = None,
     ) -> None:
         self._dist = distributed
         self._storage = storage_manager
+        self._session = session
+        self._task_id = task_id
+        self._allocation_id = allocation_id
+        self._trial_id = trial_id
 
     # -- save --------------------------------------------------------------
     def upload(
@@ -61,11 +74,11 @@ class CheckpointContext:
     ) -> str:
         """Upload `ckpt_dir` (or only `paths` in it) as a new checkpoint;
         returns its storage_id. Data files first, then ``metadata.json``,
-        then the manifest over both."""
+        then the manifest over both, then the report to the master."""
         if self._dist.size > 1:
             raise NotImplementedError(
                 "checkpoint upload from a multi-process gang comes with the "
-                "multi-device slice"
+                "multi-device slice (ROADMAP queue 1, item 4)"
             )
         del shard  # a gang of one: the sharded upload is the plain one
         storage_id = str(uuid.uuid4())
@@ -83,8 +96,29 @@ class CheckpointContext:
                 tmp, storage_id, paths=[METADATA_FILE], manifest=False,
                 want_digests=True,
             ))
+        # Commit point: manifest last, report after — the master only
+        # ever hears of fully committed checkpoints.
         self._storage.commit_manifest(storage_id, digests)
+        self._report(storage_id, sorted(my_files) + [METADATA_FILE,
+                                                     MANIFEST_FILE], merged_md)
         return storage_id
+
+    def _report(self, storage_id: str, resources: List[str],
+                metadata: Dict[str, Any]) -> None:
+        if self._session is None:
+            return
+        self._session.post(
+            "/api/v1/checkpoints",
+            json_body={
+                "uuid": storage_id,
+                "task_id": self._task_id,
+                "allocation_id": self._allocation_id,
+                "trial_id": self._trial_id,
+                "resources": resources,
+                "metadata": metadata,
+                "state": "COMPLETED",
+            },
+        )
 
     # -- load --------------------------------------------------------------
     @contextlib.contextmanager
@@ -97,10 +131,27 @@ class CheckpointContext:
             yield path
 
     def restore_candidates(self, storage_id: Optional[str]) -> List[str]:
-        """Restore order: `storage_id`, then (on a cluster) earlier
-        checkpoints newest first. Off-cluster there is nothing to fall
-        back to: just the requested id."""
-        return [storage_id] if storage_id else []
+        """Restore order: `storage_id`, then (on a cluster) the trial's
+        earlier COMPLETED checkpoints newest first — the fallback chain
+        when the newest turns out corrupt. Off-cluster there is nothing to
+        fall back to: just the requested id."""
+        candidates = [storage_id] if storage_id else []
+        if self._session is None or self._trial_id is None:
+            return candidates
+        try:
+            rows = self._session.get(
+                f"/api/v1/trials/{self._trial_id}/checkpoints"
+            ).get("checkpoints", [])
+        except Exception as e:  # noqa: BLE001 — discovery is best-effort
+            logger.warning("could not list fallback checkpoints: %s", e)
+            return candidates
+        rows = [r for r in rows if r.get("state", "COMPLETED") == "COMPLETED"]
+        rows.sort(key=lambda r: float(r.get("report_time") or 0), reverse=True)
+        for row in rows:
+            uuid_ = row.get("uuid")
+            if uuid_ and uuid_ not in candidates:
+                candidates.append(uuid_)
+        return candidates
 
     def download(
         self, storage_id: str, dst: str, selector: Optional[Callable[[str], bool]] = None
@@ -123,3 +174,7 @@ class CheckpointContext:
 
 class DummyCheckpointContext(CheckpointContext):
     """Off-cluster mode: local storage, no master."""
+
+    def __init__(self, distributed: Any,
+                 storage_manager: StorageManager) -> None:
+        super().__init__(distributed, storage_manager, session=None)

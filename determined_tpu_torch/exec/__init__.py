@@ -1,4 +1,5 @@
-"""Task-side exec layer of the port, off the cluster (port of
-``determined_tpu/exec``): harness (trial runner), builtin_trials
-(fixture/example trials). The on-cluster launch chain (prep_and_run,
-rendezvous, the shippers) comes with the exec slice on the cluster."""
+"""Task-side exec layer of the port (port of ``determined_tpu/exec``):
+harness (the trial runner, on and off the cluster), builtin_trials
+(fixture and example trials), prep_and_run (the task launch chain:
+context, rendezvous for a gang of one, entrypoint) and proxy_util (proxy
+registration)."""

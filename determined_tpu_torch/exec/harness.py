@@ -1,35 +1,39 @@
-"""Trial harness, off the cluster: entrypoint class → core.init() →
-Trainer.fit (port of ``determined_tpu/exec/harness.py``).
+"""Trial harness: entrypoint class → core.init() → Trainer.fit (port of
+``determined_tpu/exec/harness.py``).
 
 Imports the trial class named by the entrypoint ("pkg.module:TrialClass"),
 builds the Trainer from the experiment config's searcher / period /
-observability / health sections, and trains to the searcher's length.
-Exit code 0 on a clean finish; 1, with the traceback logged as "trial
-failed", when the trial raises.
+observability / health sections, and trains until the searcher closes
+the trial. Exit code 0 on a clean finish or a graceful preemption (the
+trial checkpoints, acknowledges and exits); 1, with the traceback logged
+as "trial failed", when the trial raises.
 
-The trial comes from the same ``DTPU_*`` variables that
-``ClusterInfo.to_env()`` writes (``_info.TrialInfo.from_env``), without
-``DTPU_MASTER``, and runs against the off-cluster core contexts — the
-path ``core.init()`` takes without a master, reached through the harness.
-So the searcher is one operation of ``searcher.max_length`` (the length a
-``single`` search gives its one trial; one batch without it), and
-checkpoints go to the ``shared_fs`` directory of
-``DTPU_CHECKPOINT_STORAGE``.
+The trial comes from the ``DTPU_*`` variables that ``ClusterInfo.to_env()``
+writes. With ``DTPU_MASTER`` set it runs on ``core.init()``'s cluster
+contexts: the master's searcher operations, metrics, heartbeats,
+registered checkpoints and preemption, inside the ``trial.run`` span (a
+child of ``DTPU_TRACEPARENT``), with the continuous profiler
+(``DTPU_PROFILE=1``) and the structured log shipper (``DTPU_LOG_SHIP=1``)
+started for the identity ``trial:<id>.r<rank>`` and flushed, with the span
+shipper, on the way out. Without it the path is the off-cluster one: one
+searcher operation of ``searcher.max_length`` (one batch without it) and
+checkpoints in the ``shared_fs`` directory of ``DTPU_CHECKPOINT_STORAGE``.
 
 The device follows ``DTPU_JAX_PLATFORM`` (the variable the master sets
 from ``environment.jax_platform``): ``cpu`` runs the plain PyTorch path
 on the CPU; unset runs on the card (no card: ``CudaUnavailableError``,
 exit 1).
 
-Refused by name: ``DTPU_MASTER`` (the master session, the trial spans and
-the on-cluster contexts come with the exec slice on the cluster, ROADMAP
-queue 1, item 3), the profile and log shippers (``DTPU_PROFILE=1``,
-``DTPU_LOG_SHIP=1``; item 3), a device mesh (item 4) and checkpoint
-storage other than ``shared_fs``. Not ported: the elastic resize loop
-(items 3 and 5) and the divergence report to the master (item 4).
+Refused by name: a device mesh and a gang of more than one process (the
+multi-device slice, ROADMAP queue 1, item 4) and checkpoint storage other
+than ``shared_fs``. Not ported: the elastic resize loop (item 5) and the
+divergence report to the master (item 4).
 
 Launch: ``DTPU_ENTRYPOINT=pkg.module:Trial DTPU_TRIAL_ID=1 ...
-python -m determined_tpu_torch.exec.harness``.
+python -m determined_tpu_torch.exec.harness``; under the reference's
+agent, an experiment whose entrypoint is ``env
+DTPU_ENTRYPOINT=pkg.module:Trial python -m
+determined_tpu_torch.exec.harness``.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ import tempfile
 from typing import Any, Dict, Optional
 
 from determined_tpu_torch import _info, core, storage
+from determined_tpu_torch.common import logship, profiling, trace
 from determined_tpu_torch.trainer import Batch, Epoch, Trainer
 from determined_tpu_torch.trainer._units import TrainUnit
 
@@ -80,24 +85,6 @@ def parse_unit(spec: Any) -> Optional[TrainUnit]:
     raise ValueError(f"bad train-unit spec {spec!r}")
 
 
-def _refuse_cluster() -> None:
-    if os.environ.get("DTPU_MASTER") is not None:
-        raise NotImplementedError(
-            "the harness on a cluster (DTPU_MASTER is set) is not ported "
-            "yet: the master session, the trial spans and the on-cluster "
-            "contexts come with the exec slice on the cluster (ROADMAP "
-            "queue 1, item 3); unset DTPU_MASTER to run off the cluster"
-        )
-    for var, plane in (("DTPU_PROFILE", "continuous-profiling"),
-                       ("DTPU_LOG_SHIP", "structured log")):
-        if os.environ.get(var) == "1":
-            raise NotImplementedError(
-                f"{var}=1: the {plane} shipper sends to the master and "
-                "comes with the exec slice on the cluster (ROADMAP queue "
-                "1, item 3)"
-            )
-
-
 def _device() -> Optional[str]:
     """``DTPU_JAX_PLATFORM`` → the Trainer's device: "cpu", or None (the
     card)."""
@@ -125,44 +112,76 @@ def _checkpoint_dir() -> Optional[str]:
 
 
 def run(entrypoint: str) -> int:
-    _refuse_cluster()
-    info = _info.TrialInfo.from_env()
+    _info.reset_cluster_info_cache()
+    cluster = _info.get_cluster_info()
+    info = cluster.trial if cluster is not None else _info.TrialInfo.from_env()
     if info is None:
         raise RuntimeError("harness needs a trial env (DTPU_TRIAL_ID is not set)")
     device = _device()
+    # The profiling and structured-log planes, when the master enabled
+    # them in the task env; both resolve no destination off the cluster.
+    rank = int(os.environ.get("DTPU_ALLOC_RANK", "0"))
+    target = f"trial:{info.trial_id}.r{rank}"
+    master_url = cluster.master_url if cluster is not None else None
+    token = cluster.session_token if cluster is not None else ""
+    profiling.maybe_start_from_env(target=target, master_url=master_url,
+                                   token=token)
+    logship.maybe_start_from_env(
+        target=target, master_url=master_url, token=token,
+        labels={"experiment": str(info.experiment_id),
+                "trial": str(info.trial_id), "rank": str(rank),
+                "task": str(cluster.task_id if cluster else "")},
+    )
+    try:
+        return _run(entrypoint, info, device)
+    finally:
+        # Ship the tail now: trial.run must reach the master's trace store
+        # before this short-lived process exits (atexit is the backstop).
+        trace.flush_shipper()
+        profiling.flush_profiler()
+        logship.flush_shipping()
+
+
+def _run(entrypoint: str, info: _info.TrialInfo, device: Optional[str]) -> int:
     cfg: Dict[str, Any] = info.config
     scfg = cfg.get("searcher", {})
     trial_cls = import_entrypoint(entrypoint)
     trial = trial_cls(info.hparams)
     task_id = os.environ.get("DTPU_TASK_ID") or f"trial-{info.trial_id}"
     try:
-        ctx = core.init(checkpoint_storage=_checkpoint_dir())
-        mesh = resolve_mesh(info.hparams, cfg)
-        tb_dir = None
-        if cfg.get("tensorboard", True):
-            tb_dir = os.path.join(tempfile.gettempdir(), f"dtpu-tb-{task_id}")
-        trainer = Trainer(
-            trial,
-            ctx,
-            device=device,
-            mesh=mesh,
-            seed=info.trial_seed,
-            searcher_metric=scfg.get("metric", "loss"),
-            smaller_is_better=bool(scfg.get("smaller_is_better", True)),
-            profiling=bool(cfg.get("profiling", {}).get("enabled", False)),
-            tensorboard_dir=tb_dir,
-            health=cfg.get("health"),
-        )
-        logger.info("trial %d rank %d entering fit (restart) on %s",
-                    info.trial_id, int(os.environ.get("DTPU_ALLOC_RANK", "0")),
-                    trainer.device)
-        trainer.fit(
-            max_length=parse_unit(scfg.get("max_length")),
-            validation_period=parse_unit(cfg.get("min_validation_period")),
-            checkpoint_period=parse_unit(cfg.get("min_checkpoint_period")),
-            report_period=parse_unit(cfg.get("scheduling_unit")) or Batch(10),
-            latest_checkpoint=info.latest_checkpoint,
-        )
+        # Trial lifecycle span: a child of the DTPU_TRACEPARENT the launch
+        # chain injected, and the ambient parent of every master call the
+        # trial makes.
+        with trace.span("trial.run", {"trial.id": info.trial_id,
+                                      "task.id": task_id}), \
+                core.init(checkpoint_storage=_checkpoint_dir()) as ctx:
+            mesh = resolve_mesh(info.hparams, cfg)
+            tb_dir = None
+            if cfg.get("tensorboard", True):
+                tb_dir = os.path.join(tempfile.gettempdir(), f"dtpu-tb-{task_id}")
+            trainer = Trainer(
+                trial,
+                ctx,
+                device=device,
+                mesh=mesh,
+                seed=info.trial_seed,
+                searcher_metric=scfg.get("metric", "loss"),
+                smaller_is_better=bool(scfg.get("smaller_is_better", True)),
+                profiling=bool(cfg.get("profiling", {}).get("enabled", False)),
+                tensorboard_dir=tb_dir,
+                health=cfg.get("health"),
+            )
+            logger.info("trial %d rank %d entering fit (restart) on %s",
+                        info.trial_id,
+                        int(os.environ.get("DTPU_ALLOC_RANK", "0")),
+                        trainer.device)
+            trainer.fit(
+                max_length=parse_unit(scfg.get("max_length")),
+                validation_period=parse_unit(cfg.get("min_validation_period")),
+                checkpoint_period=parse_unit(cfg.get("min_checkpoint_period")),
+                report_period=parse_unit(cfg.get("scheduling_unit")) or Batch(10),
+                latest_checkpoint=info.latest_checkpoint,
+            )
         return 0
     except Exception:  # noqa: BLE001 — the trial's failure is the exit code
         logger.exception("trial failed")

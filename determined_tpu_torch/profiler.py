@@ -10,8 +10,10 @@ the CUDA caching allocator, batches them, and reports them under the
 `torch_profiler_trace` is the counterpart of the reference's
 `jax_profiler_trace`: a ``torch.profiler`` capture of host and card
 activity, written as a Chrome trace (TensorBoard's profile plugin and
-Perfetto read it). The operator-triggered bounded capture
-(`run_bounded_capture`) needs the master and comes with the exec slice.
+Perfetto read it). `run_bounded_capture` runs an operator's capture
+directive off a step loop (the serving replica's preemption poll delivers
+it): a bounded wall-time trace, uploaded through a storage manager built
+from the directive and reported on the master's capture record.
 """
 from __future__ import annotations
 
@@ -206,3 +208,61 @@ def torch_profiler_trace(logdir: str):
         prof.stop()
         prof.export_chrome_trace(os.path.join(
             logdir, f"{socket.gethostname()}.{os.getpid()}.pt.trace.json"))
+
+
+def run_bounded_capture(
+    session: Any,
+    cap: Dict[str, Any],
+    *,
+    seconds: Optional[float] = None,
+    base_dir: Optional[str] = None,
+) -> None:
+    """Execute a profile-capture directive outside a step loop (serving
+    replicas): trace for a bounded wall time, upload the artifact as
+    ``profile-capture-<id>`` through a storage manager built from the
+    directive's ``storage`` config, and register the result on ``POST
+    /api/v1/profiles/captures/<id>/complete``. Never raises: a capture is
+    observability, not work."""
+    import shutil
+    import tempfile
+
+    cid = str(cap.get("id", ""))
+    if not cid:
+        return
+    # The directive's `steps` bounds the trace; off a step loop it reads
+    # as seconds (clamped).
+    budget = seconds if seconds is not None else min(
+        max(float(cap.get("steps", 3) or 3), 0.5), 30.0
+    )
+    logdir = tempfile.mkdtemp(prefix="dtpu-torch-capture-")
+    try:
+        try:
+            with torch_profiler_trace(logdir):
+                time.sleep(budget)
+        except Exception as e:  # noqa: BLE001
+            _report_capture(session, cid, error=f"trace failed: {e}")
+            return
+        try:
+            from determined_tpu_torch.storage.base import from_config
+
+            storage = from_config(cap.get("storage"), base_dir=base_dir or (
+                os.path.join(tempfile.gettempdir(), "dtpu_captures")))
+            storage_id = f"profile-capture-{cid}"
+            storage.upload(logdir, storage_id)
+            _report_capture(session, cid, artifact=storage_id)
+        except Exception as e:  # noqa: BLE001
+            _report_capture(session, cid, error=f"upload failed: {e}")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+
+
+def _report_capture(
+    session: Any, cid: str, artifact: str = "", error: str = ""
+) -> None:
+    try:
+        session.post(
+            f"/api/v1/profiles/captures/{cid}/complete",
+            json_body={"artifact": artifact, "error": error},
+        )
+    except Exception:  # noqa: BLE001 — registration loss is survivable
+        logger.warning("capture %s completion report failed", cid)

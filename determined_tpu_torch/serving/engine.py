@@ -42,9 +42,12 @@ Fault sites (``common/faults.py``): ``serving.admission`` (shed),
 ``serving.page_alloc`` (pool exhaustion, in ``PagePool.alloc``),
 ``serving.prefix_cache`` (poisoned lookup → counted full prefill) and
 ``serving.speculation`` (→ counted plain one-token decode). The
-``dtpu_serving_*`` metrics are the reference's; its per-request trace
-spans are not ported (the trace plane), and ``UnsupportedServingFeature``
-stays for options a later slice brings.
+``dtpu_serving_*`` metrics are the reference's, and so are the
+per-request W3C spans: ``serving.request`` with its ``serving.queue`` /
+``serving.prefill`` / ``serving.decode`` children, parented to the
+submitting client's ``traceparent`` (a traceless request roots a fresh
+trace, fixed at admission) and exported through ``common/trace.py``.
+``UnsupportedServingFeature`` stays for options a later slice brings.
 """
 from __future__ import annotations
 
@@ -64,6 +67,7 @@ import torch
 from determined_tpu_torch._device import resolve_device
 from determined_tpu_torch.batch_inference import pack_sequences
 from determined_tpu_torch.common import faults
+from determined_tpu_torch.common import trace as trace_mod
 from determined_tpu_torch.common.metrics import REGISTRY as METRICS
 from determined_tpu_torch.models.gpt import load_jax_params
 from determined_tpu_torch.ops.paged_attention import paged_pages_read
@@ -466,7 +470,9 @@ class GenerationEngine:
                 max_new_tokens=mnt,
                 deadline=deadline,
                 temperature=float(temperature),
-                trace=trace,
+                # Trace identity is fixed at admission (traceless clients
+                # get a fresh root), so the exemplars and the spans agree.
+                trace=trace or (trace_mod.new_trace_id(), None),
                 t_submit=now,
             )
             self._queue.append(req)
@@ -773,8 +779,14 @@ class GenerationEngine:
         req.last_token = first
         req.tokens.append(first)
         req.t_first_token = now
-        TTFT.observe(now - req.t_submit,
-                     trace_id=req.trace[0] if req.trace else None)
+        # Exemplar: only a trace whose spans the head-sample will ship (a
+        # pure function of the trace id) — a sampled-out one would dangle.
+        TTFT.observe(
+            now - req.t_submit,
+            trace_id=(req.trace[0]
+                      if trace_mod._keep_span(req.trace[0], False, 0.0)
+                      else None),
+        )
         TOKENS.inc()
         with self._stats_lock:
             self._tokens_emitted += 1
@@ -973,10 +985,16 @@ class GenerationEngine:
         req.finish_reason = reason
         req.t_done = time.time()
         REQUESTS.labels("ok" if reason in ("length", "eos") else reason).inc()
+        # Errored requests ship their spans (tail policy), so their trace
+        # ids are safe exemplars; head-sampled-out healthy ones would not.
+        e2e_linkable = reason not in ("length", "eos") or trace_mod._keep_span(
+            req.trace[0], False, 0.0
+        )
         E2E.observe(req.t_done - req.t_submit,
-                    trace_id=req.trace[0] if req.trace else None)
+                    trace_id=req.trace[0] if e2e_linkable else None)
         with self._stats_lock:
             self._done_count += 1
+        self._emit_spans(req)
         req.events.put(("done", {
             "reason": reason,
             "request_id": req.request_id,
@@ -985,6 +1003,33 @@ class GenerationEngine:
             "ttft_ms": round((req.t_first_token - req.t_submit) * 1e3, 3),
             "total_ms": round((req.t_done - req.t_submit) * 1e3, 3),
         }))
+
+    def _emit_spans(self, req: Request) -> None:
+        """Per-request W3C spans: submit → queue → prefill → first token →
+        done, parented to the submitting client's traceparent."""
+        trace_id, parent = req.trace
+        root = trace_mod.new_span_id()
+        trace_mod.export_span(
+            "serving.request", trace_id=trace_id, span_id=root,
+            parent_span_id=parent, start=req.t_submit, end=req.t_done,
+            attributes={
+                "serving.request_id": req.request_id,
+                "serving.reason": req.finish_reason,
+                "serving.prompt_tokens": len(req.prompt),
+                "serving.generated": len(req.tokens),
+            },
+            error=req.finish_reason not in ("length", "eos"),
+        )
+        for name, start, end in (
+            ("serving.queue", req.t_submit, req.t_admit),
+            ("serving.prefill", req.t_admit, req.t_first_token),
+            ("serving.decode", req.t_first_token, req.t_done),
+        ):
+            if end >= start > 0:
+                trace_mod.export_span(
+                    name, trace_id=trace_id, span_id=trace_mod.new_span_id(),
+                    parent_span_id=root, start=start, end=end,
+                )
 
     # -- bench support ------------------------------------------------------
     def decode_latency_compare(self, iters: int = 5) -> Dict[str, float]:

@@ -25,13 +25,18 @@ protocol; every route flows through one instrumented dispatch:
 - ``GET /metrics`` — the process-global registry, Prometheus text format
   with exemplars.
 
-A W3C ``traceparent`` header's trace id rides with the request and names
-it in the TTFT and latency exemplars; the span export of the reference's
-trace plane is not ported. ``main`` (``python -m
-determined_tpu_torch.serving.service``) serves off-cluster only: proxy
-registration, the preemption poll, profiling and log shipping come with
-the exec layer, and ``main`` refuses by name when the cluster's
-``DTPU_MASTER`` and ``DTPU_ALLOCATION_ID`` are set.
+A W3C ``traceparent`` header (``common/trace.parse_traceparent``) parents
+the request's spans (``serving.request`` → queue / prefill / decode) and
+names its trace in the TTFT and latency exemplars.
+
+``main`` (``python -m determined_tpu_torch.serving.service``) serves off
+the cluster until SIGINT or SIGTERM, and as a task of the master when
+``DTPU_MASTER`` and ``DTPU_ALLOCATION_ID`` are set (a SERVING command):
+it registers its port on the allocation's proxy route, starts the
+profile and log shippers when the task env enables them (identity
+``serving:<task>``), and polls the allocation's preemption signal — a
+capture directive on the poll runs a bounded ``torch.profiler`` capture,
+``preempt: true`` drains the engine and exits 0.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ import torch
 
 from determined_tpu_torch._device import resolve_device
 from determined_tpu_torch.common.metrics import REGISTRY as METRICS
+from determined_tpu_torch.common.trace import parse_traceparent
 from determined_tpu_torch.models import gpt as gpt_mod
 from determined_tpu_torch.serving.config import ServingConfig
 from determined_tpu_torch.serving.engine import (
@@ -58,7 +64,6 @@ from determined_tpu_torch.serving.engine import (
     PromptTooLong,
     Request,
     Shed,
-    UnsupportedServingFeature,
 )
 from determined_tpu_torch.serving.fixture import fixture_model_config
 from determined_tpu_torch.storage.base import verify_checkpoint_dir
@@ -86,9 +91,6 @@ SERVING_LATENCY = METRICS.histogram(
 
 #: generous default body cap — prompts are token lists, not uploads.
 MAX_BODY_BYTES = 8 * 1024 * 1024
-
-_TRACEPARENT_RE = re.compile(
-    r"^[0-9a-f]{2}-([0-9a-f]{32})-([0-9a-f]{16})-[0-9a-f]{2}$")
 
 Handler = Callable[[Dict[str, Any], Dict[str, List[str]]], Any]
 
@@ -147,13 +149,6 @@ def _num_field(body: Dict[str, Any], key: str) -> Optional[float]:
     if isinstance(v, bool) or not isinstance(v, (int, float)):
         raise _HttpError(400, f"{key} must be a number")
     return float(v)
-
-
-def parse_traceparent(header: Optional[str]) -> Optional[Tuple[str, str]]:
-    """(trace_id, parent_span_id) of a W3C ``traceparent`` header, or
-    None when it is absent or malformed."""
-    m = _TRACEPARENT_RE.match((header or "").strip().lower())
-    return (m.group(1), m.group(2)) if m else None
 
 
 def build_serving_routes(
@@ -419,10 +414,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     [--host H] [--port P] [--config JSON] [--device cpu]``.
 
     Reads the serving section from ``--config`` or DTPU_SERVING_CONFIG
-    (JSON), serves on the given port (0: an OS-assigned one, logged) until
-    SIGINT or SIGTERM, then drains. Off-cluster only: on a cluster
-    (DTPU_MASTER and DTPU_ALLOCATION_ID set) it refuses by name, because
-    proxy registration and the preemption poll are not ported."""
+    (JSON, injected by the master's SERVING task launch) and serves on the
+    given port (0: an OS-assigned one, printed). Off the cluster it serves
+    until SIGINT or SIGTERM; as a task of the master it registers the port
+    through the allocation's proxy route and polls the allocation's
+    preemption signal until it fires (or SIGTERM). Either way it drains
+    and exits 0."""
     import argparse
 
     parser = argparse.ArgumentParser()
@@ -432,13 +429,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
     args = parser.parse_args(argv)
-    if os.environ.get("DTPU_MASTER") and os.environ.get("DTPU_ALLOCATION_ID"):
-        raise UnsupportedServingFeature(
-            "serving.service main on a cluster (DTPU_MASTER and "
-            "DTPU_ALLOCATION_ID are set) is not ported yet: proxy "
-            "registration, the preemption poll, profiling and log shipping "
-            "come with the exec layer; unset them to serve off-cluster"
-        )
     raw = args.config or os.environ.get("DTPU_SERVING_CONFIG", "") or "{}"
     engine = build_engine(json.loads(raw), device=args.device)
     engine.start()
@@ -446,14 +436,60 @@ def main(argv: Optional[List[str]] = None) -> int:
     server.start()
     logger.info("generation service on %s", server.url)
     print(f"generation service on {server.url}", flush=True)
+    from determined_tpu_torch.common import logship as logship_mod
+    from determined_tpu_torch.common import profiling as profiling_mod
+    from determined_tpu_torch.exec.proxy_util import register_proxy
+
+    register_proxy(server.port)
+    task_id = os.environ.get("DTPU_TASK_ID") or "serving"
+    # Continuous profiling of this replica's threads (decode loop, SSE
+    # writers) and its structured log lines, when the task env enables
+    # them.
+    profiling_mod.maybe_start_from_env(target=f"serving:{task_id}")
+    logship_mod.maybe_start_from_env(
+        target=f"serving:{task_id}", labels={"task": task_id},
+    )
+    master = os.environ.get("DTPU_MASTER")
+    alloc = os.environ.get("DTPU_ALLOCATION_ID")
+    session = None
+    if master and alloc:
+        from determined_tpu_torch.common.api_session import Session
+
+        session = Session(
+            master, token=os.environ.get("DTPU_SESSION_TOKEN", ""),
+            max_retries=1,
+        )
     done = threading.Event()
     if threading.current_thread() is threading.main_thread():
         signal.signal(signal.SIGTERM, lambda *_: done.set())
     try:
-        done.wait()
+        while not done.is_set():
+            if session is None:
+                done.wait()
+                continue
+            # The idle loop is the replica's control channel: a short
+            # long-poll (a capture directive rides back on its return).
+            try:
+                resp = session.get(
+                    f"/api/v1/allocations/{alloc}/signals/preemption",
+                    params={"timeout_seconds": 5}, timeout=15,
+                ) or {}
+            except Exception:  # noqa: BLE001 — master away; keep serving
+                done.wait(5)  # fixed-cadence signal poll, not a retry
+                continue
+            cap = resp.get("profile_capture")
+            if cap:
+                from determined_tpu_torch.profiler import run_bounded_capture
+
+                run_bounded_capture(session, cap)
+            if resp.get("preempt"):
+                logger.info("preemption signal; draining and exiting")
+                break
     except KeyboardInterrupt:
         pass
     finally:
+        profiling_mod.flush_profiler()
+        logship_mod.flush_shipping()
         server.stop()
         engine.stop()
     return 0

@@ -392,7 +392,7 @@ def load_pytree(directory: str, like: Any, shardings: Optional[Any] = None) -> A
     device; any other leaf as a numpy array of its dtype.
 
     ``shardings`` (the reference's lazy restore onto a device mesh) is
-    elastic reshard, a later item (``ROADMAP.md`` queue 1, item 7).
+    elastic reshard, a later item (``ROADMAP.md`` queue 1, item 5).
     """
     if shardings is not None:
         raise NotImplementedError(

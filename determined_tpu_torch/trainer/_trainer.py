@@ -1,7 +1,7 @@
 """Trainer: the training loop that drives a TorchTrial on one device.
 
-Port of ``determined_tpu/trainer/_trainer.py``, trimmed to one device and
-the off-cluster core contexts. Same control shape — iterate searcher ops,
+Port of ``determined_tpu/trainer/_trainer.py``, trimmed to one device.
+Same control shape — iterate searcher ops,
 train to each op's length with periodic validation, checkpoint and
 report boundaries — and the same step:
 
@@ -36,15 +36,27 @@ on a background writer. ``fit(latest_checkpoint=...)`` verifies and
 restores one (a JAX-written one too) and fast-forwards the data stream
 past the batches it consumed.
 
+On a cluster (``core.init()``'s live contexts) the loop also carries the
+platform's telemetry, as the reference does: the ``trial.fit`` span
+around the loop and the ``trial.first_step`` span (fit start → the first
+step's return, the lifecycle trace's anchor); ``profiling.set_phase``
+tags (``data_wait``, ``h2d_put``, ``step``, ``report``, ``checkpoint``)
+for the sampling profiler; and the operator's profile capture, which
+arrives on the heartbeat: at the next report boundary a bounded
+``torch.profiler`` trace (``profiler.torch_profiler_trace``) starts,
+covers the directive's ``steps``, is uploaded through the trial's storage
+manager as ``profile-capture-<id>`` and reported on ``POST
+/api/v1/profiles/captures/<id>/complete``.
+
 The step runs on CUDA unless the caller passes ``device="cpu"``. Refused
 by name: a device mesh and ``health.divergence_check_period`` (the
-replica audit; the multi-device slice), ``resume_event="resize"`` (the
-elastic slice) and the orbax checkpoint format (it needs JAX).
-The operator-triggered profile capture arrives on the master's heartbeat,
-which the off-cluster context never delivers.
+replica audit; the multi-device slice), ``resume_event="resize"`` and a
+resize directive from the master (the elastic slice) and the orbax
+checkpoint format (it needs JAX).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -57,9 +69,13 @@ import torch
 
 from determined_tpu_torch import core as core_mod
 from determined_tpu_torch._device import resolve_device
+from determined_tpu_torch.common import logship as logship_mod
+from determined_tpu_torch.common import profiling as profiling_mod
+from determined_tpu_torch.common import trace as trace_mod
+from determined_tpu_torch.core._preempt import refuse_resize
 from determined_tpu_torch.core._searcher import DummySearcherContext
 from determined_tpu_torch.models.base import Model
-from determined_tpu_torch.profiler import ProfilerAgent
+from determined_tpu_torch.profiler import ProfilerAgent, torch_profiler_trace
 from determined_tpu_torch.storage.base import CorruptCheckpointError
 from determined_tpu_torch.tensorboard import EventFileWriter, TensorboardManager
 from determined_tpu_torch.trainer import _checkpoint as ckpt_io
@@ -170,6 +186,12 @@ class Trainer:
         self._restoring_for_rollback = False
         self._sentinel_reason: Optional[str] = None
         self._step_flops: Optional[float] = None
+        # The operator-triggered torch.profiler capture in flight.
+        self._capture_cm: Any = None
+        self._capture_dir: Optional[str] = None
+        self._capture_id: Optional[str] = None
+        self._capture_until: Optional[int] = None
+        self._capture_storage: Optional[Dict[str, Any]] = None
 
         # Observability (chief only): system and card-memory samples to
         # the profiling group, tfevents scalars for TensorBoard.
@@ -182,8 +204,9 @@ class Trainer:
             if tensorboard_dir:
                 self._tb_writer = EventFileWriter(tensorboard_dir)
                 # Off-cluster there is no task id: the reference's "local".
+                task_id = getattr(self.core.checkpoint, "_task_id", "") or "local"
                 self._tb_manager = TensorboardManager(
-                    self.core.checkpoint._storage, "local", tensorboard_dir
+                    self.core.checkpoint._storage, task_id, tensorboard_dir
                 )
 
     def _tb_scalars(self, step: int, metrics: Dict[str, Any],
@@ -201,6 +224,81 @@ class Trainer:
                 self._tb_manager.sync()
             except Exception:  # noqa: BLE001 — observability, not work
                 logger.exception("tensorboard sync failed")
+
+    # -- the operator-triggered profile capture ---------------------------
+    def _begin_capture(self, cap: Dict[str, Any], step: int) -> None:
+        """Start a bounded torch.profiler trace for a capture directive
+        the master delivered on the heartbeat. Never raises: a failed
+        capture reports its error and training goes on."""
+        if self._capture_dir is not None:
+            return  # one capture at a time; the directive stays delivered
+        try:
+            self._capture_dir = tempfile.mkdtemp(prefix="dtpu-torch-capture-")
+            self._capture_cm = torch_profiler_trace(self._capture_dir)
+            self._capture_cm.__enter__()
+            self._capture_id = str(cap.get("id", ""))
+            self._capture_storage = cap.get("storage")
+            self._capture_until = step + max(1, int(cap.get("steps", 3)))
+            logger.info(
+                "profile capture %s: tracing steps %d..%d",
+                self._capture_id, step + 1, self._capture_until,
+            )
+        except Exception:  # noqa: BLE001 — profiling never breaks training
+            logger.exception("profile capture start failed")
+            self._report_capture(str(cap.get("id", "")), error="start failed")
+            self._capture_dir = self._capture_cm = None
+            self._capture_until = None
+
+    def _finish_capture(self, step: int) -> None:
+        """Stop the bounded trace, upload the artifact through the trial's
+        storage manager, register the link on the capture record."""
+        import shutil
+
+        from determined_tpu_torch.storage.base import from_config
+
+        cid, logdir, cm = self._capture_id, self._capture_dir, self._capture_cm
+        storage_cfg = self._capture_storage
+        self._capture_dir = self._capture_id = self._capture_cm = None
+        self._capture_until = self._capture_storage = None
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the trace covers the steps
+            cm.__exit__(None, None, None)
+        except Exception:  # noqa: BLE001
+            logger.exception("profile capture stop failed")
+            self._report_capture(cid, error="stop failed")
+            shutil.rmtree(logdir, ignore_errors=True)
+            return
+        try:
+            storage = getattr(self.core.checkpoint, "_storage", None)
+            if storage is None or storage_cfg:
+                storage = from_config(storage_cfg, base_dir=os.path.join(
+                    tempfile.gettempdir(), "dtpu_captures"))
+            storage_id = f"profile-capture-{cid}"
+            storage.upload(logdir, storage_id)
+            logger.info("profile capture %s uploaded as %s (step %d)",
+                        cid, storage_id, step)
+            self._report_capture(cid, artifact=storage_id)
+        except Exception as e:  # noqa: BLE001
+            logger.exception("profile capture upload failed")
+            self._report_capture(cid, error=f"upload failed: {e}")
+        finally:
+            shutil.rmtree(logdir, ignore_errors=True)
+
+    def _report_capture(self, cid: Optional[str], artifact: str = "",
+                        error: str = "") -> None:
+        if not cid:
+            return
+        session = getattr(self.core.train, "_session", None)
+        if session is None:
+            return
+        try:
+            session.post(
+                f"/api/v1/profiles/captures/{cid}/complete",
+                json_body={"artifact": artifact, "error": error},
+            )
+        except Exception:  # noqa: BLE001 — registration loss is survivable
+            logger.warning("capture %s completion report failed", cid)
 
     def _compute_step_flops(self, batch: Dict[str, torch.Tensor]) -> float:
         """Per-step model FLOPs for the profiling group's ``step_flops``:
@@ -526,8 +624,10 @@ class Trainer:
         ckpt_period = to_batches(checkpoint_period, bpe) if checkpoint_period else 0
         rep_period = max(1, to_batches(report_period, bpe))
 
+        # Off-cluster: one dummy op of max_length batches; on a cluster the
+        # master's operations set the length.
         searcher = self.core.searcher
-        if max_length is not None:
+        if max_length is not None and isinstance(searcher, DummySearcherContext):
             searcher = DummySearcherContext(length=to_batches(max_length, bpe))
         if latest_checkpoint:
             self._restore_with_fallback(latest_checkpoint)
@@ -556,6 +656,11 @@ class Trainer:
         last_val: Dict[str, float] = {}
         t_report = time.time()
         step = self._step
+        resume_steps = step
+        # Profiling phase tag: the sampler reads this thread's phase on
+        # every walk, so its windows split by data_wait / h2d_put / step /
+        # report / checkpoint.
+        set_phase = profiling_mod.set_phase
         last_ckpt_step = -1
         preempted = False
         self._skips = torch.zeros_like(self._skips)
@@ -568,6 +673,7 @@ class Trainer:
             boundaries); a verdict is latched for the next report
             boundary's rollback gate."""
             nonlocal pending, t_report
+            set_phase("report")
             if pending:
                 agg, reason = self._flush(pending, t_report)
                 if reason and self._sentinel_reason is None:
@@ -591,10 +697,23 @@ class Trainer:
                     self._profiler.set_steps_completed(step)
             pending = []
             t_report = time.time()
+            set_phase("step")
 
         if self._profiler is not None:
             self._profiler.start()
+        # Trial lifecycle span: a child of the launch chain's
+        # DTPU_TRACEPARENT (ambient through common/trace.py), closed in the
+        # finally below either way.
+        fit_scope = contextlib.ExitStack()
+        fit_scope.enter_context(
+            trace_mod.span("trial.fit", {"resume_step": resume_steps}))
+        # First-step anchor of the lifecycle trace: exported when the
+        # first step returns.
+        first_step_ctx = trace_mod.current()
+        first_step_t0 = time.time()
+        first_step_at = step + 1
         timeline.reset_window()
+        set_phase("step")
         # The finally-join keeps a raising step loop from abandoning an
         # in-flight background save, and makes a failed save fail the run.
         fit_error: Optional[BaseException] = None
@@ -603,32 +722,62 @@ class Trainer:
                 target = to_batches(op.length, bpe)
                 while step < target:
                     if timeline.enabled:
+                        set_phase("data_wait")
                         t0 = pc()
                         raw = next(train_iter)
                         t1 = pc()
+                        set_phase("h2d_put")
                         batch = self._put_batch(raw)
+                        set_phase("step")
                         window = timeline.window
                         window["data_wait"] += t1 - t0
                         window["h2d_put"] += pc() - t1
                         timeline.step_done()
                     else:
-                        batch = self._put_batch(next(train_iter))
+                        set_phase("data_wait")
+                        raw = next(train_iter)
+                        set_phase("h2d_put")
+                        batch = self._put_batch(raw)
+                        set_phase("step")
                     self._data_consumed += 1
                     pending.append(
                         self._train_step(batch, _sentinel.poison_factor()))
                     step += 1
                     self._step = step
+                    if (self._capture_until is not None
+                            and step >= self._capture_until):
+                        self._finish_capture(step)
+                    if step == first_step_at and first_step_ctx is not None:
+                        first_step_at = -1
+                        trace_mod.export_span(
+                            "trial.first_step",
+                            trace_id=first_step_ctx[0],
+                            span_id=trace_mod.new_span_id(),
+                            parent_span_id=first_step_ctx[1],
+                            start=first_step_t0, end=time.time(),
+                            attributes={"step": step},
+                        )
                     if step % rep_period == 0 or step == target:
                         flush_report()
                         rollback_reason = self._sentinel_reason
                         self._sentinel_reason = None
-                        self.core.train.heartbeat_step(step)
+                        beat_resize = self.core.train.heartbeat_step(step)
                         if chief:
                             op.report_progress(float(step))
                             if self._step_flops is None:
                                 self._step_flops = self._compute_step_flops(batch)
+                            # The operator's capture rides the beat.
+                            cap = self.core.train.take_profile_capture()
+                            if cap is not None:
+                                self._begin_capture(cap, step)
+                        # A resize directive (the beat's here, the poll's
+                        # in should_preempt) is refused by name.
+                        if beat_resize is not None:
+                            refuse_resize(beat_resize)
                         if self.core.preempt.should_preempt():
+                            set_phase("checkpoint")
                             self._save_checkpoint(sync=True)
+                            set_phase("step")
                             timeline.commit()
                             last_ckpt_step = step
                             logger.info("preempted at step %d; exiting "
@@ -649,8 +798,10 @@ class Trainer:
                             self._tb_scalars(step, last_val, prefix="val_")
                     if ckpt_period and step % ckpt_period == 0:
                         flush_report()
+                        set_phase("checkpoint")
                         t0 = pc()
                         self._save_checkpoint()
+                        set_phase("step")
                         if timeline.enabled:
                             # The blocking part only (writer join and
                             # snapshot); the upload overlaps training.
@@ -672,7 +823,11 @@ class Trainer:
                                   **last_val}
                     op.report_completed(
                         float(completion.get(self.searcher_metric, 0.0)))
-            if (ckpt_period or preempted) and last_ckpt_step != step:
+            # On a cluster the trial always ends checkpointed: the master's
+            # latest checkpoint is what a continued experiment resumes.
+            if ((ckpt_period or preempted or self.core.info is not None)
+                    and last_ckpt_step != step):
+                set_phase("checkpoint")
                 self._save_checkpoint(sync=True)
                 timeline.commit()
         except BaseException as e:
@@ -687,7 +842,16 @@ class Trainer:
                 # The loop's own exception is the primary failure.
                 logger.exception("background checkpoint failed during teardown")
             finally:
+                set_phase(None)
+                if self._capture_dir is not None:
+                    # An exit mid-capture: stop and report it, so the
+                    # master's capture record does not stay "delivered".
+                    self._finish_capture(step)
+                fit_scope.close()  # end the trial.fit span either way
                 if self._profiler is not None:
                     self._profiler.stop()
+        # The fit's tail records must survive a hard kill right after fit
+        # returns: drain the structured log shipper now.
+        logship_mod.flush_shipping()
         self._tb_sync()
         return last_val

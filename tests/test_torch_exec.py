@@ -15,9 +15,9 @@ against the JAX package's, on the CPU.
   sets them (``DTPU_JAX_PLATFORM=cpu``): mnist-mlp trains 4 batches,
   exits 0, checkpoints at 2 and 4 and writes tfevents; gpt-tiny and the
   GPT-2 pretrain trial run; ``CrashingTrial`` exits 1 with "trial
-  failed"; ``DTPU_MASTER``, the shippers, a bad platform and a missing
-  trial are refused; a mesh, cloud storage and no card (unset platform)
-  exit 1 by name.
+  failed"; a bad platform and a missing trial are refused; a mesh, cloud
+  storage and no card (unset platform) exit 1 by name. (The harness on a
+  cluster: ``tests/test_torch_cluster.py``.)
 - Cross-package resume: the JAX ``Trainer`` trains the reference's
   ``SyntheticTrial`` (mnist-mlp) and checkpoints at steps 2 and 4; the
   port's harness resumes the step-2 checkpoint through
@@ -325,10 +325,6 @@ def test_resolve_mesh_refuses_a_mesh_by_name():
 
 
 @pytest.mark.parametrize("var,value,exc,match", [
-    ("DTPU_MASTER", "http://127.0.0.1:1", NotImplementedError,
-     "DTPU_MASTER.*item 3"),
-    ("DTPU_PROFILE", "1", NotImplementedError, "DTPU_PROFILE.*item 3"),
-    ("DTPU_LOG_SHIP", "1", NotImplementedError, "DTPU_LOG_SHIP.*item 3"),
     ("DTPU_JAX_PLATFORM", "tpu", ValueError, "DTPU_JAX_PLATFORM='tpu'"),
     ("DTPU_TRIAL_ID", None, RuntimeError, "needs a trial env"),
 ])

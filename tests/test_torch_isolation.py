@@ -3,8 +3,10 @@ package and not ``requests`` (the card's machine lacks it): an AST scan
 of every module of determined_tpu_torch and of chip_smoke.py, plus a
 fresh interpreter that imports the serving (the fixture, the HTTP service,
 the load generator and the proposer too), trainer (the timeline too),
-core, storage and common packages, the TensorBoard writer, the
-profiler agent, the exec layer (harness, built-in trials), the data
+core, storage and common packages (the master session, the trace,
+profiling and log shippers, TLS and the context directory too), the
+TensorBoard writer, the profiler agent, the exec layer (harness,
+built-in trials, the launch chain and proxy registration), the data
 layer (the native loader's binding too), the vision models and the
 GPT-2 pretrain example, and finds none of them loaded."""
 import ast
@@ -63,6 +65,14 @@ def test_port_never_imports_jax(source):
             "determined_tpu_torch.exec, "
             "determined_tpu_torch.exec.harness, "
             "determined_tpu_torch.exec.builtin_trials, "
+            "determined_tpu_torch.exec.prep_and_run, "
+            "determined_tpu_torch.exec.proxy_util, "
+            "determined_tpu_torch.common.api_session, "
+            "determined_tpu_torch.common.trace, "
+            "determined_tpu_torch.common.profiling, "
+            "determined_tpu_torch.common.logship, "
+            "determined_tpu_torch.common.tls, "
+            "determined_tpu_torch.common.context_dir, "
             "determined_tpu_torch.data, determined_tpu_torch.data.native, "
             "determined_tpu_torch.models.vision, "
             "determined_tpu_torch.examples, "

@@ -9,7 +9,8 @@ SSE parse, the reference's from its engine's requests), the
 ``/api/v1/stats`` keys are the same (the port adds three of its own), the
 same inputs answer 400, and 503 with the same ``Retry-After``, and the
 port's ``/metrics`` body parses under the reference's strict parser.
-``main`` refuses on-cluster environment variables by name.
+``main`` serves off the cluster until SIGTERM (on the cluster:
+``tests/test_torch_cluster.py``).
 """
 import http.client
 import json
@@ -34,7 +35,6 @@ from determined_tpu_torch.serving import (
     GenerationEngine,
     GenerationServer,
     ServingConfig,
-    UnsupportedServingFeature,
     loadgen,
     service,
 )
@@ -218,20 +218,6 @@ def test_parse_traceparent():
     assert service.parse_traceparent(good) == ("0a" * 16, "0b" * 8)
     assert service.parse_traceparent("junk") is None
     assert service.parse_traceparent(None) is None
-
-
-@pytest.mark.parametrize("env", [
-    {"DTPU_MASTER": "http://master:8080", "DTPU_ALLOCATION_ID": "a.1.0"},
-])
-def test_main_refuses_on_cluster(env, monkeypatch):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    built = []
-    monkeypatch.setattr(service, "build_engine",
-                        lambda *a, **k: built.append(a))
-    with pytest.raises(UnsupportedServingFeature, match="exec layer"):
-        service.main(["--config", '{"model": "tiny"}', "--device", "cpu"])
-    assert not built
 
 
 def test_main_serves_off_cluster_until_sigterm():

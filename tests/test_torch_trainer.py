@@ -14,7 +14,8 @@ the JAX package's, on the CPU at fp32.
   accounting of a batch whose ``loss_mask`` is NaN, and the final
   parameters.
 - Refusals by name: the orbax checkpoint format, a mesh, the replica
-  audit, an elastic resume, ``core.init()`` on a cluster.
+  audit, an elastic resume. (``core.init()`` on a cluster:
+  ``tests/test_torch_cluster.py``.)
 
 Tolerances: optimizer 1e-6 absolute on O(1) parameters (fp32, the same
 operation order as optax; pow and the norm's sum may differ by an ulp);
@@ -363,17 +364,6 @@ def test_fit_refuses_checkpoints_by_name(kwargs, tmp_path):
     assert trainer.steps_completed == 0
     assert all(torch.equal(a, b.detach())
                for a, b in zip(before, trainer.model.parameters()))
-
-
-def test_core_init_refuses_a_cluster(monkeypatch, tmp_path):
-    monkeypatch.setenv("DTPU_MASTER", "http://127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="exec slice"):
-        tcore.init()
-    monkeypatch.delenv("DTPU_MASTER")
-    ctx = tcore.init()
-    assert ctx.distributed.is_chief
-    ctx = tcore._dummy_init(checkpoint_storage=str(tmp_path))
-    assert ctx.checkpoint._storage.base_path == str(tmp_path)
 
 
 def test_poisoned_step_is_skipped_in_place():

@@ -248,6 +248,31 @@ script exits non-zero without the final result line:
    phase 16's off-cluster one and the replica's tokens/s beside phase
    13's.
 
+18. mesh — training on a ``data × fsdp`` device mesh (``parallel``,
+   ``trainer/_mesh.py``). One rank over NCCL (``init_process_group`` at
+   127.0.0.1, world 1): phase 6's trial (GPT-2-small, bf16 over fp32
+   masters, B 8 × 1024) through ``Trainer(mesh=make_mesh(MeshConfig(
+   data=1, fsdp=1)))`` for ``MESH_STEPS`` steps with the audit every 2
+   steps (run at 2, 4 and 6) and a sharded save at ``MESH_SAVE_AT``:
+   every loss within 1e-3 relative of phase 6's, per step 12
+   ``flash_fwd_mono`` and 12 ``flash_bwd_mono`` launches and no
+   ``flash_fwd``; a fresh trainer restores the step-4 checkpoint to the
+   saved state bit for bit; with one copy of every block the
+   ``train.divergence.rank0`` drill has nothing to disagree with (as the
+   reference on one device). Then phase 10's packed batch on the same
+   mesh: losses within 1e-3 of phase 10's, 12 ``flash_fwd`` and 12
+   ``flash_bwd_blocked`` a step. Then two ranks on the one card at
+   ``fsdp=2`` over gloo, each a subprocess (``MESH_RANK``) training
+   phase 6's trial for ``MESH_GANG_STEPS`` steps on its 4 rows with the
+   audit every step: both ranks report the same losses, within 1e-3 of
+   the one rank's, 12 + 12 mono launches a step, and the drill on rank 0
+   raises ``ReplicaDivergenceError`` naming rank 0 on both ranks (two
+   holders: no majority, both named). Prints both step times, the peak
+   memory and the state's resident bytes of one rank and of each of the
+   two: ``state_gb`` the whole working copy, the parameter blocks that
+   are not part of it and the AdamW moments (each storage once),
+   ``split_gb`` the blocks and moments alone.
+
 Phase 3 also holds ``flash_fwd`` at the cached-tail geometry (separate
 query and key segment ids as ``_prefill_cached`` builds them, one row all
 padding) and at the speculative gather verify's (B 8, s_q 5, s_k 1029,
@@ -256,7 +281,7 @@ kv_offset 1024, dead rows in query segment 2), and ``paged_attention`` at
 
 The last lines are the whole run's seconds, the kernels' JSON record
 (each kernel's ``launches`` summed over the main paths that run it:
-phases 4, 6, 8, 9 and 11 to 17), the card's name and power limit, and
+phases 4, 6, 8, 9 and 11 to 18), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -295,6 +320,100 @@ def dump():
                    "per_step": per_step}, f)
 atexit.register(dump)
 runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+MESH_STEPS = 7        # phase mesh, one rank: phase train's length
+MESH_SAVE_AT = 4      # ... with a sharded save at this step
+MESH_GANG_STEPS = 3   # phase mesh, two ranks on the one card over gloo
+#: ``python -c MESH_RANK <rank> <port> <out.json>``: one rank of a gang of
+#: two on the one card, joined over gloo at 127.0.0.1:<port>: the headline
+#: trial on an fsdp=2 mesh for MESH_GANG_STEPS steps with the audit every
+#: step, its per-step launches, peak memory and state bytes (``state_gb``
+#: and ``split_gb``, as the phase counts them), then the
+#: ``train.divergence.rank0`` drill.
+MESH_RANK = """
+import datetime, json, os, sys, time
+import torch, torch.distributed as dist
+rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+steps = int(sys.argv[4])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=300))
+from determined_tpu_torch import core
+from determined_tpu_torch.common import faults
+from determined_tpu_torch.core._distributed import DistributedContext
+from determined_tpu_torch.ops import _build
+from determined_tpu_torch.parallel import MeshConfig, make_mesh
+from determined_tpu_torch.trainer import Batch, Trainer
+from determined_tpu_torch.trainer._sentinel import ReplicaDivergenceError
+from determined_tpu_torch.trainer.profile import RepeatedBatchTrial
+dctx = DistributedContext(rank=rank, size=2)
+mesh = make_mesh(MeshConfig(data=1, fsdp=2))
+torch.cuda.reset_peak_memory_stats()
+trainer = Trainer(RepeatedBatchTrial(8, 1024), core._dummy_init(
+    distributed=dctx), mesh=mesh, health={"divergence_check_period": 1})
+per_step, seen, audits = [], [], []
+calls, nbytes, in_step = {}, {}, [False]
+step_fn, flush, audit = (trainer._train_step, trainer._flush,
+                         trainer._divergence_audit)
+def counting(name, real):
+    def call(*args, **kw):
+        if in_step[0]:
+            t = args[1] if name == "reduce_scatter_tensor" else args[0]
+            calls[name] = calls.get(name, 0) + 1
+            nbytes[name] = nbytes.get(name, 0) + t.numel() * t.element_size()
+        return real(*args, **kw)
+    return call
+for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "broadcast"):
+    setattr(dist, name, counting(name, getattr(dist, name)))
+def counted(batch, poison=1.0):
+    before = {n: k.launches for n, k in _build.KERNELS.items()}
+    in_step[0] = True
+    try:
+        result = step_fn(batch, poison)
+    finally:
+        in_step[0] = False
+    per_step.append({n: k.launches - before[n]
+                     for n, k in _build.KERNELS.items()})
+    return result
+def recording(pending, t_start):
+    agg, reason = flush(pending, t_start)
+    seen.append(agg)
+    return agg, reason
+def audited():
+    audits.append(trainer.steps_completed)
+    audit()
+trainer._train_step, trainer._flush = counted, recording
+trainer._divergence_audit = audited
+trainer.fit(max_length=Batch(steps), report_period=Batch(1))
+torch.cuda.synchronize()
+working = list(trainer.model.parameters())
+split = [t for t in trainer._params
+         if all(t.data_ptr() != w.data_ptr() for w in working)]
+split += [t for s in trainer._opt_state[1][0][1:] for t in s]
+gb = lambda ts: sum(t.numel() * t.element_size() for t in ts) / 1e9
+res = dict(rank=rank, losses=[m["loss"] for m in seen],
+           step_ms=[1e3 / m["batches_per_second"] for m in seen],
+           per_step=per_step, audits=audits,
+           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+           state_gb=gb(working) + gb(split), split_gb=gb(split),
+           collectives_per_step={k: v // steps for k, v in calls.items()},
+           collective_mb_per_step={k: round(v / steps / 1e6, 3)
+                                   for k, v in nbytes.items()})
+os.environ["DTPU_FAULT_PLAN"] = json.dumps(
+    {"train.divergence.rank0": {"failures": 1}})
+faults.clear()
+try:
+    audit()
+    res["drill"] = None
+except ReplicaDivergenceError as e:
+    res["drill"] = str(e)
+with open(out, "w") as f:
+    json.dump(res, f)
+dctx.close()
+dist.destroy_process_group()
 """
 FLASH_SOURCE = "determined_tpu_torch/ops/csrc/flash_fwd.cu"
 FLASH_REPLACES = "determined_tpu/ops/flash_attention.py:236"
@@ -445,7 +564,8 @@ class StandInMaster:
     sets the beating allocation's preemption signal once a heartbeat
     reports that step; ``preempt(alloc)`` sets it by hand. The preemption
     long-poll holds until the signal is set or its ``timeout_seconds``
-    pass. ``tests/test_torch_cluster.py`` holds every answer's keys and
+    pass; so does the rendezvous table, until ``rendezvous_size``
+    processes of the allocation have posted their address. ``tests/test_torch_cluster.py`` holds every answer's keys and
     value types against the live master's."""
 
     ROUTES = (
@@ -463,6 +583,8 @@ class StandInMaster:
         ("POST", r"/api/v1/allocations/([\w.\-]+)/signals/ack_preemption",
          "_ack"),
         ("POST", r"/api/v1/allocations/([\w.\-]+)/proxy", "_proxy"),
+        ("POST", r"/api/v1/allocations/([\w.\-]+)/rendezvous", "_arrive"),
+        ("GET", r"/api/v1/allocations/([\w.\-]+)/rendezvous", "_table"),
         ("POST", r"/api/v1/traces/ingest", "_spans"),
         ("POST", r"/api/v1/profiles/ingest", "_windows"),
         ("POST", r"/api/v1/logs/ingest", "_lines"),
@@ -486,6 +608,8 @@ class StandInMaster:
         self.proxies = {}           # allocation -> (host, port)
         self.completed = {}         # trial id -> searcher/completed body
         self.acked = set()
+        self.rendezvous_size = 1
+        self.addrs = {}             # allocation -> {rank: address}
         self._preempt = set()
         self._cond = threading.Condition()
         self._routes = [(m, re.compile(f"^{p}$"), getattr(self, h))
@@ -643,6 +767,30 @@ class StandInMaster:
                                        int(body["port"]))
             self._cond.notify_all()
         return {"url": f"/proxy/{groups[0]}/"}
+
+    def _arrive(self, groups, body, query, client):
+        with self._cond:
+            self.addrs.setdefault(groups[0], {})[int(body["rank"])] = \
+                body["addr"]
+            self._cond.notify_all()
+        return {}
+
+    def _table(self, groups, body, query, client):
+        import time as time_mod
+
+        wait = float((query.get("timeout_seconds") or ["600"])[0])
+        deadline = time_mod.time() + wait
+        with self._cond:
+            table = self.addrs.setdefault(groups[0], {})
+            while len(table) < self.rendezvous_size:
+                left = deadline - time_mod.time()
+                if left <= 0:
+                    break
+                self._cond.wait(timeout=min(left, 1.0))
+            addrs = [table[r] for r in sorted(table)]
+            return {"container_addrs": addrs,
+                    "coordinator_address": addrs[0] if addrs else "",
+                    "num_processes": self.rendezvous_size}
 
     def _spans(self, groups, body, query, client):
         with self._cond:
@@ -1497,12 +1645,13 @@ class Smoke:
 
 
     # -- phases 6 and 8-10: training through Trainer.fit ---------------------------
-    def fit_counted(self, trial, steps, ctx=None, prepare=None, **fit_kw):
-        """``Trainer(trial).fit`` to step `steps` on the card (more
-        ``fit`` arguments in `fit_kw`; `prepare` sees the trainer first),
-        with the launch counters set to 0 just before → (reports, per-step
-        launch counts of the steps trained, the run's launch counts, peak
-        GB, config)."""
+    def fit_counted(self, trial, steps, ctx=None, prepare=None,
+                    trainer_kw=None, **fit_kw):
+        """``Trainer(trial, **trainer_kw).fit`` to step `steps` on the card
+        (more ``fit`` arguments in `fit_kw`; `prepare` sees the trainer
+        first), with the launch counters set to 0 just before →
+        (reports, per-step launch counts of the steps trained, the run's
+        launch counts, peak GB, config)."""
         import numpy as np
         import torch
 
@@ -1522,7 +1671,7 @@ class Smoke:
 
         trial.build_training_data = counted
         ctx = ctx or core._dummy_init()
-        trainer = Trainer(trial, ctx)  # the card, by default
+        trainer = Trainer(trial, ctx, **(trainer_kw or {}))  # the card
         if prepare is not None:
             prepare(trainer)
         cfg = trainer.model.config
@@ -1582,6 +1731,7 @@ class Smoke:
             assert step["flash_fwd"] == 0, (i, step)
         rec = self.train_record(reports, launches, peak_gb, cfg, b, s, warm=2)
         self.train_step_ms = rec["step_ms_median"]  # phase exec's yardstick
+        self.train_losses, self.train_peak_gb = losses, peak_gb  # phase mesh
         self.report("train", "gpt2-small bf16 remat=False", rec)
         return launches
 
@@ -1653,6 +1803,7 @@ class Smoke:
             assert got == want, (i, step)
         rec = self.train_record(reports, launches, peak_gb, cfg, b, s, warm=2)
         rec["documents"] = int(batch["segment_ids"].max(axis=1).sum())
+        self.packed_losses = losses  # phase mesh's yardstick
         self.report("train-packed", "gpt2-small bf16 packed documents", rec)
         return launches
 
@@ -1705,8 +1856,8 @@ class Smoke:
                 return out
             return call
 
-        def snapshot(tree):
-            snap = timed("snapshot", real["snapshot"], sync=True)(tree)
+        def snapshot(tree, **kw):
+            snap = timed("snapshot", real["snapshot"], sync=True)(tree, **kw)
             snaps[int(snap["step"])] = snap
             return snap
 
@@ -3069,6 +3220,255 @@ class Smoke:
                     "GPT-2-small bf16 replica", rec)
         return total
 
+    # -- phase 18: training on a data x fsdp mesh ---------------------------------
+    def mesh_phase(self):
+        """One rank over NCCL at full width (the headline trial and the
+        packed batch on a data=1 x fsdp=1 mesh, a sharded save and its
+        resume, the audit), then two ranks on the one card at fsdp=2 over
+        gloo in subprocesses."""
+        import datetime
+        import socket
+        import tempfile
+
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        from determined_tpu_torch import core
+        from determined_tpu_torch.common import faults
+        from determined_tpu_torch.core._distributed import DistributedContext
+        from determined_tpu_torch.models import gpt
+        from determined_tpu_torch.parallel import MeshConfig, make_mesh
+        from determined_tpu_torch.trainer import Batch, Trainer
+        from determined_tpu_torch.trainer import _checkpoint as ckpt_io
+        from determined_tpu_torch.trainer.profile import RepeatedBatchTrial
+
+        def free_port():
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                return s.getsockname()[1]
+
+        def close(losses, want, what):
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+            assert len(losses) == len(want) and max(rel) < 1e-3, (
+                what, losses, want)
+            return max(rel)
+
+        t0 = time.perf_counter()
+        b, s = 8, 1024
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300),
+            device_id=torch.device("cuda", 0))
+        launches = {}
+        try:
+            dctx = DistributedContext(rank=0, size=1)
+            mesh = make_mesh(MeshConfig(data=1, fsdp=1))
+            assert dist.get_backend(mesh.get_group("fsdp")) == "nccl"
+            tmp = tempfile.mkdtemp(prefix="dtpu-mesh-")
+            saved, audits = {}, []
+
+            def prepare(trainer):
+                save, audit = trainer._save_checkpoint, \
+                    trainer._divergence_audit
+
+                def recording_save(**kw):
+                    if trainer._step == MESH_SAVE_AT:
+                        saved["state"] = [
+                            leaf.detach().cpu().clone() for _, leaf in
+                            ckpt_io._flatten_with_path(
+                                trainer._state_view())
+                            if isinstance(leaf, torch.Tensor)] + [
+                            leaf.local.detach().cpu().clone() for _, leaf in
+                            ckpt_io._flatten_with_path(
+                                trainer._state_view())
+                            if isinstance(leaf, ckpt_io.Shard)]
+                    return save(**kw)
+
+                def counted_audit():
+                    audits.append(trainer.steps_completed)
+                    audit()
+
+                trainer._save_checkpoint = recording_save
+                trainer._divergence_audit = counted_audit
+                saved["trainer"] = trainer
+
+            ctx = core._dummy_init(distributed=dctx, checkpoint_storage=tmp)
+            reports, per_step, run, peak_gb, cfg = self.fit_counted(
+                RepeatedBatchTrial(b, s), MESH_STEPS, ctx=ctx,
+                prepare=prepare, checkpoint_period=Batch(MESH_SAVE_AT),
+                trainer_kw=dict(mesh=mesh,
+                                health={"divergence_check_period": 2}))
+            launches = dict(run)
+            losses = [m["loss"] for m in reports]
+            err = close(losses, self.train_losses, "one rank vs phase train")
+            for i, step in enumerate(per_step):
+                assert step["flash_fwd_mono"] == cfg.n_layers, (i, step)
+                assert step["flash_bwd_mono"] == cfg.n_layers, (i, step)
+                assert step["flash_fwd"] == 0, (i, step)
+            assert audits == [2, 4, 6], audits
+            rec = self.train_record(reports, run, peak_gb, cfg, b, s, warm=2)
+            # the trained state's resident bytes: the working copy, the
+            # parameter blocks that are not part of it (at fsdp=1 each
+            # block is its parameter) and the AdamW moments
+            one = saved.pop("trainer")
+            working = list(one.model.parameters())
+            split = [t for t in one._params
+                     if all(t.data_ptr() != w.data_ptr() for w in working)]
+            split += [t for s in one._opt_state[1][0][1:] for t in s]
+            gb = lambda ts: sum(t.numel() * t.element_size() for t in ts) / 1e9
+            state_gb, split_gb = gb(working) + gb(split), gb(split)
+            del one, working, split
+            # the sharded save at step 4, resumed by a fresh trainer
+            ids = {}
+            for uuid_ in os.listdir(tmp):
+                with open(os.path.join(tmp, uuid_, "metadata.json")) as f:
+                    ids[json.load(f)["steps_completed"]] = uuid_
+            resumed = Trainer(RepeatedBatchTrial(b, s), core._dummy_init(
+                distributed=dctx, checkpoint_storage=tmp), mesh=mesh)
+            resumed._restore_with_fallback(ids[MESH_SAVE_AT])
+            view = resumed._state_view()
+            got = [leaf.detach().cpu() for _, leaf in
+                   ckpt_io._flatten_with_path(view)
+                   if isinstance(leaf, torch.Tensor)] + [
+                leaf.local.detach().cpu() for _, leaf in
+                ckpt_io._flatten_with_path(view)
+                if isinstance(leaf, ckpt_io.Shard)]
+            assert len(got) == len(saved["state"]) and all(
+                torch.equal(a, w) for a, w in zip(got, saved["state"]))
+            # one rank holds one copy of every block: the drill's perturbed
+            # checksum has nothing to disagree with (as the reference on
+            # one device); two ranks below
+            os.environ["DTPU_FAULT_PLAN"] = json.dumps(
+                {"train.divergence.rank0": {"failures": 1}})
+            faults.clear()
+            try:
+                resumed._divergence_audit()
+            finally:
+                del os.environ["DTPU_FAULT_PLAN"]
+                faults.clear()
+            # the collectives of one step and their bytes, counted where
+            # the step calls them
+            calls, nbytes, real = {}, {}, {}
+            for name in ("all_reduce", "all_gather_into_tensor",
+                         "reduce_scatter_tensor", "broadcast"):
+                real[name] = getattr(dist, name)
+
+                def counting(*args, _name=name, **kw):
+                    t = args[1] if _name == "reduce_scatter_tensor" else args[0]
+                    calls[_name] = calls.get(_name, 0) + 1
+                    nbytes[_name] = nbytes.get(_name, 0) + (
+                        t.numel() * t.element_size())
+                    return real[_name](*args, **kw)
+
+                setattr(dist, name, counting)
+            try:
+                resumed._train_step(resumed._put_batch(next(
+                    RepeatedBatchTrial(b, s).build_training_data())))
+                torch.cuda.synchronize()
+            finally:
+                for name, fn in real.items():
+                    setattr(dist, name, fn)
+            del resumed, view, got, saved["state"]
+            import shutil
+
+            shutil.rmtree(tmp, ignore_errors=True)
+            torch.cuda.empty_cache()
+            # the packed batch through flash_fwd and flash_bwd_blocked
+            trial = RepeatedBatchTrial(b, s, config=gpt.small())
+            batch = packed_batch(b, s, 3, trial.config.vocab_size)
+
+            def repeated():
+                while True:
+                    yield batch
+
+            trial.build_training_data = repeated
+            trial.replicated_batch_keys = frozenset()
+            preports, pper_step, prun, _, _ = self.fit_counted(
+                trial, PACKED_STEPS, ctx=core._dummy_init(distributed=dctx),
+                trainer_kw=dict(mesh=mesh))
+            perr = close([m["loss"] for m in preports], self.packed_losses,
+                         "packed vs phase train-packed")
+            want = dict(flash_fwd=cfg.n_layers, flash_bwd_blocked=cfg.n_layers)
+            for i, step in enumerate(pper_step):
+                got = {n: v for n, v in step.items() if v}
+                assert got == want, (i, step)
+            for n, v in prun.items():
+                launches[n] = launches.get(n, 0) + v
+            dctx.close()
+        finally:
+            dist.destroy_process_group()
+        one_s = time.perf_counter() - t0
+
+        # two ranks on the one card, fsdp=2 over gloo
+        t1 = time.perf_counter()
+        port = free_port()
+        outs = [tempfile.mktemp(prefix=f"dtpu-mesh-rank{r}-", suffix=".json")
+                for r in range(2)]
+        logs = [tempfile.TemporaryFile() for _ in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", MESH_RANK, str(r), str(port), outs[r],
+             str(MESH_GANG_STEPS)], stdout=logs[r], stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+            for r in range(2)]
+        try:
+            codes = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, code in enumerate(codes):
+            logs[r].seek(0)
+            assert code == 0, (r, logs[r].read().decode()[-4000:])
+            logs[r].close()
+        ranks = []
+        for out in outs:
+            with open(out) as f:
+                ranks.append(json.load(f))
+            os.remove(out)
+        two_s = time.perf_counter() - t1
+        for r in ranks:
+            assert r["losses"] == ranks[0]["losses"], ranks
+            assert r["audits"] == list(range(1, MESH_GANG_STEPS + 1)), r
+            for i, step in enumerate(r["per_step"]):
+                assert step["flash_fwd_mono"] == cfg.n_layers, (i, step)
+                assert step["flash_bwd_mono"] == cfg.n_layers, (i, step)
+                for n, v in step.items():
+                    launches[n] = launches.get(n, 0) + v
+            # two holders of each whole block: no majority, both named
+            assert "suspect rank 0 device cuda:0" in r["drill"], r["drill"]
+        gang_err = close(ranks[0]["losses"], losses[:MESH_GANG_STEPS],
+                         "two ranks vs one rank")
+        self.report("mesh", "gpt2-small bf16 B8x1024 data x fsdp", dict(
+            one_rank_backend="nccl", steps=len(reports),
+            loss_first=losses[0], loss_last=losses[-1],
+            max_rel_loss_vs_train=err,
+            step_ms_median=rec["step_ms_median"],
+            train_phase_step_ms_median=self.train_step_ms,
+            mesh_minus_train_ms=rec["step_ms_median"] - self.train_step_ms,
+            peak_gb=peak_gb, train_phase_peak_gb=self.train_peak_gb,
+            state_gb=state_gb, split_gb=split_gb, audits=len(audits),
+            resume_bitwise=True,
+            collectives_per_step=calls,
+            collective_mb_per_step={k: round(v / 1e6, 3)
+                                    for k, v in nbytes.items()},
+            packed_max_rel_loss_vs_train_packed=perr,
+            one_rank_seconds=one_s,
+            gang_backend="gloo", gang_ranks=2, gang_fsdp=2,
+            gang_step_ms=[float(np.median(r["step_ms"][1:])) for r in ranks],
+            gang_peak_gb=[r["peak_gb"] for r in ranks],
+            gang_state_gb=[r["state_gb"] for r in ranks],
+            gang_split_gb=[r["split_gb"] for r in ranks],
+            gang_collectives_per_step=ranks[0]["collectives_per_step"],
+            gang_collective_mb_per_step=ranks[0]["collective_mb_per_step"],
+            gang_max_rel_loss_vs_one_rank=gang_err,
+            gang_drill=ranks[0]["drill"][:120],
+            gang_seconds=two_s,
+            seconds=time.perf_counter() - t0,
+        ))
+        return launches
+
     def train_parity_phase(self, route="mono"):
         """One fp32 loss + gradient of GPT-2-small's width with 2 layers,
         batch 1 x seq 1024, on the card and on the CPU from the same
@@ -3253,7 +3653,7 @@ def main() -> int:
     for phase in (smoke.checkpoint_phase, smoke.fixture_phase,
                   smoke.serving_http_phase, smoke.serving_parity_phase,
                   smoke.train_health_phase, smoke.exec_phase,
-                  smoke.cluster_phase):
+                  smoke.cluster_phase, smoke.mesh_phase):
         for name, count in phase().items():
             launches[name] += count
 

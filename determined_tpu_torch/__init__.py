@@ -15,7 +15,9 @@ forward, packed prefill, paged/gather decode), ``batch_inference``
 ``ops.flash_attention`` (mono forward and fused backward, autograd),
 ``models.attention``, ``models.gpt`` (loss), ``trainer`` (``TorchTrial``,
 ``Trainer.fit``, the optax chain, the non-finite guard) and ``core``
-(off-cluster contexts).
+(off-cluster contexts). Later slices added checkpoints, the rest of
+serving and of the training loop, the exec layer, and ``parallel``
+(training on a ``data × fsdp`` device mesh over ``torch.distributed``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise ``CudaUnavailableError``.

@@ -20,8 +20,9 @@ from typing import Any, Dict, List, Optional
 
 @dataclasses.dataclass
 class RendezvousInfo:
-    """Addresses + ranks for one multi-host allocation: the coordinator's
-    address and this container's rank among ``num_processes``."""
+    """Addresses + ranks for one multi-process allocation: the
+    coordinator's address (``torch.distributed``'s rendezvous, one process
+    per device) and this container's rank among ``num_processes``."""
 
     container_addrs: List[str]
     container_rank: int
@@ -31,6 +32,15 @@ class RendezvousInfo:
     @property
     def process_index(self) -> int:
         return self.container_rank
+
+    @property
+    def local_rank(self) -> int:
+        """This process's index among the gang's processes on its host
+        (the ranks before it with the same address): the device it
+        drives, ``cuda:<local_rank>``."""
+        mine = self.container_addrs[self.container_rank]
+        return sum(1 for a in self.container_addrs[:self.container_rank]
+                   if a == mine)
 
 
 @dataclasses.dataclass

@@ -5,8 +5,9 @@ calls (port of ``determined_tpu/core``).
 metrics, heartbeats, checkpoints, searcher operations and preemption
 through the master's REST API) and the dummy ones off it (metrics kept in
 memory, checkpoints in a local shared-filesystem directory, one searcher
-operation, no preemption). A gang of one process: a multi-process gang
-comes with the multi-device slice and is refused by name.
+operation, no preemption). A rendezvous of more than one process makes a
+gang: ``torch.distributed`` joined, and the ``DistributedContext``'s
+object collectives that the contexts use to agree.
 """
 from determined_tpu_torch.core._checkpoint import (
     METADATA_FILE,
@@ -15,7 +16,10 @@ from determined_tpu_torch.core._checkpoint import (
     merge_metadata,
 )
 from determined_tpu_torch.core._context import Context, _dummy_init, init
-from determined_tpu_torch.core._distributed import DummyDistributedContext
+from determined_tpu_torch.core._distributed import (
+    DistributedContext,
+    DummyDistributedContext,
+)
 from determined_tpu_torch.core._preempt import (
     DummyPreemptContext,
     PreemptContext,
@@ -31,6 +35,7 @@ __all__ = [
     "Context",
     "init",
     "CheckpointContext",
+    "DistributedContext",
     "DummyCheckpointContext",
     "DummyDistributedContext",
     "DummyPreemptContext",

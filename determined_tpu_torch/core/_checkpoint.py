@@ -1,17 +1,24 @@
 """CheckpointContext: checkpoint upload/download + metadata.
 
-Port of ``determined_tpu/core/_checkpoint.py`` for a gang of one:
-``upload`` writes the data files, then ``metadata.json``, then commits ONE
-manifest over all of them (the commit point), under a fresh uuid
-``storage_id``, and — on a cluster — registers the committed checkpoint
-with the master (``POST /api/v1/checkpoints``: uuid, task, allocation,
-trial, resources, metadata, state ``COMPLETED``). ``restore_path`` yields
-a verified local directory; ``restore_candidates`` lists the fallback
-chain, on a cluster the trial's earlier completed checkpoints newest
-first (``GET /api/v1/trials/<id>/checkpoints``). ``shard=True`` is
-accepted with a gang of one (it is then the same upload); an upload from
-a multi-process gang comes with the multi-device slice (ROADMAP queue 1,
-item 4).
+Port of ``determined_tpu/core/_checkpoint.py``: ``upload`` writes the
+data files, then ``metadata.json``, then commits ONE manifest over all of
+them (the commit point), under a fresh uuid ``storage_id``, and — on a
+cluster — registers the committed checkpoint with the master (``POST
+/api/v1/checkpoints``: uuid, task, allocation, trial, resources,
+metadata, state ``COMPLETED``). ``restore_path`` yields a verified local
+directory; ``restore_candidates`` lists the fallback chain, on a cluster
+the trial's earlier completed checkpoints newest first (``GET
+/api/v1/trials/<id>/checkpoints``).
+
+In a gang ``upload(shard=True)`` is a collective, on the ``checkpoint``
+channel so that the async writer thread may run it beside the step
+loop's collectives: the chief picks the uuid and broadcasts it, every
+rank uploads its own files, the chief gathers the ranks' files, metadata
+and digests, writes the merged ``metadata.json``, commits the one
+manifest and reports, and a closing barrier returns the same
+``storage_id`` on every rank — after the commit, or with the chief's
+error raised on the chief. An unsharded upload from a worker raises: it
+would write a second, unreported checkpoint under another uuid.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import uuid
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 from determined_tpu_torch.common.api_session import Session
+from determined_tpu_torch.core._distributed import CHANNEL_CHECKPOINT
 from determined_tpu_torch.storage.base import MANIFEST_FILE, StorageManager
 
 logger = logging.getLogger("determined_tpu_torch.core")
@@ -74,34 +82,71 @@ class CheckpointContext:
     ) -> str:
         """Upload `ckpt_dir` (or only `paths` in it) as a new checkpoint;
         returns its storage_id. Data files first, then ``metadata.json``,
-        then the manifest over both, then the report to the master."""
-        if self._dist.size > 1:
-            raise NotImplementedError(
-                "checkpoint upload from a multi-process gang comes with the "
-                "multi-device slice (ROADMAP queue 1, item 4)"
-            )
-        del shard  # a gang of one: the sharded upload is the plain one
-        storage_id = str(uuid.uuid4())
+        then the manifest over all of them, then the report to the
+        master. With ``shard=True`` in a gang, a collective (see the
+        module docstring)."""
+        dist = self._dist
+        gang = shard and dist.size > 1
+        if gang:
+            storage_id = dist.broadcast(
+                str(uuid.uuid4()) if dist.is_chief else None,
+                channel=CHANNEL_CHECKPOINT)
+        else:
+            if not dist.is_chief:
+                raise RuntimeError(
+                    "upload(shard=False) is chief-only; use shard=True for "
+                    "collective sharded uploads"
+                )
+            storage_id = str(uuid.uuid4())
         my_files = paths if paths is not None else StorageManager._list_dir(ckpt_dir)
         my_files = [f for f in my_files if f not in (METADATA_FILE, MANIFEST_FILE)]
+        # Data files only: the chief commits ONE manifest below, after
+        # every rank's files.
         digests = self._storage.upload(
             ckpt_dir, storage_id, paths=my_files, manifest=False,
             want_digests=True,
         )
-        merged_md = merge_metadata([metadata])
+        if gang:
+            files = dist.gather(my_files, channel=CHANNEL_CHECKPOINT)
+            mds = dist.gather(metadata, channel=CHANNEL_CHECKPOINT)
+            all_digests = dist.gather(digests, channel=CHANNEL_CHECKPOINT)
+        else:
+            files, mds, all_digests = [my_files], [metadata], [digests]
+        chief_err: Optional[BaseException] = None
+        if dist.is_chief:
+            # A chief-side failure must still reach the barrier below,
+            # where the workers wait.
+            try:
+                self._commit(storage_id, files, mds, all_digests)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                chief_err = e
+        if gang:
+            dist.barrier(channel=CHANNEL_CHECKPOINT)
+        if chief_err is not None:
+            raise chief_err
+        return storage_id
+
+    def _commit(self, storage_id: str, files: List[List[str]],
+                mds: List[Optional[Dict[str, Any]]],
+                digests: List[Dict[str, Any]]) -> None:
+        """The chief's half: the merged ``metadata.json``, then the one
+        manifest over every rank's files (the commit point), then the
+        report — the master only ever hears of committed checkpoints."""
+        merged_md = merge_metadata(mds)
+        merged: Dict[str, Any] = {}
+        for d in digests:
+            merged.update(d or {})
         with tempfile.TemporaryDirectory() as tmp:
             with open(os.path.join(tmp, METADATA_FILE), "w") as f:
                 json.dump(merged_md, f)
-            digests.update(self._storage.upload(
+            merged.update(self._storage.upload(
                 tmp, storage_id, paths=[METADATA_FILE], manifest=False,
                 want_digests=True,
             ))
-        # Commit point: manifest last, report after — the master only
-        # ever hears of fully committed checkpoints.
-        self._storage.commit_manifest(storage_id, digests)
-        self._report(storage_id, sorted(my_files) + [METADATA_FILE,
-                                                     MANIFEST_FILE], merged_md)
-        return storage_id
+        self._storage.commit_manifest(storage_id, merged)
+        resources = sorted({f for fs in files for f in fs})
+        self._report(storage_id, resources + [METADATA_FILE, MANIFEST_FILE],
+                     merged_md)
 
     def _report(self, storage_id: str, resources: List[str],
                 metadata: Dict[str, Any]) -> None:

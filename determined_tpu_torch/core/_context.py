@@ -10,9 +10,15 @@ from the environment:
   heartbeats to the trial and allocation routes, checkpoints registered
   with the master, the searcher's operation stream, the preemption
   long-poll. Checkpoints go to the cluster's ``checkpoint_storage``.
-  A rendezvous of more than one process is refused by name: a
-  multi-process gang comes with the multi-device slice (ROADMAP queue 1,
-  item 4);
+  A rendezvous of more than one process makes a gang (``_init_gang``, the
+  counterpart of the reference's ``_maybe_init_jax_distributed``): one
+  process per device, the local rank's ``cuda:<local_rank>`` (or the CPU
+  when the caller passes ``device="cpu"``), ``torch.distributed`` joined
+  at the chief's coordinator address with an explicit timeout — NCCL on
+  the card, gloo on the CPU, never one in place of the other — and the
+  ``DistributedContext`` on gloo groups of its own. ``close()`` leaves the
+  groups on every exit path, so a failing rank does not strand its
+  peers;
 - off-cluster: dummy contexts (``_dummy_init``), the official way to run
   trial code outside a cluster (notebooks, tests, ``chip_smoke.py``):
   metrics are kept in memory, checkpoints go to ``checkpoint_storage`` or
@@ -24,17 +30,25 @@ stderr, ``DTPU_DEBUG`` turns on DEBUG logging.
 """
 from __future__ import annotations
 
+import datetime
 import logging
 import os
-from typing import Any, Optional
+from typing import Any, Optional, Union
+
+import torch
 
 from determined_tpu_torch import _info
+from determined_tpu_torch._device import resolve_device
 from determined_tpu_torch.common.api_session import Session
 from determined_tpu_torch.core._checkpoint import (
     CheckpointContext,
     DummyCheckpointContext,
 )
-from determined_tpu_torch.core._distributed import DummyDistributedContext
+from determined_tpu_torch.core._distributed import (
+    DEFAULT_TIMEOUT_S,
+    DistributedContext,
+    DummyDistributedContext,
+)
 from determined_tpu_torch.core._preempt import (
     DummyPreemptContext,
     PreemptContext,
@@ -53,7 +67,7 @@ class Context:
     def __init__(
         self,
         *,
-        distributed: DummyDistributedContext,
+        distributed: DistributedContext,
         train: TrainContext,
         checkpoint: CheckpointContext,
         preempt: PreemptContext,
@@ -82,9 +96,10 @@ class Context:
         self.close()
 
 
-def _dummy_init(*, checkpoint_storage: Optional[str] = None,
+def _dummy_init(*, distributed: Optional[DistributedContext] = None,
+                checkpoint_storage: Optional[str] = None,
                 searcher_length: int = 1) -> Context:
-    dist = DummyDistributedContext()
+    dist = distributed or DummyDistributedContext()
     storage = storage_from_config(
         {"type": "shared_fs", "host_path": checkpoint_storage}
         if checkpoint_storage
@@ -119,25 +134,73 @@ def _install_debug_hooks() -> None:
         logging.getLogger("determined_tpu_torch").setLevel(logging.DEBUG)
 
 
-def init(*, checkpoint_storage: Optional[str] = None) -> Context:
+def _init_gang(rdzv: _info.RendezvousInfo,
+               device: Optional[Union[str, torch.device]]
+               ) -> DistributedContext:
+    """Join the gang of the rendezvous table: this process drives
+    ``cuda:<local_rank>`` over NCCL, or the CPU over gloo when the caller
+    asked for it; the coordinator (the chief's address) hosts the store."""
+    import torch.distributed as dist
+
+    dev = resolve_device(device)
+    kwargs: dict = {}
+    if dev.type == "cuda":
+        torch.cuda.set_device(rdzv.local_rank)
+        backend = "nccl"
+        kwargs["device_id"] = torch.device("cuda", rdzv.local_rank)
+    elif dev.type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"a gang runs on CUDA or the CPU, not {dev}")
+    dist.init_process_group(
+        backend, init_method=f"tcp://{rdzv.coordinator_address}",
+        rank=rdzv.process_index, world_size=rdzv.num_processes,
+        timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S), **kwargs,
+    )
+    try:
+        return DistributedContext(rank=rdzv.process_index,
+                                  size=rdzv.num_processes,
+                                  own_default_group=True)
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+
+
+def init(*, distributed: Optional[DistributedContext] = None,
+         checkpoint_storage: Optional[str] = None,
+         device: Optional[Union[str, torch.device]] = None) -> Context:
+    """The contexts of this task: on a cluster the live ones (a gang's
+    when the rendezvous table has more than one process; `device` picks
+    its backend, CUDA unless ``"cpu"``), off it the dummy ones
+    (`distributed` is the caller's gang, if any)."""
     _install_debug_hooks()
     info = _info.get_cluster_info()
     if info is None:
         logger.info("no cluster detected; core.init() in dummy (off-cluster) mode")
-        return _dummy_init(checkpoint_storage=checkpoint_storage)
-    rdzv = info.rendezvous
-    if rdzv is not None and rdzv.num_processes > 1:
-        raise NotImplementedError(
-            f"core.init() for a gang of {rdzv.num_processes} processes: a "
-            "multi-process gang comes with the multi-device slice (ROADMAP "
-            "queue 1, item 4)"
-        )
+        return _dummy_init(distributed=distributed,
+                           checkpoint_storage=checkpoint_storage)
 
     # Generous retry budget: the task's session must ride out a master
     # restart (tens of seconds of connection errors).
     session = Session(info.master_url, token=info.session_token,
                       max_retries=12)
-    distributed = DummyDistributedContext()
+    if distributed is None:
+        rdzv = info.rendezvous
+        if rdzv is not None and rdzv.num_processes > 1:
+            distributed = _init_gang(rdzv, device)
+        else:
+            distributed = DummyDistributedContext()
+    try:
+        return _cluster_context(info, session, distributed,
+                                checkpoint_storage)
+    except BaseException:
+        distributed.close()
+        raise
+
+
+def _cluster_context(info: _info.ClusterInfo, session: Session,
+                     distributed: DistributedContext,
+                     checkpoint_storage: Optional[str]) -> Context:
     storage = storage_from_config(info.checkpoint_storage, checkpoint_storage)
     trial_id = info.trial.trial_id if info.trial else 0
     run_id = info.trial.trial_run_id if info.trial else 0

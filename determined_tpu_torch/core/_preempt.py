@@ -1,14 +1,14 @@
 """PreemptContext: the master's cooperative preemption signal.
 
-Port of ``determined_tpu/core/_preempt.py`` for a gang of one: the chief
-runs a daemon thread that long-polls ``GET
-/api/v1/allocations/<id>/signals/preemption`` (60 s held by the master,
-70 s client timeout) and latches ``preempt: true``; the trainer asks
-``should_preempt()`` at its report boundaries, which acknowledges the
-signal (``POST .../signals/ack_preemption``) the first time it answers
-True. An elastic ``resize`` directive on the same channel is refused by
-name: in-place resize comes with the elastic slice (ROADMAP queue 1,
-item 5).
+Port of ``determined_tpu/core/_preempt.py``: the chief runs a daemon
+thread that long-polls ``GET /api/v1/allocations/<id>/signals/preemption``
+(60 s held by the master, 70 s client timeout) and latches ``preempt:
+true``; the trainer asks ``should_preempt()`` at its report boundaries —
+in a gang a collective: the chief's answer is broadcast, so every rank
+stops at the same boundary — and the chief acknowledges the signal
+(``POST .../signals/ack_preemption``) the first time it answers True.
+An elastic ``resize`` directive on the same channel is refused by name:
+in-place resize comes with the elastic slice (ROADMAP queue 1, item 5).
 
 ``DummyPreemptContext`` is the off-cluster one: never preempted.
 """
@@ -98,14 +98,21 @@ class PreemptContext:
     def should_preempt(self, auto_ack: bool = True,
                        resize_hint: Optional[dict] = None) -> bool:
         """Has the master asked this allocation to stop? Checked at step
-        boundaries; acknowledges the signal the first time it is seen
-        (``auto_ack``)."""
-        assert self._watcher is not None
-        directive = self._watcher.resize or resize_hint
+        boundaries (a collective in a gang: the chief's answer is
+        broadcast); the chief acknowledges the signal the first time it is
+        seen (``auto_ack``)."""
+        flag, directive = False, resize_hint
+        if self._dist.is_chief:
+            assert self._watcher is not None
+            flag = self._watcher.should_preempt
+            directive = self._watcher.resize or resize_hint
+        if self._dist.size > 1:
+            flag, chief_directive = self._dist.broadcast(
+                (flag, directive) if self._dist.is_chief else None)
+            directive = chief_directive or directive
         if directive is not None:
             refuse_resize(directive)
-        flag = self._watcher.should_preempt
-        if flag and auto_ack and not self._ack_sent:
+        if flag and auto_ack and self._dist.is_chief and not self._ack_sent:
             self.acknowledge_preemption_signal()
         return bool(flag)
 

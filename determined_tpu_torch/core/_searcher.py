@@ -5,8 +5,9 @@ Port of ``determined_tpu/core/_searcher.py``: the trial long-polls ``GET
 (``{"op": {"length": N}}``, ``{"completed": true}`` when the searcher
 closes the trial, ``{"op": null}`` on a long-poll timeout), trains to the
 op's length reporting ``searcher/progress``, and completes it with its
-searcher metric (``searcher/completed``). A gang of one: the chief drives
-it, with nothing to broadcast.
+searcher metric (``searcher/completed``). In a gang the chief polls and
+broadcasts each op's length (None: the searcher closed the trial), so
+every rank iterates the same ops.
 
 ``DummySearcherContext`` is the off-cluster one: one op of a fixed
 length, whose reports go nowhere.
@@ -86,7 +87,15 @@ class SearcherContext:
     def operations(self) -> Iterator[SearcherOperation]:
         """Yield the master's ops until the searcher closes the trial."""
         while True:
+            if not self._dist.is_chief:
+                length = self._dist.broadcast(None)
+                if length is None:
+                    return
+                yield SearcherOperation(None, self._trial_id, int(length),
+                                        False)
+                continue
             op = self._get_current_op()
+            self._dist.broadcast(None if op is None else op.length)
             if op is None:
                 return
             yield op
@@ -106,4 +115,5 @@ class DummySearcherContext(SearcherContext):
         self._length = length
 
     def operations(self) -> Iterator[SearcherOperation]:
-        yield SearcherOperation(None, 0, self._length)
+        is_chief = self._dist is None or self._dist.is_chief
+        yield SearcherOperation(None, 0, self._length, is_chief)

@@ -12,7 +12,8 @@ can derive its disjoint slice by consuming interleaved batch indices.
 
 The zigzag layout (``zigzag_ring > 1``: pre-shifted batches in ring
 attention's device order) needs ``parallel/ring.zigzag_indices`` and is
-refused by name until the multi-device slice ports it.
+refused by name until the multi-device slice ports it (ROADMAP queue 1,
+item 4, part 2).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ def _refuse_zigzag(zigzag_ring: int) -> None:
         raise NotImplementedError(
             f"zigzag_ring={zigzag_ring}: the zigzag layout needs "
             "parallel/ring.zigzag_indices, which comes with the "
-            "multi-device slice (ROADMAP queue 1, item 4)"
+            "multi-device slice (ROADMAP queue 1, item 4, part 2)"
         )
 
 

@@ -11,7 +11,7 @@ warmup + cosine schedule when ``warmup_steps`` is set. Entrypoint:
 One device: the global batch is ``microbatch`` × 1 when ``microbatch`` is
 set, else ``batch_size``. ``sequence_layout="zigzag"`` (ring attention
 over a sharded context axis) is refused by name until the multi-device
-slice.
+slice's part 2 (ROADMAP queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ class GPT2PretrainTrial(TorchTrial):
             raise NotImplementedError(
                 "sequence_layout='zigzag' needs a sharded context axis and "
                 "ring attention: the multi-device slice (ROADMAP queue 1, "
-                "item 4)"
+                "item 4, part 2)"
             )
         # the global batch is microbatch × the batch-sharding degree: 1
         if self.hparams.get("microbatch"):

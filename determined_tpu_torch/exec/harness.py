@@ -24,10 +24,19 @@ from ``environment.jax_platform``): ``cpu`` runs the plain PyTorch path
 on the CPU; unset runs on the card (no card: ``CudaUnavailableError``,
 exit 1).
 
-Refused by name: a device mesh and a gang of more than one process (the
-multi-device slice, ROADMAP queue 1, item 4) and checkpoint storage other
-than ``shared_fs``. Not ported: the elastic resize loop (item 5) and the
-divergence report to the master (item 4).
+A gang (``DTPU_RENDEZVOUS_INFO`` of more than one process, as
+``prep_and_run`` writes it) joins ``torch.distributed`` in ``core.init()``
+and trains on the device mesh of the hparams' or the config's ``mesh``
+section (``resolve_mesh``: a ``MeshConfig`` over the gang; without one,
+the Trainer's default, data over the whole gang). A trial that fails on
+a replica divergence (``ReplicaDivergenceError``) is reported to the
+master before the exit (``_report_divergence``: ``POST
+/api/v1/trials/<id>/status`` with ``{"event": "divergence", "detail":
+...}``).
+
+Refused by name: a mesh with tensor, context, pipeline or expert above 1
+(ROADMAP queue 1, item 4, parts 2–3) and checkpoint storage other than
+``shared_fs``. Not ported: the elastic resize loop (item 5).
 
 Launch: ``DTPU_ENTRYPOINT=pkg.module:Trial DTPU_TRIAL_ID=1 ...
 python -m determined_tpu_torch.exec.harness``; under the reference's
@@ -47,7 +56,10 @@ from typing import Any, Dict, Optional
 
 from determined_tpu_torch import _info, core, storage
 from determined_tpu_torch.common import logship, profiling, trace
+from determined_tpu_torch.common.api_session import Session
+from determined_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from determined_tpu_torch.trainer import Batch, Epoch, Trainer
+from determined_tpu_torch.trainer._sentinel import ReplicaDivergenceError
 from determined_tpu_torch.trainer._units import TrainUnit
 
 logger = logging.getLogger("determined_tpu_torch.exec")
@@ -59,17 +71,15 @@ def import_entrypoint(entrypoint: str) -> Any:
     return getattr(module, attr)
 
 
-def resolve_mesh(hparams: Dict[str, Any], cfg: Dict[str, Any]) -> None:
+def resolve_mesh(hparams: Dict[str, Any], cfg: Dict[str, Any],
+                 device: Optional[str] = None) -> Any:
     """The mesh from hparams or config (hparams first, so a searcher can
-    sweep layouts): None without one; a mesh is refused by name until the
-    multi-device slice."""
+    sweep layouts) over the gang ``core.init()`` joined: None without
+    one."""
     mesh_cfg = hparams.get("mesh") or cfg.get("mesh")
     if not mesh_cfg:
         return None
-    raise NotImplementedError(
-        f"mesh {mesh_cfg!r}: a device mesh comes with the multi-device "
-        "slice (ROADMAP queue 1, item 4); the harness runs on one device"
-    )
+    return make_mesh(MeshConfig(**mesh_cfg), device=device)
 
 
 def parse_unit(spec: Any) -> Optional[TrainUnit]:
@@ -111,6 +121,23 @@ def _checkpoint_dir() -> Optional[str]:
     return config.get("host_path")
 
 
+def _report_divergence(cluster: Optional[_info.ClusterInfo],
+                       info: _info.TrialInfo, exc: BaseException) -> None:
+    """Name a replica-divergence failure to the master on the way down
+    (the exit report carries only the exit code). Best effort: a master
+    that is gone does not change the exit."""
+    if not isinstance(exc, ReplicaDivergenceError) or cluster is None:
+        return
+    try:
+        Session(cluster.master_url, token=cluster.session_token).post(
+            f"/api/v1/trials/{info.trial_id}/status",
+            json_body={"event": "divergence", "detail": str(exc)[:500]},
+        )
+    except Exception:  # noqa: BLE001 — reporting must not mask the exit
+        logger.warning("could not report divergence to the master",
+                       exc_info=True)
+
+
 def run(entrypoint: str) -> int:
     _info.reset_cluster_info_cache()
     cluster = _info.get_cluster_info()
@@ -133,7 +160,7 @@ def run(entrypoint: str) -> int:
                 "task": str(cluster.task_id if cluster else "")},
     )
     try:
-        return _run(entrypoint, info, device)
+        return _run(entrypoint, cluster, info, device)
     finally:
         # Ship the tail now: trial.run must reach the master's trace store
         # before this short-lived process exits (atexit is the backstop).
@@ -142,7 +169,8 @@ def run(entrypoint: str) -> int:
         logship.flush_shipping()
 
 
-def _run(entrypoint: str, info: _info.TrialInfo, device: Optional[str]) -> int:
+def _run(entrypoint: str, cluster: Optional[_info.ClusterInfo],
+         info: _info.TrialInfo, device: Optional[str]) -> int:
     cfg: Dict[str, Any] = info.config
     scfg = cfg.get("searcher", {})
     trial_cls = import_entrypoint(entrypoint)
@@ -154,8 +182,9 @@ def _run(entrypoint: str, info: _info.TrialInfo, device: Optional[str]) -> int:
         # trial makes.
         with trace.span("trial.run", {"trial.id": info.trial_id,
                                       "task.id": task_id}), \
-                core.init(checkpoint_storage=_checkpoint_dir()) as ctx:
-            mesh = resolve_mesh(info.hparams, cfg)
+                core.init(checkpoint_storage=_checkpoint_dir(),
+                          device=device) as ctx:
+            mesh = resolve_mesh(info.hparams, cfg, device)
             tb_dir = None
             if cfg.get("tensorboard", True):
                 tb_dir = os.path.join(tempfile.gettempdir(), f"dtpu-tb-{task_id}")
@@ -183,8 +212,9 @@ def _run(entrypoint: str, info: _info.TrialInfo, device: Optional[str]) -> int:
                 latest_checkpoint=info.latest_checkpoint,
             )
         return 0
-    except Exception:  # noqa: BLE001 — the trial's failure is the exit code
+    except Exception as e:  # noqa: BLE001 — the trial's failure is the exit code
         logger.exception("trial failed")
+        _report_divergence(cluster, info, e)
         return 1
 
 

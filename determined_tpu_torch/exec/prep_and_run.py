@@ -6,10 +6,17 @@ Port of ``determined_tpu/exec/prep_and_run.py`` on the port's master
 1. ``prepare_context``: the experiment's shipped code directory
    (``GET /api/v1/files/<DTPU_CONTEXT_ID>``) is extracted and made the
    working directory and import root;
-2. ``rendezvous`` for a gang of one: no address table to publish, the
-   generation is recorded and stale rendezvous variables are cleared. A
-   gang of more than one process is refused by name: it comes with the
-   multi-device slice (ROADMAP queue 1, item 4);
+2. ``rendezvous``, the reference's protocol: every process of the gang
+   posts its address to the allocation's rendezvous route (rank 0's
+   carries two free ports: the coordinator's, where ``core.init()``
+   joins ``torch.distributed``, and the chief's), waits for the published
+   table, and writes ``DTPU_RENDEZVOUS_INFO`` and ``DTPU_CHIEF_PORT`` for
+   the entrypoint. The rendezvous generation fences stale identities: a
+   409 from the master carries the resize directive that re-maps this
+   rank (and the round is retried under the new generation), or drops it
+   (exit 0). A gang of one publishes nothing and clears stale variables.
+   ``apply_resize`` (re-entering the rendezvous for an elastic resize) is
+   refused by name: ROADMAP queue 1, item 5;
 3. the entrypoint runs: ``pkg.module:TrialClass`` through the trial
    harness in this process, with SIGTERM translated into a preemption
    request (``POST .../signals/preemption_from_task``), so the trainer
@@ -21,14 +28,16 @@ environment the agent sets.
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 import shlex
 import signal
+import socket
 import subprocess
 import sys
 
-from determined_tpu_torch.common.api_session import Session
+from determined_tpu_torch.common.api_session import HTTPError, Session
 
 logger = logging.getLogger("determined_tpu_torch.exec")
 
@@ -36,21 +45,108 @@ logger = logging.getLogger("determined_tpu_torch.exec")
 GENERATION_ENV = "DTPU_ALLOC_GENERATION"
 
 
+def _my_ip(master_url: str) -> str:
+    """The address the gang's other processes reach this one at."""
+    host = master_url.split("//")[-1].split(":")[0]
+    try:
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s.connect((host, 80))  # no packet leaves: a UDP connect picks a route
+        ip = s.getsockname()[0]
+        s.close()
+        return ip
+    except OSError:
+        return "127.0.0.1"
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("", 0))
+        return s.getsockname()[1]
+
+
 def rendezvous(master_url: str, alloc_id: str, rank: int, num_procs: int,
                generation: int = 0) -> None:
-    """The rendezvous protocol for a gang of one; mutates os.environ for
-    the entrypoint."""
-    if num_procs > 1:
-        raise NotImplementedError(
-            f"rendezvous of {num_procs} processes for {alloc_id}: a "
-            "multi-process gang comes with the multi-device slice (ROADMAP "
-            "queue 1, item 4)"
-        )
+    """Run the rendezvous protocol; mutates os.environ for the entrypoint.
+
+    A 409 (this process's generation is stale: the gang was resized while
+    it arrived or waited) re-maps the rank through the rejection's
+    directive and retries under the new generation; a rank the directive
+    dropped exits 0 (the master ignores resized-away members' exits)."""
+    for _ in range(8):
+        try:
+            _rendezvous_round(master_url, alloc_id, rank, num_procs,
+                              generation)
+            return
+        except HTTPError as e:
+            resp = getattr(e, "response", None)
+            if resp is None or resp.status_code != 409:
+                raise
+            try:
+                body = resp.json()
+            except ValueError:
+                raise e from None
+            directive = body.get("resize")
+            if not directive:
+                raise  # fenced without a directive: an error, not a drop
+            new_rank = (directive.get("rank_map") or {}).get(str(rank))
+            if new_rank is None:
+                if directive.get("resync_only"):
+                    raise
+                logger.info(
+                    "rendezvous fenced at generation %s and this rank was "
+                    "dropped; exiting for re-sync", body.get("generation"))
+                raise SystemExit(0)
+            rank = int(new_rank)
+            num_procs = int(directive["num_processes"])
+            generation = int(directive["generation"])
+            os.environ["DTPU_ALLOC_RANK"] = str(rank)
+            os.environ["DTPU_ALLOC_NUM_PROCS"] = str(num_procs)
+            logger.info("rendezvous fenced; retrying as rank %d of %d "
+                        "(generation %d)", rank, num_procs, generation)
+    raise RuntimeError(
+        f"rendezvous for {alloc_id} could not settle within 8 resize "
+        "generations"
+    )
+
+
+def _rendezvous_round(master_url: str, alloc_id: str, rank: int,
+                      num_procs: int, generation: int) -> None:
     os.environ[GENERATION_ENV] = str(generation)
-    # A one-process allocation has no table to publish; stale rendezvous
-    # variables must not leak into core.init().
-    os.environ.pop("DTPU_RENDEZVOUS_INFO", None)
-    os.environ.pop("DTPU_CHIEF_PORT", None)
+    if num_procs <= 1:
+        # A one-process allocation has no table to publish; stale
+        # rendezvous variables must not leak into core.init().
+        os.environ.pop("DTPU_RENDEZVOUS_INFO", None)
+        os.environ.pop("DTPU_CHIEF_PORT", None)
+        return
+    session = _task_session(master_url)
+    ip = _my_ip(master_url)
+    addr = f"{ip}:{_free_port()}:{_free_port()}" if rank == 0 else ip
+    session.post(
+        f"/api/v1/allocations/{alloc_id}/rendezvous",
+        json_body={"rank": rank, "addr": addr, "generation": generation},
+    )
+    info = session.get(
+        f"/api/v1/allocations/{alloc_id}/rendezvous",
+        params={"timeout_seconds": 600, "generation": generation},
+        timeout=610,
+    )
+    chief_ip, coord_port, chief_port = info["container_addrs"][0].split(":")
+    os.environ["DTPU_RENDEZVOUS_INFO"] = json.dumps({
+        "container_addrs": [a.split(":")[0] for a in info["container_addrs"]],
+        "container_rank": rank,
+        "coordinator_address": f"{chief_ip}:{coord_port}",
+        "num_processes": num_procs,
+    })
+    os.environ["DTPU_CHIEF_PORT"] = chief_port
+
+
+def apply_resize(master_url: str, directive: dict) -> bool:
+    """Re-entering the rendezvous under a resize directive's generation:
+    the elastic slice."""
+    raise NotImplementedError(
+        f"apply_resize({directive!r}): an elastic gang resize comes with "
+        "ROADMAP queue 1, item 5"
+    )
 
 
 def _task_session(master_url: str) -> Session:

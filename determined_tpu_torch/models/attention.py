@@ -12,8 +12,9 @@ path.
   scan, so there is no separate dense default to fall back to.
 - ``"dense"``: plain softmax attention with the same band/segment mask
   model (port of ``parallel/ring.py::reference_attention``).
-- ``"ring"`` and ``"ulysses"`` shard the sequence over a mesh and come with
-  the multi-device slice.
+- ``"ring"`` and ``"ulysses"`` shard the sequence over a mesh's context
+  axis and come with the multi-device slice's part 2 (ROADMAP queue 1,
+  item 4).
 """
 from __future__ import annotations
 
@@ -78,8 +79,9 @@ def attention(
     sequences; attention only within equal ids."""
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
-            f"{impl} attention shards the sequence over a device mesh; it "
-            "comes with the multi-device slice"
+            f"{impl} attention shards the sequence over a device mesh's "
+            "context axis; it comes with the multi-device slice's ROADMAP "
+            "queue 1, item 4, part 2"
         )
     if layout != "contiguous":
         raise ValueError(

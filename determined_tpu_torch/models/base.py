@@ -5,8 +5,10 @@ model as ``init(rng) -> params``, ``logical_axes()``, ``loss(params, batch,
 rng)`` and ``eval_metrics(params, batch)``. In PyTorch the module owns its
 parameters, so the contract shrinks to the two batch-level methods: a
 model that trains overrides ``loss``; ``eval_metrics`` reuses it by
-default. Parameter construction is the module's ``__init__``; the
-logical-axis sharding table arrives with the multi-device slice.
+default. Parameter construction is the module's ``__init__``;
+``logical_axes()`` names each parameter's dimensions for the sharding
+rules (``parallel/sharding.py``), keyed as ``named_parameters`` names the
+leaves.
 """
 from __future__ import annotations
 
@@ -30,6 +32,19 @@ class Model(nn.Module):
         raise NotImplementedError(
             f"{type(self).__name__} defines no training loss"
         )
+
+    def logical_axes(self) -> Dict[str, Any]:
+        """Logical axis names per parameter dimension (nested dicts of
+        tuples, as the reference's ``logical_axes()``). Default: every
+        dimension unnamed, so the rules replicate every parameter."""
+        out: Dict[str, Any] = {}
+        for name, p in self.named_parameters():
+            *parents, leaf = name.split(".")
+            node = out
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[leaf] = (None,) * p.dim()
+        return out
 
     def eval_metrics(self, batch: Batch) -> Metrics:
         """Validation metrics for one batch; default reuses loss()."""

@@ -36,7 +36,13 @@ style and change nothing here: the port always runs a Python loop over
 the layers. ``fused_loss=True`` computes the loss through the chunked
 cross-entropy (``ops/fused_cross_entropy.py``), which never materializes
 the ``[B, S, V]`` logits. Mixture of experts, pipeline stages and the
-zigzag layout belong to later slices and are refused by name.
+zigzag layout belong to later parts of the multi-device item and are
+refused by name.
+
+Under a device mesh (``GPT(..., mesh=)``, the Trainer's ``data × fsdp``
+layout) the module computes on each rank's local rows with whole
+parameters; ``logical_axes()`` names the parameters' dimensions for the
+sharding rules, in the reference's structure and names.
 
 The methods drop the reference's leading ``params`` argument: the module
 owns its parameters.
@@ -82,7 +88,8 @@ class GPTConfig:
     # port reads remat, remat_attention, layer_loop (only for the auto
     # rematted attention past 16k tokens), attn_impl, flash_block_q/k,
     # attn_window, z_loss and fused_loss, and refuses MoE, pipeline
-    # stages and the zigzag layout; the multi-device slice reads the rest.
+    # stages and the zigzag layout; later parts of the multi-device item
+    # read the rest.
     remat: bool = True
     remat_attention: bool = False
     scan_unroll: int = 1
@@ -208,22 +215,31 @@ class GPT(Model):
 
     def __init__(self, config: GPTConfig,
                  device: Optional[Union[str, torch.device]] = None,
-                 *, seed: int = 0) -> None:
+                 *, seed: int = 0, mesh: Any = None) -> None:
         super().__init__()
         c = config
         if c.n_experts:
             raise NotImplementedError(
-                "mixture-of-experts GPT is not ported yet (later slice)"
+                "mixture-of-experts GPT is not ported yet (the multi-device "
+                "slice's ROADMAP queue 1, item 4, part 3)"
             )
         if c.pipeline_stages > 1:
             raise NotImplementedError(
-                "pipeline-parallel GPT is not ported yet (multi-device slice)"
+                "pipeline-parallel GPT is not ported yet (the multi-device "
+                "slice's ROADMAP queue 1, item 4, part 3)"
             )
         if c.sequence_layout != "contiguous":
             raise NotImplementedError(
                 f"sequence_layout {c.sequence_layout!r} needs ring attention "
-                "(multi-device slice)"
+                "(the multi-device slice's ROADMAP queue 1, item 4, part 2)"
             )
+        if mesh is not None:
+            from determined_tpu_torch.parallel.mesh import refuse_later_axes
+
+            refuse_later_axes(mesh, "a GPT mesh")
+        #: the device mesh the Trainer trains this model over (None: one
+        #: device); the forward computes on this rank's rows either way.
+        self.mesh = mesh
         self.config = c
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -266,6 +282,35 @@ class GPT(Model):
         """The config's fwd+bwd FLOPs per token (the trainer's
         ``step_flops``)."""
         return self.config.train_flops_per_token()
+
+    def logical_axes(self) -> Dict[str, Any]:
+        """The reference's ``GPT.logical_axes()``: each parameter's
+        dimensions by logical name, nested as ``named_parameters`` names
+        the leaves (``blocks.wqkv`` → ``["blocks"]["wqkv"]``)."""
+        blocks: Dict[str, Any] = {
+            "ln1_scale": ("layers", "norm"),
+            "ln1_bias": ("layers", "norm"),
+            "wqkv": ("layers", "embed", None, "heads", "head_dim"),
+            "bqkv": ("layers", None, "heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed"),
+            "bo": ("layers", "norm"),
+            "ln2_scale": ("layers", "norm"),
+            "ln2_bias": ("layers", "norm"),
+            "wi": ("layers", "embed", "mlp"),
+            "bi": ("layers", "mlp"),
+            "wo_mlp": ("layers", "mlp", "embed"),
+            "bo_mlp": ("layers", "norm"),
+        }
+        axes: Dict[str, Any] = {
+            "tok_embed": ("vocab", "embed"),
+            "pos_embed": (None, "embed"),
+            "blocks": blocks,
+            "lnf_scale": ("norm",),
+            "lnf_bias": ("norm",),
+        }
+        if not self.config.tie_embeddings:
+            axes["head"] = ("embed", "vocab")
+        return axes
 
     @property
     def device(self) -> torch.device:

@@ -3,8 +3,8 @@ optimizer chain (``optim``), the health sentinel (``_sentinel``: the
 non-finite guard, the loss-spike detector; rollback-and-skip in the
 loop) and the step timeline with its goodput ledger (``_timeline``).
 
-Port of ``determined_tpu/trainer`` for one device, off-cluster (see
-``_trainer.py``).
+Port of ``determined_tpu/trainer``, on one device or on a ``data ×
+fsdp`` device mesh (``_mesh.py``; see ``_trainer.py``).
 """
 from determined_tpu_torch.trainer import optim
 from determined_tpu_torch.trainer._trainer import Trainer

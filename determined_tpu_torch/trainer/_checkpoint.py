@@ -20,9 +20,22 @@ tuples, each per-parameter sequence replaced by the same nested dict}``.
 For ``gpt.tiny()`` under ``chain(clip_by_global_norm(1.0), adamw(lr))``
 that gives ``params__blocks__wqkv`` and ``opt_state__1__0__mu__tok_embed``,
 as the JAX ``Trainer`` writes them.
+
+A gang on a device mesh saves its state sharded, as the reference's
+multi-host pod does: every per-parameter leaf is this rank's block of it
+(``Shard``: the local tensor, the leaf's global shape, the block's
+starts, whether this rank holds replica 0 of the block). Each rank writes
+the blocks it holds replica 0 of — a block that is not the whole leaf as
+``{name}.shard<starts>.npy`` (starts joined by ``_``), a whole one under
+the leaf's own name — and the chief alone writes the rest (the step, the
+optimizer's counts) and ``tree.json``. Loading into a view of ``Shard``
+leaves reads each rank's own block (``_read_region``) at the layout the
+gang has; a checkpoint sharded in another layout is refused by name
+(resharding is the elastic slice, ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -81,6 +94,27 @@ def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
     return next(leaves)
 
 
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """This rank's block of one leaf of a sharded state."""
+
+    local: torch.Tensor
+    #: the leaf's global shape.
+    shape: Tuple[int, ...]
+    #: the block's first index along each dimension.
+    starts: Tuple[int, ...]
+    #: whether this rank holds replica 0 of the block (the copy saved).
+    replica0: bool
+
+    @property
+    def whole(self) -> bool:
+        return tuple(self.local.shape) == tuple(self.shape)
+
+    @property
+    def region(self) -> List[Tuple[int, int]]:
+        return [(s, s + n) for s, n in zip(self.starts, self.local.shape)]
+
+
 # ---------------------------------------------------------------------------
 # The named state view
 # ---------------------------------------------------------------------------
@@ -113,7 +147,8 @@ def _param_aligned(x: Any) -> bool:
     states that is a per-parameter sequence (``mu``, ``nu``); a chain's
     state is a tuple of NamedTuple states."""
     return (isinstance(x, (list, tuple)) and not _is_namedtuple(x)
-            and len(x) > 0 and all(isinstance(t, torch.Tensor) for t in x))
+            and len(x) > 0
+            and all(isinstance(t, (torch.Tensor, Shard)) for t in x))
 
 
 def _name_lists(tree: Any, names: Sequence[str]) -> Any:
@@ -145,6 +180,30 @@ def state_view(step: int, names: Sequence[str], params: Sequence[Any],
     }
 
 
+def sharded_state_view(step: int, names: Sequence[str],
+                       params: Sequence[torch.Tensor], opt_state: Any,
+                       blocks: Sequence[Tuple[Tuple[int, ...],
+                                              Tuple[int, ...], bool]]
+                       ) -> Dict[str, Any]:
+    """``state_view`` of a sharded state: every per-parameter tensor (the
+    parameter's block, its moments' blocks) becomes a ``Shard`` with the
+    parameter's (global shape, starts, replica0) from `blocks`."""
+
+    def wrap(tensors: Sequence[torch.Tensor]) -> List[Shard]:
+        return [Shard(t, *block) for t, block in zip(tensors, blocks)]
+
+    def walk(tree: Any) -> Any:
+        if _param_aligned(tree):
+            return wrap(tree)
+        if _is_namedtuple(tree):
+            return type(tree)(*(walk(v) for v in tree))
+        if isinstance(tree, tuple):
+            return tuple(walk(v) for v in tree)
+        return tree
+
+    return state_view(step, names, wrap(params), walk(opt_state))
+
+
 def opt_state_from_view(template: Any, view: Any,
                         names: Sequence[str]) -> Any:
     """Inverse of the view's ``opt_state``: `view`'s values in
@@ -173,8 +232,11 @@ def _to_host(leaf: Any) -> np.ndarray:
     return np.array(leaf)
 
 
-def snapshot_pytree(tree: Any) -> Dict[str, np.ndarray]:
-    """Device→host copy of every leaf of `tree` (a named state view).
+def snapshot_pytree(tree: Any, chief: bool = True) -> Dict[str, np.ndarray]:
+    """Device→host copy of the leaves of `tree` (a named state view) that
+    this rank saves: a ``Shard`` leaf where this rank holds replica 0 of
+    its block (``{name}.shard<starts>`` unless the block is the whole
+    leaf), any other leaf on the `chief` only.
 
     This is the only part of a save that must block the step loop: once
     the arrays are host numpy, serialization and upload can run on a
@@ -186,25 +248,38 @@ def snapshot_pytree(tree: Any) -> Dict[str, np.ndarray]:
     names = [_leaf_name(path) for path, _ in leaves]
     if len(set(names)) != len(names):
         raise ValueError("pytree keypaths collide after sanitization")
-    return {name: _to_host(leaf) for (_, leaf), name in zip(leaves, names)}
+    snap: Dict[str, np.ndarray] = {}
+    for (_, leaf), name in zip(leaves, names):
+        if not isinstance(leaf, Shard):
+            if chief:
+                snap[name] = _to_host(leaf)
+        elif leaf.replica0:
+            if not leaf.whole:
+                name = f"{name}.shard{'_'.join(str(s) for s in leaf.starts)}"
+            snap[name] = _to_host(leaf.local)
+    return snap
 
 
-def write_snapshot(snap: Dict[str, np.ndarray], directory: str) -> List[str]:
-    """Serialize a host snapshot to `directory`; returns files written."""
+def write_snapshot(snap: Dict[str, np.ndarray], directory: str,
+                   manifest: bool = True) -> List[str]:
+    """Serialize a host snapshot to `directory` (and ``tree.json`` when
+    `manifest`: the chief's); returns files written."""
     os.makedirs(directory, exist_ok=True)
     written: List[str] = []
     for name, arr in snap.items():
         np.save(os.path.join(directory, f"{name}.npy"), arr)
         written.append(f"{name}.npy")
+    if not manifest:
+        return written
     # The reference's manifest; "leaves" is advisory (loaders resolve by
-    # file name) and, on a multi-host pod, lists the chief's leaves only.
-    manifest = {
+    # file name) and, in a gang, lists the chief's leaves only.
+    manifest_body = {
         "leaves": sorted({n.split(".shard")[0] for n in snap}),
         "leaves_scope": "chief-host-only",
         "structure": "keypath-flat-v1",
     }
     with open(os.path.join(directory, MANIFEST), "w") as f:
-        json.dump(manifest, f)
+        json.dump(manifest_body, f)
     written.append(MANIFEST)
     return written
 
@@ -389,28 +464,59 @@ def load_pytree(directory: str, like: Any, shardings: Optional[Any] = None) -> A
     read and checked before anything is returned, so a checkpoint with a
     missing leaf, drifted shapes or incomplete shards changes nothing.
     A torch leaf of `like` comes back as a tensor of its dtype on its
-    device; any other leaf as a numpy array of its dtype.
+    device; any other leaf as a numpy array of its dtype. A ``Shard`` leaf
+    comes back as its block alone, read at the gang's layout: from a
+    whole leaf's file, or from the shard file that holds exactly this
+    block.
 
-    ``shardings`` (the reference's lazy restore onto a device mesh) is
-    elastic reshard, a later item (``ROADMAP.md`` queue 1, item 5).
+    ``shardings`` (the reference's lazy restore onto a NEW device mesh)
+    is the elastic reshard, a later item (``ROADMAP.md`` queue 1, item 5);
+    so is a ``Shard`` leaf saved in another layout.
     """
     if shardings is not None:
         raise NotImplementedError(
-            "load_pytree(shardings=...) is elastic reshard, not ported yet "
-            "(a later slice); the port restores onto one device"
+            "load_pytree(shardings=...) onto a new layout is the elastic "
+            "reshard (ROADMAP queue 1, item 5); a gang restores at the "
+            "layout it saved"
         )
     leaves = list(_flatten_with_path(like))
     inventory = _checkpoint_inventory(directory)
     host = []
     for path, leaf in leaves:
+        name = _leaf_name(path)
+        if isinstance(leaf, Shard):
+            _refuse_reshard(inventory.get(name), name, leaf)
+            host.append(_read_region(
+                directory, name, leaf.region, tuple(leaf.shape),
+                _leaf_dtype(leaf.local), inventory,
+            ))
+            continue
         shape = tuple(leaf.shape)
         host.append(_read_region(
-            directory, _leaf_name(path), [(0, d) for d in shape], shape,
+            directory, name, [(0, d) for d in shape], shape,
             _leaf_dtype(leaf), inventory,
         ))
-    out = [
-        torch.from_numpy(arr).to(leaf.device)
-        if isinstance(leaf, torch.Tensor) else arr
-        for (_, leaf), arr in zip(leaves, host)
-    ]
+    out = []
+    for (_, leaf), arr in zip(leaves, host):
+        if isinstance(leaf, Shard):
+            leaf = leaf.local
+        out.append(torch.from_numpy(arr).to(leaf.device)
+                   if isinstance(leaf, torch.Tensor) else arr)
     return _unflatten(like, iter(out))
+
+
+def _refuse_reshard(entry: Optional[Dict[str, Any]], name: str,
+                    leaf: Shard) -> None:
+    """A sharded leaf must hold this rank's block as one shard file; a
+    whole leaf's file serves any block."""
+    if not entry or "file" in entry or "shards" not in entry:
+        return
+    block = (list(leaf.starts), tuple(leaf.local.shape))
+    if any((starts, fshape) == block for starts, fshape, _ in entry["shards"]):
+        return
+    raise NotImplementedError(
+        f"checkpoint leaf {name} is sharded in another layout than this "
+        f"gang's (block at {list(leaf.starts)} of {tuple(leaf.local.shape)}); "
+        "restoring onto a new layout is the elastic reshard (ROADMAP queue "
+        "1, item 5)"
+    )

@@ -1,0 +1,276 @@
+"""The Trainer's state on a ``data × fsdp`` device mesh, and its collectives.
+
+The reference lets GSPMD shard its jitted step over the mesh. Here one
+process drives one device, and ``MeshLayout`` does by hand what the
+reference's shardings imply, from the same rule table
+(``parallel/sharding.py``) over the model's ``logical_axes()``:
+
+- **Parameters and optimizer state** live as each rank's block: a
+  parameter whose "embed" dimension the rules map to ``fsdp`` is split
+  along that dimension over the fsdp axis, every other one is whole on
+  every rank. The trial's optimizer chain (``trainer.optim``, optax's
+  arithmetic) runs on the blocks, so the AdamW moments take the
+  parameters' layout, and ``optim.global_norm`` is the whole gradient's
+  norm (``norm_reduction``: the blocks' sums of squares, all-reduced over
+  fsdp once a step; the whole parameters' added once).
+- **The model computes with whole parameters** (its ``nn.Parameter``s, a
+  working copy): ``gather`` all-gathers the blocks into them over fsdp
+  after every update and restore, so between steps the working copy
+  equals the gathered state. A parameter that is whole on every rank is
+  its own block (the block aliases it), so only the split ones have a
+  second copy. Every rank thus keeps the whole working copy and, in the
+  step, whole gradients: the optimizer state and the blocks are split,
+  the working copy is not (ZeRO-1-like, unlike the reference's GSPMD
+  layout, where the parameters too live split). The attention kernels
+  see each rank's local activations as plain tensors.
+- **The batch** is split by rows over ``("data", "fsdp")``, data major
+  (``rows``); the trial's ``replicated_batch_keys`` (default
+  ``positions``) go to every rank whole.
+- **The loss is the global token mean.** Each rank's loss is its own
+  rows' mean; ``loss_weight`` weights it by the rank's share of the
+  gang's token count (``tokens``; the ranks' row share 1/dp for a model
+  that reports none), so that the ranks' weighted losses sum to the
+  reference's loss over the global batch, and so do their gradients.
+- **Gradients**: a split parameter's is reduce-scattered over fsdp
+  (summed) and all-reduced over data; a whole one's is all-reduced over
+  the gang in one flat buffer. The global norm all-reduces the split
+  blocks' sum of squares over fsdp, once for each call of
+  ``optim.global_norm`` (the trainer's and the chain's clip).
+- **Metrics**: every scalar metric is summed over the gang after the same
+  weighting (``tokens`` unweighted), in one all-reduce, so every rank
+  holds the same global loss and grad norm, and the non-finite guard,
+  the spike detector, rollback-and-skip and the reports decide alike on
+  every rank.
+
+A mesh is refused by name when an axis of a later part of the
+multi-device item is above 1, or when the rules split a parameter over
+any axis but fsdp. A collective over a group of one rank is skipped, so
+one rank on a ``data=1 × fsdp=1`` mesh does the one-device step's work
+and the layout's bookkeeping.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from determined_tpu_torch.parallel.mesh import (
+    data_parallel_index,
+    data_parallel_size,
+    refuse_later_axes,
+    validate_divisibility,
+)
+from determined_tpu_torch.parallel.sharding import (
+    ShardingRules,
+    flatten_axes,
+    local_region,
+    logical_to_sharding,
+    replica_index,
+)
+from determined_tpu_torch.trainer._checkpoint import Shard
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamBlock:
+    """Where one parameter lives: its global shape, the dimension split
+    over fsdp (None: whole on every rank), this rank's block and whether
+    it holds replica 0 of the block."""
+
+    shape: Tuple[int, ...]
+    dim: Optional[int]
+    region: Tuple[Tuple[int, int], ...]
+    replica0: bool
+
+    @property
+    def starts(self) -> Tuple[int, ...]:
+        return tuple(lo for lo, _ in self.region)
+
+
+class MeshLayout:
+    def __init__(self, mesh: Any, rules: ShardingRules, logical_axes: Any,
+                 named: Sequence[Tuple[str, torch.Tensor]]) -> None:
+        import torch.distributed as dist
+
+        refuse_later_axes(mesh)
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(
+                f"the mesh spans {mesh.size()} ranks of a gang of "
+                f"{dist.get_world_size()}; the Trainer's mesh spans the gang"
+            )
+        self.mesh = mesh
+        self.fsdp_group = mesh.get_group("fsdp")
+        self.data_group = mesh.get_group("data")
+        self.world = int(dist.get_world_size())
+        self.dp = data_parallel_size(mesh)
+        self.dp_index = data_parallel_index(mesh)
+        fsdp = int(mesh.shape[mesh.mesh_dim_names.index("fsdp")])
+        axes = flatten_axes(logical_axes)
+        self.blocks: List[ParamBlock] = []
+        for name, p in named:
+            if name not in axes:
+                raise ValueError(
+                    f"parameter {name} has no entry in the model's "
+                    "logical_axes()")
+            placements = logical_to_sharding(axes[name], mesh, rules)
+            dim = None
+            for i, pl in enumerate(placements):
+                if not pl.is_shard() or int(mesh.shape[i]) == 1:
+                    continue
+                axis = mesh.mesh_dim_names[i]
+                if axis != "fsdp":
+                    raise ValueError(
+                        f"the sharding rules split parameter {name} over "
+                        f"{axis!r}; the Trainer splits parameters over "
+                        "fsdp only"
+                    )
+                dim = pl.dim
+                if p.shape[dim] % fsdp:
+                    raise ValueError(
+                        f"parameter {name} {tuple(p.shape)}: dimension "
+                        f"{dim} is not divisible by fsdp={fsdp}"
+                    )
+            self.blocks.append(ParamBlock(
+                tuple(p.shape), dim,
+                tuple(local_region(p.shape, placements, mesh)),
+                replica_index(placements, mesh) == 0,
+            ))
+        device = named[0][1].device if named else torch.device("cpu")
+        #: 1.0 for a parameter split over fsdp: the norm's all-reduced part.
+        self._split = torch.tensor(
+            [float(b.dim is not None) for b in self.blocks], device=device)
+
+    # -- placement ---------------------------------------------------------
+    def block_of(self, full: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's block of parameter i: a whole parameter's is the
+        parameter itself (its storage), a split one's a copy of its
+        region."""
+        b = self.blocks[i]
+        if b.dim is None:
+            return full.detach()
+        lo, hi = b.region[b.dim]
+        return full.detach().narrow(b.dim, lo, hi - lo).contiguous().clone()
+
+    def gather(self, blocks: Sequence[torch.Tensor],
+               fulls: Sequence[torch.Tensor]) -> None:
+        """The working copy ← the gathered blocks (all-gather over fsdp
+        for the split parameters; a whole one is its own block)."""
+        import torch.distributed as dist
+
+        with torch.no_grad():
+            for b, blk, full in zip(self.blocks, blocks, fulls):
+                if b.dim is None:
+                    continue
+                src = blk.movedim(b.dim, 0).contiguous()
+                out = torch.empty((b.shape[b.dim], *src.shape[1:]),
+                                  dtype=src.dtype, device=src.device)
+                dist.all_gather_into_tensor(out, src, group=self.fsdp_group)
+                full.copy_(out.movedim(0, b.dim))
+
+    def broadcast_from_rank0(self, fulls: Sequence[torch.Tensor]) -> None:
+        """Every rank starts from rank 0's parameters."""
+        import torch.distributed as dist
+
+        if self.world == 1:
+            return
+        with torch.no_grad():
+            for full in fulls:
+                dist.broadcast(full, src=0)
+
+    def rows(self, x: Any) -> Any:
+        """This rank's rows of a global batch array."""
+        n = x.shape[0] // self.dp
+        return x[self.dp_index * n:(self.dp_index + 1) * n]
+
+    def check_batch(self, batch: Dict[str, Any], replicated: frozenset) -> None:
+        for k, v in batch.items():
+            if k not in replicated:
+                validate_divisibility(self.mesh, global_batch=len(v))
+
+    def shard_view_blocks(self) -> List[Tuple[Tuple[int, ...], Tuple[int, ...], bool]]:
+        """(global shape, starts, replica0) per parameter, for
+        ``_checkpoint.sharded_state_view``."""
+        return [(b.shape, b.starts, b.replica0) for b in self.blocks]
+
+    def shards(self, names: Sequence[str],
+               blocks: Sequence[torch.Tensor]) -> Dict[str, Shard]:
+        return {n: Shard(t, b.shape, b.starts, b.replica0)
+                for n, t, b in zip(names, blocks, self.blocks)}
+
+    # -- the step's collectives ----------------------------------------------
+    def loss_weight(self, metrics: Dict[str, torch.Tensor]) -> Any:
+        """This rank's share of the global mean: its tokens over the
+        gang's (all-reduced), or 1/dp without a ``tokens`` metric."""
+        import torch.distributed as dist
+
+        tokens = metrics.get("tokens")
+        if tokens is None:
+            return 1.0 / self.dp
+        mine = tokens.detach().float().reshape(())
+        total = mine.clone()
+        if self.world > 1:
+            dist.all_reduce(total)
+        return mine / torch.clamp(total, min=1.0)
+
+    def reduce_grads(self, grads: Sequence[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+        """Whole gradients of this rank's weighted loss → the gang's
+        summed gradient, each as this rank's block."""
+        import torch.distributed as dist
+
+        out: List[torch.Tensor] = list(grads)
+        whole = [i for i, b in enumerate(self.blocks) if b.dim is None]
+        for i, (b, g) in enumerate(zip(self.blocks, grads)):
+            if b.dim is None:
+                continue
+            src = g.movedim(b.dim, 0).contiguous()
+            part = torch.empty((src.shape[0] // int(self.fsdp_group.size()),
+                                *src.shape[1:]),
+                               dtype=src.dtype, device=src.device)
+            dist.reduce_scatter_tensor(part, src, group=self.fsdp_group)
+            if int(self.data_group.size()) > 1:
+                dist.all_reduce(part, group=self.data_group)
+            out[i] = part.movedim(0, b.dim).contiguous()
+        if whole and self.world > 1:
+            flat = torch.cat([grads[i].reshape(-1) for i in whole])
+            dist.all_reduce(flat)
+            for i, piece in zip(whole, flat.split(
+                    [grads[i].numel() for i in whole])):
+                out[i] = piece.view_as(grads[i])
+        return out
+
+    def sum_of_squares(self, tensors: Sequence[torch.Tensor],
+                       sq: torch.Tensor) -> torch.Tensor:
+        """``optim.norm_reduction``'s total for per-parameter tensors:
+        the split parameters' sums all-reduced over fsdp, plus the whole
+        ones' (held alike by every rank)."""
+        import torch.distributed as dist
+
+        if len(tensors) != len(self.blocks):
+            raise ValueError(
+                f"a global norm over {len(tensors)} tensors of a sharded "
+                f"state of {len(self.blocks)} parameters")
+        split = (sq * self._split).sum()
+        if int(self.fsdp_group.size()) > 1:
+            dist.all_reduce(split, group=self.fsdp_group)
+        return split + (sq * (1.0 - self._split)).sum()
+
+    def reduce_metrics(self, metrics: Dict[str, torch.Tensor],
+                       weight: Any) -> Dict[str, torch.Tensor]:
+        """Every scalar metric summed over the gang, weighted by
+        `weight` (``tokens`` unweighted), in one all-reduce."""
+        import torch.distributed as dist
+
+        keys = [k for k, v in metrics.items() if v.dim() == 0]
+        vals = torch.stack([
+            metrics[k].detach().float() * (1.0 if k == "tokens" else weight)
+            for k in keys])
+        if self.world > 1:
+            dist.all_reduce(vals)
+        return dict(zip(keys, vals.unbind(0)))
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """Each rank's generator seed, from (seed, rank)."""
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])

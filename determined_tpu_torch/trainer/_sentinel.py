@@ -1,6 +1,6 @@
 """Training health sentinel: the step-level defenses of the trainer.
 
-Port of ``determined_tpu/trainer/_sentinel.py`` for one device:
+Port of ``determined_tpu/trainer/_sentinel.py``:
 
 - **Non-finite guard** (``guarded_update``): a NaN/inf loss or gradient
   norm skips the optimizer update — the parameters and the WHOLE
@@ -12,13 +12,22 @@ Port of ``determined_tpu/trainer/_sentinel.py`` for one device:
 - **Loss-spike detector** (``SpikeDetector``): a robust z-score (median /
   MAD) over a rolling window of recent losses; a spike past
   ``spike_zscore`` triggers the same rollback-and-skip path as a run of
-  non-finite steps (``Trainer._sentinel_rollback``).
+  non-finite steps (``Trainer._sentinel_rollback``). In a gang every
+  rank sees the same global loss, so every rank reaches the same
+  verdict with no collective of its own.
+- **Replica-divergence audit** (``local_shard_checksums`` /
+  ``compare_checksums``): every ``divergence_check_period`` batches,
+  (Σx, Σx²) in fp32 of each parameter block a rank holds, keyed by the
+  block's logical region, gathered by the chief and compared across
+  every holder of the same region (the data-parallel replicas, and the
+  ranks an fsdp axis replicates a parameter over). Replicas hold the same
+  bytes and run the same reduction, so equality is exact; a mismatch is
+  silent data corruption, and the trial errors with the minority
+  holder's rank and device named (``ReplicaDivergenceError``). One
+  device holds one copy of each region, so there is nothing to compare.
 
-Both are drivable through the fault plan (``common/faults.py``,
-``DTPU_FAULT_PLAN``) at the ``train.*`` sites below. The reference's
-replica-divergence audit compares data-parallel replicas, which one
-device does not have: ``divergence_check_period > 0`` is parsed here and
-refused by the ``Trainer`` (the multi-device slice).
+All are drivable through the fault plan (``common/faults.py``,
+``DTPU_FAULT_PLAN``) at the ``train.*`` sites below.
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ import dataclasses
 import math
 import statistics
 from collections import deque
-from typing import Any, Deque, Dict, Optional, Sequence, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,7 +47,16 @@ from determined_tpu_torch.common import faults
 NONFINITE_SITE = "train.nonfinite"
 SPIKE_SITE = "train.spike"
 
+DIVERGENCE_SITE_PREFIX = "train.divergence.rank"
+
 SPIKE_FACTOR = 1e6
+
+
+class ReplicaDivergenceError(RuntimeError):
+    """Replicated parameters diverged across their holders: silent data
+    corruption (a flipped bit, bad memory). The message names the
+    offending rank and device; the trial errors rather than train on, or
+    checkpoint, corrupt state."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,3 +193,94 @@ class SpikeDetector:
         """Drop the baseline (after a rollback: the poisoned window's
         losses must not seed the fresh run's statistics)."""
         self._hist.clear()
+
+
+def divergence_fault(rank: int) -> bool:
+    """True when the plan schedules a replica bit-flip drill for `rank`
+    (site ``train.divergence.rank<r>``: per-rank names, because every
+    process inherits the same plan and a perturbation on ALL ranks would
+    cancel out of the comparison)."""
+    plan = faults.active()
+    if plan is None:
+        return False
+    try:
+        plan.decide(f"{DIVERGENCE_SITE_PREFIX}{rank}")
+    except faults.InjectedFault:
+        return True
+    return False
+
+
+# -- replica-divergence audit -------------------------------------------------
+Checksums = Dict[str, List[Tuple[str, Tuple[float, float]]]]
+
+
+def _index_key(region: Sequence[Tuple[int, int]],
+               shape: Sequence[int]) -> str:
+    """The reference's key of a shard's index: ``start:stop`` per
+    dimension, ``0:None`` for a whole one, ``scalar`` for 0-d."""
+    parts = [f"{lo}:{'None' if (lo, hi) == (0, n) else hi}"
+             for (lo, hi), n in zip(region, shape)]
+    return ",".join(parts) or "scalar"
+
+
+def _keystr(name: str) -> str:
+    """``jax.tree_util.keystr`` of a dotted parameter name."""
+    return "".join(f"[{part!r}]" for part in name.split("."))
+
+
+def local_shard_checksums(params: Dict[str, Any]) -> Checksums:
+    """Checksums of every parameter block this rank holds, keyed by the
+    block's logical region ("<leaf path>|<index>"); two holders of one key
+    are replicas of the same bytes and must checksum identically. Values
+    are (device label, (Σx, Σx²)) pairs, fp32 sums. `params`: {dotted
+    name: tensor (a whole parameter) or ``_checkpoint.Shard`` (a block)},
+    taken in sorted name order (the reference's tree order)."""
+    out: Checksums = {}
+    for name in sorted(params):
+        leaf = params[name]
+        local = getattr(leaf, "local", leaf)
+        region = getattr(leaf, "region", None) or [(0, n) for n in local.shape]
+        shape = tuple(getattr(leaf, "shape", local.shape))
+        x32 = local.detach().float()
+        sums = (float(x32.sum()), float((x32 * x32).sum()))
+        key = f"{_keystr(name)}|{_index_key(region, shape)}"
+        out.setdefault(key, []).append((str(local.device), sums))
+    return out
+
+
+def compare_checksums(
+    gathered: List[Tuple[int, Checksums]],
+    addrs: Optional[Dict[int, str]] = None,
+) -> Optional[str]:
+    """The chief's comparison of the ranks' checksums: None when every
+    replica group agrees, else a diagnostic naming the minority
+    holder(s) — every holder when no value has a majority."""
+    groups: Dict[str, List[Tuple[int, str, Tuple[float, float]]]] = {}
+    for rank, sums in gathered:
+        for key, entries in sums.items():
+            for device, val in entries:
+                groups.setdefault(key, []).append((rank, device, val))
+    for key, entries in sorted(groups.items()):
+        values = {val for _, _, val in entries}
+        if len(values) <= 1:
+            continue
+        counts: Dict[Tuple[float, float], int] = {}
+        for _, _, val in entries:
+            counts[val] = counts.get(val, 0) + 1
+        majority = max(counts.values())
+        suspects = [
+            (rank, device) for rank, device, val in entries
+            if counts[val] < majority
+        ] or [(rank, device) for rank, device, _ in entries]
+        named = ", ".join(
+            f"rank {rank}"
+            + (f" ({addrs[rank]})" if addrs and rank in addrs else "")
+            + f" device {device}"
+            for rank, device in suspects
+        )
+        return (
+            f"replica divergence on {key}: {len(values)} distinct "
+            f"checksums across {len(entries)} replicas; suspect {named} "
+            "(silent data corruption — flipped bit or bad memory)"
+        )
+    return None

@@ -1,7 +1,6 @@
-"""Trainer: the training loop that drives a TorchTrial on one device.
+"""Trainer: the training loop that drives a TorchTrial.
 
-Port of ``determined_tpu/trainer/_trainer.py``, trimmed to one device.
-Same control shape — iterate searcher ops,
+Port of ``determined_tpu/trainer/_trainer.py``. Same control shape — iterate searcher ops,
 train to each op's length with periodic validation, checkpoint and
 report boundaries — and the same step:
 
@@ -48,11 +47,28 @@ covers the directive's ``steps``, is uploaded through the trial's storage
 manager as ``profile-capture-<id>`` and reported on ``POST
 /api/v1/profiles/captures/<id>/complete``.
 
+On a device mesh (``mesh=``, a ``DeviceMesh`` over ``data × fsdp`` from
+``parallel.make_mesh``; ``trainer/_mesh.py``; in a gang of more than one
+process without one, as in the reference, the default ``MeshConfig()``:
+data over the whole gang) every rank of the gang runs
+this loop on its rows of each global batch: the parameters and the
+optimizer state are split over fsdp by the model's ``logical_axes()``
+through the sharding ``rules``, the loss is the global token mean, and
+every decision (the guard, the spike detector, rollback-and-skip, the
+reports, the searcher's progress, the checkpoint's ``storage_id``) is
+taken from values that are equal on every rank. Checkpoints are sharded
+as the reference's multi-host ones (``trainer/_checkpoint.py``), the
+upload a collective that broadcasts one ``storage_id`` (the agreed
+rollback target), and a restore is agreed by all ranks or by none
+(``_restore_with_fallback``). ``health.divergence_check_period`` runs
+the replica-divergence audit (``_divergence_audit``). Each rank draws
+from its own generator, seeded from (seed, rank).
+
 The step runs on CUDA unless the caller passes ``device="cpu"``. Refused
-by name: a device mesh and ``health.divergence_check_period`` (the
-replica audit; the multi-device slice), ``resume_event="resize"`` and a
-resize directive from the master (the elastic slice) and the orbax
-checkpoint format (it needs JAX).
+by name: a mesh with tensor, context, pipeline or expert above 1 (later
+parts of the multi-device item), ``resume_event="resize"`` and a resize
+directive from the master (the elastic slice) and the orbax checkpoint
+format (it needs JAX).
 """
 from __future__ import annotations
 
@@ -75,12 +91,15 @@ from determined_tpu_torch.common import trace as trace_mod
 from determined_tpu_torch.core._preempt import refuse_resize
 from determined_tpu_torch.core._searcher import DummySearcherContext
 from determined_tpu_torch.models.base import Model
+from determined_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+from determined_tpu_torch.parallel.sharding import DEFAULT_RULES, ShardingRules
 from determined_tpu_torch.profiler import ProfilerAgent, torch_profiler_trace
 from determined_tpu_torch.storage.base import CorruptCheckpointError
 from determined_tpu_torch.tensorboard import EventFileWriter, TensorboardManager
 from determined_tpu_torch.trainer import _checkpoint as ckpt_io
 from determined_tpu_torch.trainer import _sentinel, _timeline, optim
-from determined_tpu_torch.trainer._trial import TorchTrial
+from determined_tpu_torch.trainer._mesh import MeshLayout, rank_seed
+from determined_tpu_torch.trainer._trial import TorchTrial, build_model
 from determined_tpu_torch.trainer._units import Batch, TrainUnit, to_batches
 
 logger = logging.getLogger("determined_tpu_torch.trainer")
@@ -104,6 +123,7 @@ class Trainer:
         health: Optional[Dict[str, Any]] = None,
         resume_event: str = "restart",
         mesh: Any = None,
+        rules: ShardingRules = DEFAULT_RULES,
         checkpoint_format: str = "npy",
     ) -> None:
         if checkpoint_format == "orbax":
@@ -116,10 +136,9 @@ class Trainer:
                 f"checkpoint_format {checkpoint_format!r} (one of: npy, orbax)"
             )
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (sharded parameters and batches) comes with "
-                "the multi-device slice; the Trainer runs on one device"
-            )
+            from determined_tpu_torch.parallel.mesh import refuse_later_axes
+
+            refuse_later_axes(mesh)
         if resume_event == "resize":
             raise NotImplementedError(
                 "resume_event='resize' (an elastic in-place resize resumed "
@@ -130,15 +149,17 @@ class Trainer:
                 f"resume_event {resume_event!r} (one of: restart, resize)"
             )
         self.sentinel = _sentinel.SentinelConfig.from_config(health)
-        if self.sentinel.divergence_check_period:
-            raise NotImplementedError(
-                "health.divergence_check_period (the replica-divergence "
-                "audit compares data-parallel replicas; one device has "
-                "none) comes with the multi-device slice"
-            )
         self.trial = trial
         self.device = resolve_device(device)
         self.core = core_context or core_mod.init()
+        if mesh is None and self.core.distributed.size > 1:
+            # As the reference: the default mesh (data over the whole gang).
+            mesh = make_mesh(MeshConfig(), device=self.device.type)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"a {mesh.device_type} mesh for a trainer on {self.device}")
+        self.mesh = mesh
+        self.rules = rules
         self.seed = seed
         self.searcher_metric = searcher_metric
         #: stored as the reference does; only the cluster's searcher
@@ -147,24 +168,38 @@ class Trainer:
         self._spike = _sentinel.SpikeDetector(self.sentinel)
 
         torch.manual_seed(seed)
-        self.model: Model = trial.build_model(self.device)
+        self.model: Model = build_model(trial, self.device, mesh)
         named = [(n, p) for n, p in self.model.named_parameters()
                  if p.requires_grad]
         self._names = [n for n, _ in named]
+        #: the trained state: the model's parameters on one device; on a
+        #: mesh this rank's blocks of them, and the model's parameters
+        #: (``_full``) the gathered working copy.
         self._params = [p for _, p in named]
+        self._full = self._params
         for p in self._params:
             if p.device != self.device:
                 raise ValueError(
                     f"build_model put a parameter on {p.device}; the "
                     f"trainer runs on {self.device}"
                 )
+        self._layout: Optional[MeshLayout] = None
+        rank = self.core.distributed.rank if mesh is not None else 0
+        if mesh is not None:
+            self._layout = MeshLayout(mesh, rules, self.model.logical_axes(),
+                                      named)
+            self._layout.broadcast_from_rank0(self._full)
+            self._params = [self._layout.block_of(p, i)
+                            for i, p in enumerate(self._full)]
         self._tx = trial.build_optimizer()
         self._opt_state = self._tx.init([p.detach() for p in self._params])
         # Seeded once and passed to model.loss; the port's models draw
         # nothing from it (no dropout), so a checkpoint holds no generator
         # state. (The reference's step RNG, fold_in(base_rng, step), is a
-        # function of the step alone.)
-        self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        # function of the step alone; on a mesh each rank has its own
+        # generator, seeded from (seed, rank).)
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, rank) if mesh is not None else seed)
         self._step = 0
         self._ckpt_writer = ckpt_io.AsyncCheckpointWriter()
         self._steps_skipped = 0     # lifetime non-finite skips (host view)
@@ -338,6 +373,15 @@ class Trainer:
 
     # -- the step ----------------------------------------------------------
     def _put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The batch on the device; on a mesh this rank's rows of it (the
+        trial's ``replicated_batch_keys``, default ``positions``, whole)."""
+        layout = self._layout
+        if layout is not None:
+            replicated = frozenset(getattr(
+                self.trial, "replicated_batch_keys", frozenset({"positions"})))
+            layout.check_batch(batch, replicated)
+            batch = {k: v if k in replicated else layout.rows(np.asarray(v))
+                     for k, v in batch.items()}
         return {
             k: torch.as_tensor(np.asarray(v)).to(self.device, non_blocking=True)
             for k, v in batch.items()
@@ -346,6 +390,8 @@ class Trainer:
     def _train_step(self, batch: Dict[str, torch.Tensor],
                     poison: float = 1.0) -> Dict[str, torch.Tensor]:
         """One guarded optimizer step → the step's metrics, on the device."""
+        if self._layout is not None:
+            return self._mesh_step(batch, poison)
         loss, metrics = self.model.loss(batch, self._generator)
         # poison is 1.0 outside fault drills; a NaN rides the loss into
         # every gradient — the wire shape of a poisoned batch.
@@ -368,11 +414,50 @@ class Trainer:
         )
         return metrics
 
+    def _mesh_step(self, batch: Dict[str, torch.Tensor],
+                   poison: float) -> Dict[str, torch.Tensor]:
+        """The step on a mesh (``trainer/_mesh.py``): this rank's rows
+        through the working copy, its loss weighted by its share of the
+        gang's tokens, the gradients summed into this rank's blocks, the
+        optimizer and the guard on the blocks against the global loss and
+        norm, then the working copy gathered anew."""
+        layout = self._layout
+        loss, metrics = self.model.loss(batch, self._generator)
+        loss = loss * poison
+        weight = layout.loss_weight(metrics)
+        grads = torch.autograd.grad(loss * weight, self._full,
+                                    materialize_grads=True)
+        with torch.no_grad():
+            grads = layout.reduce_grads(grads)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["loss"] = loss.detach()
+            metrics = layout.reduce_metrics(metrics, weight)
+            with optim.norm_reduction(layout.sum_of_squares):
+                gnorm = optim.global_norm(grads)
+                updates, new_opt = self._tx.update(grads, self._opt_state,
+                                                   self._params)
+            new_params = torch._foreach_add(self._params, updates)
+            self._opt_state, ok, self._skips = _sentinel.guarded_update(
+                self._params, new_params, self._opt_state, new_opt,
+                metrics["loss"], gnorm, self._skips,
+            )
+            layout.gather(self._params, self._full)
+        metrics.update(
+            grad_norm=gnorm, sentinel_skipped=(~ok).to(torch.int32),
+            sentinel_skips=self._skips,
+        )
+        return metrics
+
     # -- checkpoint --------------------------------------------------------
     def _state_view(self) -> Dict[str, Any]:
-        """The train state under the reference's names (live tensors)."""
-        return ckpt_io.state_view(self._step, self._names,
-                                  [p.detach() for p in self._params],
+        """The train state under the reference's names (live tensors; on
+        a mesh this rank's ``Shard`` blocks)."""
+        params = [p.detach() for p in self._params]
+        if self._layout is not None:
+            return ckpt_io.sharded_state_view(
+                self._step, self._names, params, self._opt_state,
+                self._layout.shard_view_blocks())
+        return ckpt_io.state_view(self._step, self._names, params,
                                   self._opt_state)
 
     def _save_checkpoint(self, *, sync: bool = False) -> Optional[str]:
@@ -387,7 +472,9 @@ class Trainer:
         # host memory at scale.
         self._ckpt_writer.wait()
         steps = self._step
-        snapshot = ckpt_io.snapshot_pytree(self._state_view())
+        chief = self.core.distributed.is_chief
+        sharded = self.core.distributed.size > 1
+        snapshot = ckpt_io.snapshot_pytree(self._state_view(), chief=chief)
         checkpoint_ctx = self.core.checkpoint
         md = {
             "steps_completed": steps,
@@ -402,14 +489,18 @@ class Trainer:
 
         def work() -> str:
             with tempfile.TemporaryDirectory() as tmp:
-                written = ckpt_io.write_snapshot(snapshot, tmp)
-                with open(os.path.join(tmp, TRAINER_METADATA), "w") as f:
-                    json.dump(md, f)
-                written.append(TRAINER_METADATA)
+                written = ckpt_io.write_snapshot(snapshot, tmp,
+                                                 manifest=chief)
+                if chief:
+                    with open(os.path.join(tmp, TRAINER_METADATA), "w") as f:
+                        json.dump(md, f)
+                    written.append(TRAINER_METADATA)
                 storage_id = checkpoint_ctx.upload(
-                    tmp, metadata={"steps_completed": steps}, paths=written)
+                    tmp, metadata={"steps_completed": steps}, shard=sharded,
+                    paths=written)
             logger.info("saved checkpoint %s at step %d", storage_id, steps)
-            # The rollback target: only a save that finished uploading.
+            # The rollback target: only a save that finished uploading,
+            # the same on every rank (the sharded upload broadcasts it).
             self._last_ckpt_id = storage_id
             return storage_id
 
@@ -422,26 +513,65 @@ class Trainer:
         """Restore `storage_id`; on CorruptCheckpointError or a storage
         failure try the next candidate of
         ``core.checkpoint.restore_candidates``. Off-cluster that list is
-        just `storage_id`, so the failure propagates."""
-        candidates = self.core.checkpoint.restore_candidates(storage_id)
+        just `storage_id`, so the failure propagates.
+
+        In a gang this is a collective: the chief's candidate list is
+        broadcast, and after each attempt the ranks agree — all restored,
+        or all move to the next candidate, or all raise when any rank
+        failed with an error that is not a checkpoint's. No rank trains on
+        state its peers rejected."""
+        dist = self.core.distributed
+        gang = dist.size > 1
+        if gang:
+            candidates = dist.broadcast(
+                self.core.checkpoint.restore_candidates(storage_id)
+                if dist.is_chief else None)
+        else:
+            candidates = self.core.checkpoint.restore_candidates(storage_id)
         last_err: Optional[Exception] = None
         for uuid_ in candidates:
+            my_err: Optional[Exception] = None
+            # A failing rank must still reach the agreement round below.
             try:
                 self._restore_checkpoint(uuid_)
+                status = "ok"
             except (CorruptCheckpointError, OSError) as e:
-                last_err = e
-                logger.error(
-                    "checkpoint %s failed verification (%s); %s", uuid_, e,
-                    "trying the previous verified checkpoint"
-                    if uuid_ != candidates[-1] else "no older checkpoint left",
-                )
-                continue
-            if uuid_ != storage_id:
-                logger.warning(
-                    "resumed from older verified checkpoint %s (newest %s "
-                    "was corrupt)", uuid_, storage_id,
-                )
-            return
+                my_err, status = e, "fallback"
+            except Exception as e:  # noqa: BLE001 — re-raised after agreeing
+                if not gang:
+                    raise
+                my_err, status = e, "fatal"
+            if gang:
+                statuses = dist.gather(status)
+                decision = dist.broadcast(
+                    ("fatal" if "fatal" in statuses
+                     else "ok" if all(s == "ok" for s in statuses)
+                     else "fallback") if dist.is_chief else None)
+            else:
+                decision = status
+            if decision == "ok":
+                if self._layout is not None:
+                    # the working copy, gathered once every rank restored
+                    self._layout.gather(self._params, self._full)
+                if uuid_ != storage_id:
+                    logger.warning(
+                        "resumed from older verified checkpoint %s (newest "
+                        "%s was corrupt)", uuid_, storage_id,
+                    )
+                return
+            if decision == "fatal":
+                if my_err is not None and status == "fatal":
+                    raise my_err
+                raise RuntimeError(
+                    f"a peer rank failed restoring checkpoint {uuid_} with "
+                    "an error that is not the checkpoint's")
+            last_err = my_err or CorruptCheckpointError(
+                f"a peer rank failed verification of checkpoint {uuid_}")
+            logger.error(
+                "checkpoint %s failed verification (%s); %s", uuid_, last_err,
+                "trying the previous verified checkpoint"
+                if uuid_ != candidates[-1] else "no older checkpoint left",
+            )
         assert last_err is not None
         raise last_err
 
@@ -490,10 +620,15 @@ class Trainer:
     # -- validation --------------------------------------------------------
     @torch.no_grad()
     def _validate(self) -> Dict[str, float]:
+        """The mean over the validation batches of each batch's metrics
+        (on a mesh, each batch's over the gang, weighted as the step's)."""
         totals: Dict[str, float] = {}
         n = 0
         for batch in self.trial.build_validation_data():
             metrics = self.model.eval_metrics(self._put_batch(batch))
+            if self._layout is not None:
+                metrics = self._layout.reduce_metrics(
+                    metrics, self._layout.loss_weight(metrics))
             for k, v in metrics.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
             n += 1
@@ -606,6 +741,31 @@ class Trainer:
         )
         return restored
 
+    def _divergence_audit(self) -> None:
+        """The replica-divergence audit: the checksums of every parameter
+        block each rank holds, compared by the chief across every holder
+        of the same region; a mismatch raises ``ReplicaDivergenceError``
+        on every rank, naming the offending rank and device."""
+        dist = self.core.distributed
+        blocks = [p.detach() for p in self._params]
+        params = (self._layout.shards(self._names, blocks)
+                  if self._layout is not None
+                  else dict(zip(self._names, blocks)))
+        sums = _sentinel.local_shard_checksums(params)
+        if _sentinel.divergence_fault(dist.rank):
+            # The drill (DTPU_FAULT_PLAN train.divergence.rank<r>): corrupt
+            # this rank's checksum of the first block; the audit must
+            # name exactly this holder.
+            key = next(iter(sums), None)
+            if key is not None:
+                device, (a, b) = sums[key][-1]
+                sums[key] = sums[key][:-1] + [(device, (a + 1.0, b))]
+        gathered = dist.gather((dist.rank, sums))
+        verdict = dist.broadcast(
+            _sentinel.compare_checksums(gathered) if dist.is_chief else None)
+        if verdict:
+            raise _sentinel.ReplicaDivergenceError(verdict)
+
     # -- the loop ----------------------------------------------------------
     def fit(
         self,
@@ -628,7 +788,8 @@ class Trainer:
         # master's operations set the length.
         searcher = self.core.searcher
         if max_length is not None and isinstance(searcher, DummySearcherContext):
-            searcher = DummySearcherContext(length=to_batches(max_length, bpe))
+            searcher = DummySearcherContext(
+                self.core.distributed, length=to_batches(max_length, bpe))
         if latest_checkpoint:
             self._restore_with_fallback(latest_checkpoint)
 
@@ -662,6 +823,7 @@ class Trainer:
         # report / checkpoint.
         set_phase = profiling_mod.set_phase
         last_ckpt_step = -1
+        last_div_audit = step
         preempted = False
         self._skips = torch.zeros_like(self._skips)
         self._sentinel_reason = None
@@ -790,7 +952,13 @@ class Trainer:
                             if restored is not None:
                                 # The restored step is checkpointed.
                                 step = last_ckpt_step = restored
+                                last_div_audit = min(last_div_audit, step)
                                 continue
+                        if (self.sentinel.divergence_check_period
+                                and step - last_div_audit
+                                >= self.sentinel.divergence_check_period):
+                            last_div_audit = step
+                            self._divergence_audit()
                     if val_period and step % val_period == 0 and step < target:
                         last_val = self._validate()
                         if last_val and chief:

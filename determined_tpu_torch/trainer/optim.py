@@ -21,11 +21,20 @@ operation follows optax's own order (``(1 - b1)·g + b1·mu``, bias
 correction ``1 − b^t`` in fp32, ``mu_hat / (sqrt(nu_hat) + eps)``,
 ``g + wd·p``, ``−lr·g``), and the counts and schedules live on the
 device as int32/fp32 tensors, so a step needs no host sync.
+
+On a device mesh each rank's lists hold its shards of the parameters;
+the global norm (``clip_by_global_norm``, the trainer's ``grad_norm``)
+is then the norm of the whole gradient: inside ``norm_reduction(fn)``,
+``global_norm`` hands the per-tensor sums of squares to `fn`, which adds
+them across the gang (the trainer's mesh layout, ``trainer/_mesh.py``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Any, Callable, List, NamedTuple, Sequence, Tuple, Union
+from typing import (Any, Callable, Iterator, List, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
 import torch
 
@@ -65,10 +74,29 @@ def safe_increment(count: torch.Tensor) -> torch.Tensor:
     return torch.where(count < _INT32_MAX, count + 1, count)
 
 
+#: (tensors, their fp32 sums of squares) → the total over the gang; None
+#: on one device.
+NormReduction = Callable[[Sequence[torch.Tensor], torch.Tensor], torch.Tensor]
+_NORM_REDUCTION: "contextvars.ContextVar[Optional[NormReduction]]" = (
+    contextvars.ContextVar("dtpu_norm_reduction", default=None))
+
+
+@contextlib.contextmanager
+def norm_reduction(fn: NormReduction) -> Iterator[None]:
+    """Within the block, ``global_norm`` totals its sums of squares with
+    `fn` (a sharded state's norm: the gang's sum)."""
+    token = _NORM_REDUCTION.set(fn)
+    try:
+        yield
+    finally:
+        _NORM_REDUCTION.reset(token)
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum over tensors of their sums of squares, in fp32."""
-    sq = [torch.sum(torch.square(x.float())) for x in tensors]
-    return torch.sqrt(torch.stack(sq).sum())
+    sq = torch.stack([torch.sum(torch.square(x.float())) for x in tensors])
+    reduce = _NORM_REDUCTION.get()
+    return torch.sqrt(sq.sum() if reduce is None else reduce(tensors, sq))
 
 
 # ---------------------------------------------------------------------------

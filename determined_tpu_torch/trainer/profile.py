@@ -1,7 +1,7 @@
 """Where a train step of the port spends its time, on the card.
 
     python -m determined_tpu_torch.trainer.profile [--rung headline]
-        [--steps 5] [--batch B] [--seq S] [--packed]
+        [--steps 5] [--batch B] [--seq S] [--packed] [--mesh]
 
 Builds one of ``bench.py``'s training rungs (``RUNGS``) — GPT-2-small at
 full width and depth, bf16 compute over fp32 master parameters, seeded
@@ -18,7 +18,9 @@ adamw(3e-4))``:
 
 ``--packed`` replaces the random tokens with one ``pack_sequences`` batch
 of seeded random documents of 32-1024 tokens (``packed_batch``): segment
-ids then route attention through the blocked kernels.
+ids then route attention through the blocked kernels. ``--mesh`` runs
+the step on a one-rank ``data=1 × fsdp=1`` mesh over NCCL
+(``trainer/_mesh.py``), to set against the same rung without one.
 
 It puts the model behind the ``Trainer`` and runs its guarded step on
 the calling thread: two warm-up steps, ``--steps`` timed with the
@@ -139,6 +141,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--top", type=int, default=10)
     ap.add_argument("--packed", action="store_true")
+    ap.add_argument("--mesh", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -147,7 +150,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     args.batch = args.batch or rung_batch
     args.seq = args.seq or rung_cfg.seq_len
     trial = RepeatedBatchTrial(args.batch, args.seq, config=rung_cfg)
-    trainer = Trainer(trial)
+    mesh = None
+    if args.mesh:
+        import torch.distributed as dist
+
+        from determined_tpu_torch.parallel import MeshConfig, make_mesh
+
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", 0))
+        mesh = make_mesh(MeshConfig(data=1, fsdp=1))
+    trainer = Trainer(trial, mesh=mesh)
     host_batch = next(iter(trial.build_training_data()))
     if args.packed:
         host_batch = packed_batch(args.batch, args.seq, 3,
@@ -191,7 +204,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = trial.config
     out = {
         "device": torch.cuda.get_device_name(0),
-        "rung": args.rung + (" packed" if args.packed else ""),
+        "rung": args.rung + (" packed" if args.packed else "")
+        + (" mesh" if args.mesh else ""),
         "config": f"gpt2-small bf16 remat={cfg.remat} "
                   f"fused_loss={cfg.fused_loss} "
                   f"remat_attention={gpt.remat_attention(cfg)}",
@@ -216,6 +230,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         ],
     }
     print(json.dumps(out))
+    if args.mesh:
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -36,7 +36,9 @@
   sampling profiler's windows carry the fit loop's phase tags.
 - The launch chain (``python -m determined_tpu_torch.exec.prep_and_run``):
   a trial-class entrypoint runs through the harness, a shell entrypoint
-  runs with its exit code, a gang of two is refused by name, and the
+  runs with its exit code, a gang of two rendezvouses through the
+  stand-in's table (each process sees its rank and the chief's port), and
+  the
   shipped context directory is extracted and made the import root. A
   serving replica's capture directive uploads its trace and reports it.
 """
@@ -672,6 +674,10 @@ def test_stand_in_master_answers_like_the_live_master(cluster, tmp_path,
             ("POST", f"/api/v1/allocations/{alloc}/signals/ack_preemption",
              None),
             ("POST", f"/api/v1/allocations/{alloc}/proxy", {"port": 8123}),
+            ("POST", f"/api/v1/allocations/{alloc}/rendezvous",
+             {"rank": 0, "addr": "127.0.0.1:1:2", "generation": 0}),
+            ("GET", f"/api/v1/allocations/{alloc}/rendezvous?"
+                    "timeout_seconds=5&generation=0", None),
             ("POST", "/api/v1/traces/ingest", {"spans": []}),
             ("POST", "/api/v1/profiles/ingest", {"windows": []}),
             ("POST", "/api/v1/logs/ingest", {"lines": []}),
@@ -751,12 +757,41 @@ def test_core_init_on_a_cluster_returns_the_cluster_contexts(
             assert "1.1.0" in stand_in.acked
         assert all(h["Authorization"] == "Bearer tok"
                    for _, _, h, _ in stand_in.requests)
+        # A rendezvous of two processes makes a gang: torch.distributed
+        # joined at the coordinator with an explicit timeout, gloo on the
+        # CPU, and no gang at all without a card unless the CPU is asked
+        # for. (Gangs that run: tests/test_torch_gang.py and
+        # tests/test_torch_rendezvous.py.)
+        import datetime
+
+        import torch
+        import torch.distributed as tdist
+
         monkeypatch.setenv("DTPU_RENDEZVOUS_INFO", json.dumps({
-            "container_addrs": ["a", "b"], "container_rank": 0,
+            "container_addrs": ["a", "b"], "container_rank": 1,
             "coordinator_address": "a:1", "num_processes": 2}))
         tinfo.reset_cluster_info_cache()
-        with pytest.raises(NotImplementedError, match="item 4"):
+        joined = []
+
+        class Joined(Exception):
+            pass
+
+        def record(backend, **kw):
+            joined.append((backend, kw))
+            raise Joined
+
+        monkeypatch.setattr(tdist, "init_process_group", record)
+        with pytest.raises(Joined):
+            tcore.init(device="cpu")
+        assert joined == [("gloo", dict(
+            init_method="tcp://a:1", rank=1, world_size=2,
+            timeout=datetime.timedelta(seconds=600)))]
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        from determined_tpu_torch import CudaUnavailableError
+
+        with pytest.raises(CudaUnavailableError):
             tcore.init()
+        assert len(joined) == 1
     finally:
         stand_in.stop()
         tinfo.reset_cluster_info_cache()
@@ -856,10 +891,25 @@ def test_prep_and_run_launches_a_trial_class_and_a_shell_command(tmp_path):
             "not in os.environ and os.environ[\"DTPU_ALLOC_GENERATION\"] == "
             "\"0\" else 4)'")))
         assert shell.returncode == 3, shell.stderr[-3000:]
-        gang = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=60, env=dict(
-            env, DTPU_ALLOC_NUM_PROCS="2", DTPU_ENTRYPOINT="true"))
-        assert gang.returncode == 1 and "item 4" in gang.stderr
+        # a gang of two: both processes rendezvous, and each entrypoint
+        # sees the table with its own rank and the chief's port
+        stand_in.rendezvous_size = 2
+        check = (
+            "python -c 'import json, os, sys; i = json.loads(os.environ["
+            "\"DTPU_RENDEZVOUS_INFO\"]); sys.exit(3 if i[\"num_processes\"]"
+            " == 2 and str(i[\"container_rank\"]) == os.environ["
+            "\"DTPU_ALLOC_RANK\"] and os.environ[\"DTPU_CHIEF_PORT\"] "
+            "else 4)'")
+        gang = [subprocess.Popen(
+            cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(env, DTPU_ALLOCATION_ID="1.2.0",
+                                DTPU_ALLOC_NUM_PROCS="2",
+                                DTPU_ALLOC_RANK=str(rank),
+                                DTPU_ENTRYPOINT=check))
+            for rank in range(2)]
+        outs = [p.communicate(timeout=60) for p in gang]
+        assert [p.returncode for p in gang] == [3, 3], outs
+        assert len(stand_in.addrs["1.2.0"]) == 2
     finally:
         stand_in.stop()
 

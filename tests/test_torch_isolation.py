@@ -7,8 +7,10 @@ core, storage and common packages (the master session, the trace,
 profiling and log shippers, TLS and the context directory too), the
 TensorBoard writer, the profiler agent, the exec layer (harness,
 built-in trials, the launch chain and proxy registration), the data
-layer (the native loader's binding too), the vision models and the
-GPT-2 pretrain example, and finds none of them loaded."""
+layer (the native loader's binding too), the vision models, the GPT-2
+pretrain example and the multi-device layer (the mesh and sharding rules,
+the gang's distributed context, the trainer's mesh layout), and finds
+none of them loaded."""
 import ast
 import subprocess
 import sys
@@ -77,6 +79,11 @@ def test_port_never_imports_jax(source):
             "determined_tpu_torch.models.vision, "
             "determined_tpu_torch.examples, "
             "determined_tpu_torch.examples.gpt2_trial, "
+            "determined_tpu_torch.parallel, "
+            "determined_tpu_torch.parallel.mesh, "
+            "determined_tpu_torch.parallel.sharding, "
+            "determined_tpu_torch.core._distributed, "
+            "determined_tpu_torch.trainer._mesh, "
             "determined_tpu_torch._info\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"

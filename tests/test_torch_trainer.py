@@ -13,8 +13,10 @@ the JAX package's, on the CPU at fp32.
   ``load_jax_params``: every reported loss and grad norm, the skip
   accounting of a batch whose ``loss_mask`` is NaN, and the final
   parameters.
-- Refusals by name: the orbax checkpoint format, a mesh, the replica
-  audit, an elastic resume. (``core.init()`` on a cluster:
+- Refusals by name: the orbax checkpoint format, a mesh with an axis of
+  a later part of the multi-device item (tensor, context, pipeline,
+  expert), an elastic resume. (A ``data × fsdp`` mesh and the replica
+  audit: ``tests/test_torch_gang.py``.) (``core.init()`` on a cluster:
   ``tests/test_torch_cluster.py``.)
 
 Tolerances: optimizer 1e-6 absolute on O(1) parameters (fp32, the same
@@ -322,10 +324,22 @@ def test_trainer_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
         Trainer(_TTrial(), tcore._dummy_init())
 
 
+def _mesh_of(**sizes):
+    """A mesh-like with a DeviceMesh's axis names and shape."""
+    import types
+
+    from determined_tpu_torch.parallel.mesh import AXIS_NAMES
+
+    return types.SimpleNamespace(
+        mesh_dim_names=AXIS_NAMES, device_type="cpu",
+        shape=tuple(sizes.get(a, 1) for a in AXIS_NAMES))
+
+
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=object()), "multi-device slice"),
-    (dict(health={"divergence_check_period": 10}),
-     "divergence_check_period.*multi-device slice"),
+    (dict(mesh=_mesh_of(tensor=2)), "tensor=2.*item 4, part 2"),
+    (dict(mesh=_mesh_of(data=2, context=2)), "context=2.*item 4, part 2"),
+    (dict(mesh=_mesh_of(pipeline=2)), "pipeline=2.*item 4, part 3"),
+    (dict(mesh=_mesh_of(fsdp=2, expert=2)), "expert=2.*item 4, part 3"),
     (dict(resume_event="resize"), "resize.*elastic slice"),
 ])
 def test_trainer_refuses_later_slices_by_name(kwargs, match):

@@ -273,15 +273,41 @@ script exits non-zero without the final result line:
    are not part of it and the AdamW moments (each storage once),
    ``split_gb`` the blocks and moments alone.
 
+19. context — training over the context axis (``parallel/ring.py``,
+   ``parallel/ulysses.py``, ``trainer/_mesh.py``): two ranks on the one
+   card over gloo as subprocesses (``CONTEXT_RANK``), ``MeshConfig(data=1,
+   context=2)``, GPT-2-small at full width and depth, bf16 over fp32, the
+   runs of ``CONTEXT_RUNS``: B 8 × 1024 through the ring (the mono pair)
+   and through Ulysses (dense local attention, no kernel), phase
+   train-packed's batch with ``attn_window=256`` through the ring
+   (``flash_fwd`` with ``kv_offset`` and segments, the fused blocked
+   backward), the long16k rung through the contiguous ring and through
+   the zigzag loader (``TokenDataset(zigzag_ring=2)`` over a shard of the
+   rung's tokens and one more, whose target is masked), the long32k rung
+   (the fused blocked backward: its hops' dq partials fit the cap) and
+   the long32k rung's fields at seq 65536 (the two-pass backward). Every
+   loss within 1e-3 relative of the one-device run of the same trial
+   (phases train, train-long, train-32k; the packed window run and the
+   64k run are made here first), both ranks alike, and per step and rank
+   exactly the flash launches of the hops that rank attends. Prints per
+   run each rank's step ms and peak memory, the ring's rotations and
+   bytes a step, the collectives a step and the transport (the ring's
+   K/V staged through pinned host buffers: gloo's send and receive take
+   host memory only).
+
 Phase 3 also holds ``flash_fwd`` at the cached-tail geometry (separate
 query and key segment ids as ``_prefill_cached`` builds them, one row all
 padding) and at the speculative gather verify's (B 8, s_q 5, s_k 1029,
-kv_offset 1024, dead rows in query segment 2), and ``paged_attention`` at
-5 and 9 query rows with ragged ``q_lens``, in both dtypes.
+kv_offset 1024, dead rows in query segment 2), ``paged_attention`` at
+5 and 9 query rows with ragged ``q_lens``, in both dtypes, and the ring
+hops of phase 19 (``hop_case``, bf16 with an lse cotangent): S_local
+8192 causal and full, the zigzag half chunks, S_local 16384 and 32768
+full (the fused and the two-pass backward), the window hop at kv_offset
+512 with segments, and the mono pair at B 8 × 512 causal and full.
 
 The last lines are the whole run's seconds, the kernels' JSON record
 (each kernel's ``launches`` summed over the main paths that run it:
-phases 4, 6, 8, 9 and 11 to 18), the card's name and power limit, and
+phases 4, 6, 8, 9 and 11 to 19), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -412,6 +438,151 @@ except ReplicaDivergenceError as e:
     res["drill"] = str(e)
 with open(out, "w") as f:
     json.dump(res, f)
+dctx.close()
+dist.destroy_process_group()
+"""
+#: phase context: the runs, each on two ranks of the one card over gloo at
+#: ``MeshConfig(data=1, context=2)`` (GPT-2-small, full width and depth,
+#: bf16 over fp32): name → (rung of ``trainer/profile.RUNGS``, batch, seq,
+#: steps, data ("tokens": the rung's repeated batch, "packed": phase
+#: train-packed's batch, "zigzag": the zigzag loader over a shard of the
+#: rung's tokens), GPTConfig fields, flash calls a layer on rank r
+#: (forward), the kernels of those calls (forward, backward), forwards a
+#: call and step (2 with rematted attention)).
+CONTEXT_RUNS = {
+    "headline-ring": ("headline", 8, 1024, 3, "tokens", {},
+                      "contiguous", ("flash_fwd_mono", "flash_bwd_mono"), 1),
+    "headline-ulysses": ("headline", 8, 1024, 3, "tokens",
+                         {"attn_impl": "ulysses"}, "none", (), 1),
+    "packed-window-ring": ("headline", 8, 1024, 3, "packed",
+                           {"attn_window": 256}, "window",
+                           ("flash_fwd", "flash_bwd_blocked"), 1),
+    "long16k-ring": ("long16k", 1, 16384, 3, "tokens", {}, "contiguous",
+                     ("flash_fwd", "flash_bwd_blocked"), 1),
+    "long16k-zigzag": ("long16k", 1, 16384, 3, "zigzag",
+                       {"sequence_layout": "zigzag"}, "zigzag",
+                       ("flash_fwd", "flash_bwd_blocked"), 1),
+    "long32k-ring": ("long32k", 1, 32768, 2, "tokens", {}, "contiguous",
+                     ("flash_fwd", "flash_bwd_blocked"), 2),
+    "long64k-ring": ("long32k", 1, 65536, 2, "tokens", {}, "contiguous",
+                     ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 2),
+}
+#: ``python -c CONTEXT_RANK <rank> <port> <out.json> <runs.json>``: one rank
+#: of a gang of two on the one card, joined over gloo at 127.0.0.1:<port>,
+#: training each run of <runs.json> on a ``data=1 × context=2`` mesh: its
+#: losses, step ms, per-step launches, the ring's flash calls by shape,
+#: peak memory, the ring's rotations (batches of sends and receives,
+#: bytes) and the collectives per step.
+CONTEXT_RANK = """
+import dataclasses, datetime, gc, json, sys
+import numpy as np
+import torch, torch.distributed as dist
+rank, port, out, spec = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=600))
+from determined_tpu_torch import core
+from determined_tpu_torch.core._distributed import DistributedContext
+from determined_tpu_torch.data import TokenDataset
+from determined_tpu_torch.ops import _build
+from determined_tpu_torch.parallel import MeshConfig, make_mesh
+from determined_tpu_torch.parallel.ring import Ring
+from determined_tpu_torch.trainer import Batch, Trainer
+from determined_tpu_torch.trainer.profile import (RUNGS, RepeatedBatchTrial,
+                                                  packed_batch)
+with open(spec) as f:
+    runs = json.load(f)
+dctx = DistributedContext(rank=rank, size=2)
+mesh = make_mesh(MeshConfig(data=1, context=2))
+transport = Ring(mesh).transport(torch.device("cuda"))
+calls, nbytes, in_step = {}, {}, [False]
+def counting(name, real):
+    def call(*args, **kw):
+        if in_step[0]:
+            t = args[1] if name in ("reduce_scatter_tensor",
+                                    "all_to_all_single") else args[0]
+            calls[name] = calls.get(name, 0) + 1
+            nbytes[name] = nbytes.get(name, 0) + t.numel() * t.element_size()
+        return real(*args, **kw)
+    return call
+for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "broadcast", "all_to_all_single"):
+    setattr(dist, name, counting(name, getattr(dist, name)))
+from determined_tpu_torch.parallel import ring as ring_mod
+hop_calls, hop = {}, ring_mod.flash_attention_lse
+def hop_counted(q, k, v, **kw):
+    # the ring's flash calls by shape (a rematted forward counts twice)
+    key = (f"{q.shape[1]}x{k.shape[1]}"
+           + (" causal" if kw["causal"] else " full")
+           + (" kv_offset" if kw["kv_offset"] else ""))
+    hop_calls[key] = hop_calls.get(key, 0) + 1
+    return hop(q, k, v, **kw)
+ring_mod.flash_attention_lse = hop_counted
+results = []
+for run in runs:
+    name, rung, b, s, steps, data, fields = (run[k] for k in (
+        "name", "rung", "batch", "seq", "steps", "data", "fields"))
+    cfg = dataclasses.replace(RUNGS[rung][1], **fields)
+    trial = RepeatedBatchTrial(b, s, config=cfg)
+    if data == "packed":
+        batch = packed_batch(b, s, 3, cfg.vocab_size)
+        def repeated(batch=batch):
+            while True:
+                yield batch
+        trial.build_training_data = repeated
+        trial.replicated_batch_keys = frozenset()
+    elif data == "zigzag":
+        def zigzag(s=s, b=b, shard=run["shard"]):
+            # the rung's tokens and one more: the loader reads S + 1 a
+            # row; the extra target (logical position S - 1) is masked,
+            # so the loss is the in-model shift's over the rung's tokens
+            for x in TokenDataset([shard], b, s, shuffle=False,
+                                  zigzag_ring=2):
+                mask = (x["positions"] != s - 1).astype(np.float32)
+                yield dict(x, loss_mask=np.repeat(mask[None], b, 0))
+        trial.build_training_data = zigzag
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(trial, core._dummy_init(distributed=dctx), mesh=mesh)
+    per_step, seen = [], []
+    calls.clear(); nbytes.clear(); hop_calls.clear()
+    shifts0 = dict(Ring.stats)
+    step_fn, flush = trainer._train_step, trainer._flush
+    def counted(batch, poison=1.0):
+        before = {n: k.launches for n, k in _build.KERNELS.items()}
+        in_step[0] = True
+        try:
+            result = step_fn(batch, poison)
+        finally:
+            in_step[0] = False
+        per_step.append({n: k.launches - before[n]
+                         for n, k in _build.KERNELS.items()})
+        return result
+    def recording(pending, t_start):
+        agg, reason = flush(pending, t_start)
+        seen.append(agg)
+        return agg, reason
+    trainer._train_step, trainer._flush = counted, recording
+    trainer.fit(max_length=Batch(steps), report_period=Batch(1))
+    torch.cuda.synchronize()
+    results.append(dict(
+        name=name, rank=rank, transport=transport,
+        losses=[m["loss"] for m in seen],
+        step_ms=[1e3 / m["batches_per_second"] for m in seen],
+        per_step=per_step, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        shifts_per_step=(Ring.stats["shifts"] - shifts0["shifts"]) / steps,
+        rotated_mb_per_step=(Ring.stats["bytes"] - shifts0["bytes"])
+        / steps / 1e6,
+        hop_calls_per_step={k: v / steps for k, v in hop_calls.items()},
+        collectives_per_step={k: v / steps for k, v in calls.items()},
+        collective_mb_per_step={k: round(v / steps / 1e6, 3)
+                                for k, v in nbytes.items()}))
+    del trainer, trial
+    gc.collect()
+with open(out, "w") as f:
+    json.dump(results, f)
 dctx.close()
 dist.destroy_process_group()
 """
@@ -1356,6 +1527,129 @@ class Smoke:
                     f"{str(dtype)[6:]}", rec)
         return errs
 
+    def hop_case(self, name, *, b, s_q, s_k, causal, bwd, kv_offset=0,
+                 window=None, segs=None, seed=0):
+        """One ring hop's flash call at a shape phase context gives it
+        (bf16, H 12, D 64, q/k/v strided views of a [B, S, 3, H, D]
+        projection, a nonzero lse cotangent as the merge passes back):
+        flash_fwd and the backward kernels of its route (`bwd`), each held
+        against its plain version (one head at a time) and timed beside it
+        and beside SDPA under the same mask; the bound from this call's
+        live pairs. `segs`: ([B, Sq], [B, Sk]) int32 ids → {kernel:
+        record}."""
+        import torch
+        import torch.nn.functional as F
+
+        from determined_tpu_torch.ops import flash_attention as tfa
+
+        bf16 = torch.bfloat16
+        h, d, item = 12, 64, 2
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        q = self.randn((b, s_q, 3, h, d), bf16, gen)[:, :, 0]
+        kv = self.randn((b, s_k, 3, h, d), bf16, gen)
+        k, v = kv[:, :, 1], kv[:, :, 2]
+        do = self.randn((b, s_q, h, d), bf16, gen)
+        dl = torch.randn((b, s_q, h), generator=gen, device=self.dev)
+        kw = dict(causal=causal, window=window, kv_offset=kv_offset)
+        if segs is not None:
+            kw.update(segment_ids=torch.as_tensor(segs[0], device=self.dev),
+                      kv_segment_ids=torch.as_tensor(segs[1],
+                                                     device=self.dev))
+
+        def by_head(fn, *xs):
+            parts = [fn(*(None if x is None else x[:, :, i:i + 1]
+                          for x in xs), **kw) for i in range(h)]
+            return tuple(torch.cat(p, dim=2) for p in zip(*parts))
+
+        # the mask, for the live pairs and SDPA (None: SDPA's own)
+        masked = segs is not None or window is not None or kv_offset or (
+            causal and s_q != s_k)
+        mask = None
+        if masked:
+            rows = torch.arange(s_q, device=self.dev)[:, None] + kv_offset
+            cols = torch.arange(s_k, device=self.dev)[None, :]
+            m = (rows >= cols) if causal else torch.ones_like(rows >= cols)
+            if window is not None:
+                m = m & (rows - cols < window)
+            m = m[None].expand(b, s_q, s_k)
+            if segs is not None:
+                m = m & (kw["segment_ids"][:, :, None]
+                         == kw["kv_segment_ids"][:, None, :])
+            live = int(m.sum()) * h
+            mask = m[:, None]
+        else:
+            live = b * h * (s_q * (s_q + 1) // 2 if causal else s_q * s_k)
+        n_q, n_k = q.numel(), k.numel()
+        rows_b = 4 * b * s_q * h
+        big = s_q * s_k > 4096 * 4096
+        it, plain_it = (3, 1) if big else (10, 3)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa_causal = causal and not masked
+        recs = {}
+
+        # forward
+        plain_fwd = lambda: by_head(tfa.flash_fwd_plain, q, k, v)
+        o_p, lse_p = plain_fwd()
+        o_k, lse_k = tfa.flash_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        self.check(f"ring hop {name}", bf16, o_k, o_p, lse_k, lse_p)
+        fwd_err = float((o_k.float() - o_p.float()).abs().max())
+        del o_k, lse_k
+        flops = 4.0 * d * live
+        bound = self.bound(flops, item * (2 * n_q + 2 * n_k) + rows_b, bf16)
+        ms = self.time_ms(lambda: tfa.flash_fwd(q, k, v, **kw), iters=it,
+                          warmup=1)
+        recs["flash_fwd"] = dict(
+            ms=ms, plain_ms=self.time_ms(plain_fwd, iters=plain_it,
+                                         warmup=0),
+            library_ms=self.time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, is_causal=sdpa_causal),
+                iters=it, warmup=1),
+            bound_ms=bound[0], bound_by=bound[1], max_abs_err=fwd_err,
+            **self.rates(flops, ms, bound[0]))
+
+        # the backward of the hop's route, with the merge's lse cotangent
+        delta = (do.float() * o_p.float()).sum(-1)
+        args = (q, k, v, do, lse_p, delta, dl)
+        del o_p
+        plain_bwd = lambda: by_head(tfa.flash_bwd_blocked_plain, *args)
+        want = plain_bwd()
+        bwd_plain_ms = self.time_ms(plain_bwd, iters=plain_it, warmup=0)
+        sdpa_bwd_ms = self.time_ms(self.sdpa_backward(
+            qh, kh, vh, do, sdpa_causal, attn_mask=mask), iters=it, warmup=1)
+        # FLOP per live pair / D and bytes written, by kernel
+        work = {"flash_bwd_blocked": (10, n_q + 2 * n_k),
+                "flash_bwd_dq": (6, n_q), "flash_bwd_dkv": (8, 2 * n_k)}
+        for kname in bwd:
+            got = self.blocked_run(kname, args, kw)
+            torch.cuda.synchronize()
+            err = self.hold_grads(f"{kname} ring hop {name}", bf16, got, want)
+            del got
+            per_pair, written = work[kname]
+            flops = per_pair * d * live
+            bound = self.bound(flops, item * (2 * n_q + 2 * n_k + written)
+                               + 3 * rows_b, bf16)
+            ms = self.time_ms(lambda: self.blocked_run(kname, args, kw),
+                              iters=it, warmup=1)
+            recs[kname] = dict(
+                ms=ms, plain_ms=bwd_plain_ms,
+                library_ms=(sdpa_bwd_ms if kname == "flash_bwd_blocked"
+                            else None),
+                sdpa_bwd_ms=sdpa_bwd_ms, bound_ms=bound[0],
+                bound_by=bound[1], max_abs_err=err,
+                **self.rates(flops, ms, bound[0]))
+        shape = (f"B{b} s_q {s_q} s_k {s_k} H12 D64 "
+                 f"{'causal' if causal else 'full'}"
+                 + (f" kv_offset {kv_offset}" if kv_offset else "")
+                 + (f" window {window}" if window else "")
+                 + (" packed" if segs is not None else "") + " bf16 dlse")
+        for kname, rec in recs.items():
+            rec["shape"] = shape
+            self.report("kernels", f"ring-hop {name} {kname}", rec)
+        del args, want, q, k, v, kv, do, qh, kh, vh, mask
+        torch.cuda.empty_cache()
+        return recs
+
     def long_timed(self, seq, kernels):
         """`kernels` at a long-context training shape (B 1, H 12, D 64,
         causal, bf16, seq `seq`), each held against its plain version on
@@ -1746,6 +2040,7 @@ class Smoke:
             RepeatedBatchTrial(b, s, config=cfg), LONG_STEPS)
         losses = [m["loss"] for m in reports]
         assert losses[-1] < losses[0], losses
+        self.long_losses = losses  # phase context's yardstick
         want = dict(flash_fwd=cfg.n_layers, flash_bwd_blocked=cfg.n_layers)
         for i, step in enumerate(per_step):
             got = {n: v for n, v in step.items() if v}
@@ -1766,6 +2061,7 @@ class Smoke:
             RepeatedBatchTrial(b, s, config=cfg), LONG32_STEPS)
         losses = [m["loss"] for m in reports]
         assert losses[-1] < losses[0], losses
+        self.long32_losses = losses  # phase context's yardstick
         n = cfg.n_layers
         want = dict(flash_fwd=2 * n, flash_bwd_dq=n, flash_bwd_dkv=n)
         for i, step in enumerate(per_step):
@@ -3469,6 +3765,155 @@ class Smoke:
         ))
         return launches
 
+    def context_phase(self):
+        """Training over the context axis: two ranks on the one card over
+        gloo (``CONTEXT_RANK``) at ``MeshConfig(data=1, context=2)``, each
+        run of ``CONTEXT_RUNS`` held against the one-device run of the same
+        trial (phases train, train-long and train-32k; the 64k rung and the
+        packed window run here, before the ranks start): every loss within
+        1e-3 relative (bf16; dq by fp32 atomics); per step and rank, the
+        hops' flash launches and nothing else. → launches."""
+        import dataclasses
+        import json
+        import socket
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch.data import write_token_shard
+        from determined_tpu_torch.trainer.profile import (
+            RUNGS,
+            RepeatedBatchTrial,
+            packed_batch,
+        )
+
+        def close(losses, want, what):
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+            assert len(losses) <= len(want) and max(rel) < 1e-3, (
+                what, losses, want)
+            return max(rel)
+
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="dtpu-context-")
+        # the one-device yardsticks this phase makes itself
+        refs = {"headline-ring": self.train_losses,
+                "headline-ulysses": self.train_losses,
+                "long16k-ring": self.long_losses,
+                "long16k-zigzag": self.long_losses,
+                "long32k-ring": self.long32_losses}
+        launches = {}
+        for name in ("packed-window-ring", "long64k-ring"):
+            rung, b, seq, steps, data, fields, *_ = CONTEXT_RUNS[name]
+            cfg = dataclasses.replace(RUNGS[rung][1], **fields)
+            trial = RepeatedBatchTrial(b, seq, config=cfg)
+            if data == "packed":
+                batch = packed_batch(b, seq, 3, cfg.vocab_size)
+
+                def repeated(batch=batch):
+                    while True:
+                        yield batch
+
+                trial.build_training_data = repeated
+            reports, _, one, peak_gb, cfg = self.fit_counted(trial, steps)
+            refs[name] = [m["loss"] for m in reports]
+            self.report("context", f"gpt2-small bf16 {name} one device",
+                        self.train_record(reports, one, peak_gb, cfg, b, seq,
+                                          warm=1))
+            for n, v in one.items():
+                launches[n] = launches.get(n, 0) + v
+        # the zigzag loader's shard: the long16k rung's tokens and one more
+        # that the loader reads (its target is masked), and one it does
+        # not (the loader wants a token past its S + 1 window: each row
+        # starts at 0, below max(total - (S + 1), 1))
+        b16, cfg16 = RUNGS["long16k"]
+        tokens = next(RepeatedBatchTrial(b16, cfg16.seq_len, config=cfg16)
+                      .build_training_data())["tokens"]
+        shard = os.path.join(tmp, "long16k.bin")
+        write_token_shard(shard, np.concatenate([tokens[0], [0, 0]]))
+        runs = [dict(name=name, rung=r[0], batch=r[1], seq=r[2], steps=r[3],
+                     data=r[4], fields=r[5], shard=shard)
+                for name, r in CONTEXT_RUNS.items()]
+        spec = os.path.join(tmp, "runs.json")
+        with open(spec, "w") as f:
+            json.dump(runs, f)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        logs = [tempfile.TemporaryFile() for _ in range(2)]
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", CONTEXT_RANK, str(r), str(port), outs[r],
+             spec], stdout=logs[r], stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+            for r in range(2)]
+        try:
+            codes = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, code in enumerate(codes):
+            logs[r].seek(0)
+            assert code == 0, (r, logs[r].read().decode()[-4000:])
+            logs[r].close()
+        ranks = []
+        for out in outs:
+            with open(out) as f:
+                ranks.append({x["name"]: x for x in json.load(f)})
+        gang_s = time.perf_counter() - t1
+        n = 12  # GPT-2-small's layers
+        for name, (rung, b, seq, steps, data, fields, layout, kernels,
+                   fwd_per_call) in CONTEXT_RUNS.items():
+            rec = dict(backend="gloo", context=2, steps=steps, batch=b,
+                       seq=seq, s_local=seq // 2)
+            for r in range(2):
+                x = ranks[r][name]
+                assert x["losses"] == ranks[0][name]["losses"], (name, x)
+                # the flash calls a layer on this rank: the hops it attends
+                if layout == "zigzag":
+                    calls = 4   # diag (3 half-chunk calls) + one more hop
+                elif layout == "none":
+                    calls = 0   # Ulysses: dense local attention
+                else:           # contiguous / window: the hops before it
+                    calls = r + 1
+                want = {}
+                if kernels:
+                    want[kernels[0]] = n * calls * fwd_per_call
+                    for kname in kernels[1:]:
+                        want[kname] = n * calls
+                for i, step in enumerate(x["per_step"]):
+                    got = {k: v for k, v in step.items() if v}
+                    assert got == want, (name, r, i, step, want)
+                    for k, v in step.items():
+                        launches[k] = launches.get(k, 0) + v
+                rec[f"rank{r}_step_ms_median"] = float(
+                    np.median(x["step_ms"][1:]))
+                rec[f"rank{r}_peak_gb"] = x["peak_gb"]
+                rec[f"rank{r}_launches_per_step"] = want
+                rec[f"rank{r}_hop_calls_per_step"] = x["hop_calls_per_step"]
+            x = ranks[0][name]
+            rec.update(
+                loss_first=x["losses"][0], loss_last=x["losses"][-1],
+                max_rel_loss_vs_one_device=close(x["losses"], refs[name],
+                                                 f"{name} vs one device"),
+                transport=(x["transport"] if layout != "none"
+                           else "gloo all_to_all_single"),
+                rotations_per_step=x["shifts_per_step"],
+                rotated_mb_per_step=x["rotated_mb_per_step"],
+                collectives_per_step=x["collectives_per_step"],
+                collective_mb_per_step=x["collective_mb_per_step"])
+            self.report("context", f"gpt2-small bf16 {name}", rec)
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+        self.report("context", "phase", dict(gang_seconds=gang_s,
+                                             seconds=time.perf_counter() - t0))
+        return launches
+
     def train_parity_phase(self, route="mono"):
         """One fp32 loss + gradient of GPT-2-small's width with 2 layers,
         batch 1 x seq 1024, on the card and on the CPU from the same
@@ -3633,6 +4078,29 @@ def main() -> int:
     long_recs["flash_bwd_blocked"]["max_abs_err"] = max(
         long16["flash_bwd_blocked"]["max_abs_err"],
         packed_err["flash_bwd_blocked"])
+    # the shapes phase context's ring hops give the kernels (the 32k
+    # ring's diagonal hop is the S 16384 shape above, the 64k ring's the
+    # S 32768 one)
+    fused = ("flash_bwd_blocked",)
+    two_pass = ("flash_bwd_dq", "flash_bwd_dkv")
+    hop = dict(b=1, bwd=fused)
+    smoke.hop_case("long16k-diag", s_q=8192, s_k=8192, causal=True, **hop)
+    smoke.hop_case("long16k-full", s_q=8192, s_k=8192, causal=False, **hop)
+    smoke.hop_case("zigzag-diag-half", s_q=4096, s_k=4096, causal=True, **hop)
+    smoke.hop_case("zigzag-kv-after", s_q=4096, s_k=8192, causal=False,
+                   **hop)
+    smoke.hop_case("zigzag-kv-before", s_q=8192, s_k=4096, causal=False,
+                   **hop)
+    smoke.hop_case("long32k-full", s_q=16384, s_k=16384, causal=False, **hop)
+    smoke.hop_case("long64k-full", b=1, s_q=32768, s_k=32768, causal=False,
+                   bwd=two_pass)
+    smoke.hop_case("window-kv-offset", b=8, s_q=512, s_k=512, causal=True,
+                   kv_offset=512, window=256, bwd=fused,
+                   segs=(packed_ids[:, 512:], packed_ids[:, :512]))
+    for causal in (True, False):
+        smoke.mono_case(f"ring-hop-{'diag' if causal else 'full'}", bf16,
+                        b=8, s=512, causal=causal, dlse=True, seed=9,
+                        timed=True)
 
     # -- phases 4 to 10: the main paths ----------------------------------------------
     launches = smoke.engine_phase()
@@ -3648,12 +4116,14 @@ def main() -> int:
                      if n in ("flash_bwd_dq", "flash_bwd_dkv")})
     smoke.train_packed_phase()
 
-    # -- phases 11 to 17: checkpoints, the fixture, the rest of serving, the
-    # -- rest of the training loop, the exec layer off and on the cluster ---------
+    # -- phases 11 to 19: checkpoints, the fixture, the rest of serving, the
+    # -- rest of the training loop, the exec layer off and on the cluster, the
+    # -- mesh and the context axis -------------------------------------------------
     for phase in (smoke.checkpoint_phase, smoke.fixture_phase,
                   smoke.serving_http_phase, smoke.serving_parity_phase,
                   smoke.train_health_phase, smoke.exec_phase,
-                  smoke.cluster_phase, smoke.mesh_phase):
+                  smoke.cluster_phase, smoke.mesh_phase,
+                  smoke.context_phase):
         for name, count in phase().items():
             launches[name] += count
 

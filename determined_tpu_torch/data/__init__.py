@@ -10,6 +10,8 @@ from determined_tpu_torch.data.tokens import (
     expand_shards,
     lm_dataset,
     write_token_shard,
+    zigzag_batch,
 )
 
-__all__ = ["TokenDataset", "expand_shards", "lm_dataset", "write_token_shard"]
+__all__ = ["TokenDataset", "expand_shards", "lm_dataset", "write_token_shard",
+           "zigzag_batch"]

@@ -10,10 +10,12 @@ Determinism contract: batch i depends only on (seed, i). Resume therefore
 needs no data replay — ``skip(n)`` is O(1) — and every data-parallel host
 can derive its disjoint slice by consuming interleaved batch indices.
 
-The zigzag layout (``zigzag_ring > 1``: pre-shifted batches in ring
-attention's device order) needs ``parallel/ring.zigzag_indices`` and is
-refused by name until the multi-device slice ports it (ROADMAP queue 1,
-item 4, part 2).
+The zigzag layout (``zigzag_ring = R > 1``, R the mesh's context axis):
+batches pre-shifted then permuted into ring attention's zigzag device
+order by ``parallel/ring.zigzag_indices`` (``zigzag_batch``), so the
+model runs entirely in that order and each context rank's slice of the
+sequence is its two chunks, on the synthetic stream and on
+``TokenDataset`` alike.
 """
 from __future__ import annotations
 
@@ -25,13 +27,24 @@ import numpy as np
 MAGIC_DTYPE = {2: np.uint16, 4: np.int32}
 
 
-def _refuse_zigzag(zigzag_ring: int) -> None:
-    if zigzag_ring > 1:
-        raise NotImplementedError(
-            f"zigzag_ring={zigzag_ring}: the zigzag layout needs "
-            "parallel/ring.zigzag_indices, which comes with the "
-            "multi-device slice (ROADMAP queue 1, item 4, part 2)"
-        )
+def zigzag_batch(raw: np.ndarray, perm: np.ndarray) -> Dict[str, np.ndarray]:
+    """raw [B, S+1] contiguous rows → pre-shifted zigzag-layout batch.
+
+    Shift first (targets are the next logical token), then permute both
+    sides identically into zigzag device order."""
+    return {
+        "tokens": np.ascontiguousarray(raw[:, :-1][:, perm]),
+        "targets": np.ascontiguousarray(raw[:, 1:][:, perm]),
+        "positions": perm,
+    }
+
+
+def _zigzag_perm(seq_len: int, zigzag_ring: int) -> Optional[np.ndarray]:
+    if zigzag_ring <= 1:
+        return None
+    from determined_tpu_torch.parallel.ring import zigzag_indices
+
+    return zigzag_indices(seq_len, zigzag_ring).astype(np.int32)
 
 
 def expand_shards(patterns: List[str]) -> List[str]:
@@ -110,20 +123,28 @@ def lm_dataset(
     zigzag_ring: int = 0,
 ):
     """Shared trial-data helper: TokenDataset over glob-expanded shards when
-    configured, else an infinite synthetic stream (smoke tests/dry runs)."""
-    _refuse_zigzag(zigzag_ring)
+    configured, else an infinite synthetic stream (smoke tests/dry runs).
+    zigzag_ring > 1: emit pre-shifted zigzag-layout batches (TokenDataset
+    docstring)."""
     if patterns:
         return TokenDataset(expand_shards(patterns), batch_size, seq_len,
-                            seed=seed)
+                            seed=seed, zigzag_ring=zigzag_ring)
     rng = np.random.default_rng(seed)
+    perm = _zigzag_perm(seq_len, zigzag_ring)
 
     def synthetic() -> Iterator[Dict[str, np.ndarray]]:
         while True:
-            yield {
-                "tokens": rng.integers(
-                    0, vocab_size, (batch_size, seq_len)
-                ).astype(np.int32)
-            }
+            if perm is None:
+                yield {
+                    "tokens": rng.integers(
+                        0, vocab_size, (batch_size, seq_len)
+                    ).astype(np.int32)
+                }
+                continue
+            raw = rng.integers(
+                0, vocab_size, (batch_size, seq_len + 1)
+            ).astype(np.int32)
+            yield zigzag_batch(raw, perm)
 
     return synthetic()
 
@@ -147,15 +168,22 @@ class TokenDataset:
         n_threads: int = 2,
         zigzag_ring: int = 0,
     ) -> None:
-        _refuse_zigzag(zigzag_ring)
+        """zigzag_ring = R > 1: emit batches in zigzag device order for an
+        R-way ring-attention mesh — {"tokens", "targets", "positions"}
+        pre-shifted then permuted by `zigzag_indices` (each row reads S+1
+        tokens)."""
         self.batch_size, self.seq_len = batch_size, seq_len
+        self.zigzag_ring = int(zigzag_ring)
+        self._perm = _zigzag_perm(seq_len, self.zigzag_ring)
+        # Pre-shift needs the next token past the window: read S+1 per row.
+        read_len = seq_len + 1 if self._perm is not None else seq_len
         self._loader = None
         if use_native is not False:
             try:
                 from determined_tpu_torch.data.native import NativeLoader
 
                 self._loader = NativeLoader(
-                    paths, token_bytes, batch_size, seq_len,
+                    paths, token_bytes, batch_size, read_len,
                     seed=seed, shuffle=shuffle, n_threads=n_threads,
                 )
                 self.native = True
@@ -164,9 +192,10 @@ class TokenDataset:
                     raise
         if self._loader is None:
             self._loader = _PythonLoader(
-                paths, token_bytes, batch_size, seq_len, seed, shuffle
+                paths, token_bytes, batch_size, read_len, seed, shuffle
             )
             self.native = False
+        self._read_len = read_len
         self.batches_consumed = 0
 
     @property
@@ -182,10 +211,12 @@ class TokenDataset:
         return self
 
     def __next__(self) -> Dict[str, np.ndarray]:
-        out = np.empty((self.batch_size, self.seq_len), np.int32)
+        out = np.empty((self.batch_size, self._read_len), np.int32)
         self._loader.next_into(out)
         self.batches_consumed += 1
-        return {"tokens": out}
+        if self._perm is None:
+            return {"tokens": out}
+        return zigzag_batch(out, self._perm)
 
     def close(self) -> None:
         self._loader.close()

@@ -8,10 +8,11 @@ with b2 0.95 and weight decay 0.1 after a global-norm clip of 1.0, on a
 warmup + cosine schedule when ``warmup_steps`` is set. Entrypoint:
 ``determined_tpu_torch.examples.gpt2_trial:GPT2PretrainTrial``.
 
-One device: the global batch is ``microbatch`` × 1 when ``microbatch`` is
-set, else ``batch_size``. ``sequence_layout="zigzag"`` (ring attention
-over a sharded context axis) is refused by name until the multi-device
-slice's part 2 (ROADMAP queue 1, item 4).
+The global batch is ``microbatch`` × the mesh's batch-sharding degree
+(data × fsdp; 1 without a mesh) when ``microbatch`` is set, else
+``batch_size``. ``sequence_layout="zigzag"`` (ring attention over a
+sharded context axis) asks the loader for ``zigzag_ring`` = the mesh's
+context size: pre-shifted batches in zigzag order.
 """
 from __future__ import annotations
 
@@ -26,9 +27,11 @@ class GPT2PretrainTrial(TorchTrial):
     def _config(self) -> GPTConfig:
         return GPTConfig(**self.hparams.get("model_config", {}))
 
-    def build_model(self, device):
+    def build_model(self, device, mesh=None):
+        self._mesh = mesh
         # the trial seed: Trainer seeds torch just before build_model
-        return GPT(self._config(), device, seed=torch.initial_seed())
+        return GPT(self._config(), device, seed=torch.initial_seed(),
+                   mesh=mesh)
 
     def build_optimizer(self):
         lr = float(self.hparams.get("lr", 3e-4))
@@ -47,16 +50,26 @@ class GPT2PretrainTrial(TorchTrial):
         )
 
     def _dataset(self, seed: int):
+        from determined_tpu_torch.parallel.mesh import (
+            context_size,
+            data_parallel_size,
+        )
+
         cfg = self._config()
+        mesh = getattr(self, "_mesh", None)
+        # Zigzag layout: the ring size is derived from the mesh's context
+        # axis — a configured value could silently mismatch the mesh.
+        ring = 0
         if cfg.sequence_layout == "zigzag":
-            raise NotImplementedError(
-                "sequence_layout='zigzag' needs a sharded context axis and "
-                "ring attention: the multi-device slice (ROADMAP queue 1, "
-                "item 4, part 2)"
-            )
-        # the global batch is microbatch × the batch-sharding degree: 1
+            ring = context_size(mesh) if mesh is not None else 1
+            if ring <= 1:
+                raise ValueError(
+                    "sequence_layout='zigzag' needs a sharded context axis "
+                    "(build_model on a mesh with context > 1 first)")
+        # the global batch is microbatch × the batch-sharding degree
         if self.hparams.get("microbatch"):
-            batch = int(self.hparams["microbatch"])
+            deg = data_parallel_size(mesh) if mesh is not None else 1
+            batch = int(self.hparams["microbatch"]) * deg
         else:
             batch = int(self.hparams.get("batch_size", 8))
         return lm_dataset(
@@ -65,6 +78,7 @@ class GPT2PretrainTrial(TorchTrial):
             cfg.seq_len,
             cfg.vocab_size,
             seed=seed,
+            zigzag_ring=ring,
         )
 
     def build_training_data(self):

@@ -1,24 +1,29 @@
 """Attention dispatch of the port.
 
-Port of ``determined_tpu/models/attention.py`` for one device: the model
-calls one entry point over ``[B, S, H, D]`` tensors and ``impl`` picks the
-path.
+Port of ``determined_tpu/models/attention.py``: the model calls one entry
+point over ``[B, S, H, D]`` tensors (on a device mesh, each rank's local
+rows and sequence chunk) and ``impl`` picks the path.
 
-- ``"auto"`` and ``"flash"``: ``ops.flash_attention`` with the tuned block
-  sizes fitted down to divisors of the sequence — the CUDA kernels on the
-  card (the mono pair when one block spans the sequence), their plain
-  versions on the CPU. Unlike the reference, ``"auto"`` takes the flash
-  path on every device: the port's CPU path is the reference's own CPU
-  scan, so there is no separate dense default to fall back to.
+- ``"auto"``: ``"ring"`` when the mesh's context axis is above 1, else
+  ``"flash"``. Unlike the reference, ``"auto"`` takes the flash path on
+  every device: the port's CPU path is the reference's own CPU scan, so
+  there is no separate dense default to fall back to.
+- ``"flash"``: ``ops.flash_attention`` with the tuned block sizes fitted
+  down to divisors of the sequence — the CUDA kernels on the card (the
+  mono pair when one block spans the sequence), their plain versions on
+  the CPU.
 - ``"dense"``: plain softmax attention with the same band/segment mask
   model (port of ``parallel/ring.py::reference_attention``).
-- ``"ring"`` and ``"ulysses"`` shard the sequence over a mesh's context
-  axis and come with the multi-device slice's part 2 (ROADMAP queue 1,
-  item 4).
+- ``"ring"``: ``parallel/ring.py`` on the mesh's context group, a flash
+  call a hop; ``layout="zigzag"`` (the sequence already in zigzag order,
+  as the zigzag loader emits it) needs it.
+- ``"ulysses"``: ``parallel/ulysses.py``, dense local attention over
+  H/context heads; no window, no segments, heads divisible by the
+  context axis.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -65,6 +70,7 @@ def attention(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
+    mesh: Any = None,
     causal: bool = True,
     impl: str = "auto",
     block_q: int = 512,
@@ -74,27 +80,63 @@ def attention(
     segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Multi-head attention over [B, S, H, D] tensors (see the module
-    docstring for ``impl``). block_q/block_k: flash tile sizes, fitted down
-    to divisors of the sequence. segment_ids: [B, S] int ids for packed
-    sequences; attention only within equal ids."""
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"{impl} attention shards the sequence over a device mesh's "
-            "context axis; it comes with the multi-device slice's ROADMAP "
-            "queue 1, item 4, part 2"
-        )
-    if layout != "contiguous":
+    docstring for ``impl``). mesh: the DeviceMesh the tensors are this
+    rank's block of (rows over data × fsdp, sequence over context).
+    block_q/block_k: flash tile sizes, fitted down to divisors of the
+    sequence. segment_ids: [B, S] int ids for packed sequences; attention
+    only within equal ids."""
+    context = 1
+    if mesh is not None:
+        context = int(mesh.shape[mesh.mesh_dim_names.index("context")])
+    if impl == "auto":
+        impl = "ring" if context > 1 else "flash"
+    if layout == "zigzag" and impl != "ring":
         raise ValueError(
-            f"layout={layout!r} requires ring attention (a sharded context "
-            "axis); dense/flash causal masks assume contiguous order"
+            "layout='zigzag' requires ring attention (a sharded context "
+            f"axis); resolved impl is {impl!r} — dense/flash causal masks "
+            "assume contiguous order and would be silently wrong"
+        )
+    if layout not in ("contiguous", "zigzag"):
+        raise ValueError(f"unknown sequence layout {layout!r}")
+    if impl in ("flash", "dense") and context > 1:
+        raise ValueError(
+            f"impl={impl!r} on a mesh with context={context}: each rank "
+            "holds one chunk of the sequence; use ring or ulysses"
         )
     if impl == "dense":
         return reference_attention(q, k, v, causal=causal, window=window,
                                    segment_ids=segment_ids)
-    if impl in ("auto", "flash"):
+    if impl == "flash":
         return flash_attention(
             q, k, v, causal=causal, block_q=fit_block(q.shape[1], block_q),
             block_k=fit_block(k.shape[1], block_k), window=window,
             segment_ids=segment_ids,
         )
+    if impl == "ring":
+        if mesh is None:
+            raise ValueError("ring attention needs a mesh")
+        from determined_tpu_torch.parallel.ring import ring_attention
+
+        # The hop's flash calls fit the tuned blocks to their own lengths.
+        return ring_attention(
+            q, k, v, group=mesh, causal=causal, block_q=block_q,
+            block_k=block_k, layout=layout, window=window,
+            segment_ids=segment_ids,
+        )
+    if impl == "ulysses":
+        if window is not None or segment_ids is not None:
+            raise ValueError(
+                "window/segment_ids are not supported with ulysses "
+                "attention; use ring (sharded context) or flash/dense"
+            )
+        if mesh is None:
+            raise ValueError("ulysses attention needs a mesh")
+        if q.shape[2] % context:
+            raise ValueError(
+                f"ulysses needs heads ({q.shape[2]}) divisible by the "
+                f"context axis ({context})"
+            )
+        from determined_tpu_torch.parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, group=mesh, causal=causal)
     raise ValueError(f"unknown attention impl {impl!r}")

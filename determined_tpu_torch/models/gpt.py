@@ -35,14 +35,21 @@ forward. ``layer_loop`` "scan" and "unroll" pick the reference's XLA loop
 style and change nothing here: the port always runs a Python loop over
 the layers. ``fused_loss=True`` computes the loss through the chunked
 cross-entropy (``ops/fused_cross_entropy.py``), which never materializes
-the ``[B, S, V]`` logits. Mixture of experts, pipeline stages and the
-zigzag layout belong to later parts of the multi-device item and are
-refused by name.
+the ``[B, S, V]`` logits. Mixture of experts and pipeline stages belong
+to a later part of the multi-device item and are refused by name, as is
+a mesh with tensor above 1.
 
-Under a device mesh (``GPT(..., mesh=)``, the Trainer's ``data × fsdp``
-layout) the module computes on each rank's local rows with whole
-parameters; ``logical_axes()`` names the parameters' dimensions for the
-sharding rules, in the reference's structure and names.
+Under a device mesh (``GPT(..., mesh=)``, the Trainer's ``data × fsdp ×
+context`` layout) the module computes on each rank's local rows and, on
+a context axis above 1, its chunk of the sequence, with whole
+parameters: attention goes through ``models.attention`` with the mesh
+(``"auto"``: ring attention on the context group; ``attn_impl="ulysses"``
+the all-to-all), and a rank's learned position ids are its global ones
+(contiguous: ``context_index · S_local + arange(S_local)``; zigzag, where
+the zigzag loader's batches arrive pre-shifted in zigzag order: its
+columns of the replicated ``positions`` map). ``logical_axes()`` names
+the parameters' dimensions for the sharding rules, in the reference's
+structure and names.
 
 The methods drop the reference's leading ``params`` argument: the module
 owns its parameters.
@@ -87,9 +94,9 @@ class GPTConfig:
     # The reference's remaining knobs, carried for config parity. The
     # port reads remat, remat_attention, layer_loop (only for the auto
     # rematted attention past 16k tokens), attn_impl, flash_block_q/k,
-    # attn_window, z_loss and fused_loss, and refuses MoE, pipeline
-    # stages and the zigzag layout; later parts of the multi-device item
-    # read the rest.
+    # attn_window, z_loss, fused_loss and sequence_layout, and refuses
+    # MoE and pipeline stages; a later part of the multi-device item
+    # reads the rest.
     remat: bool = True
     remat_attention: bool = False
     scan_unroll: int = 1
@@ -228,15 +235,24 @@ class GPT(Model):
                 "pipeline-parallel GPT is not ported yet (the multi-device "
                 "slice's ROADMAP queue 1, item 4, part 3)"
             )
-        if c.sequence_layout != "contiguous":
-            raise NotImplementedError(
-                f"sequence_layout {c.sequence_layout!r} needs ring attention "
-                "(the multi-device slice's ROADMAP queue 1, item 4, part 2)"
-            )
+        #: the context axis's degree: above 1 each rank holds one chunk
+        #: of the sequence
+        self._context = 1
         if mesh is not None:
-            from determined_tpu_torch.parallel.mesh import refuse_later_axes
+            from determined_tpu_torch.parallel.mesh import (
+                context_size,
+                refuse_later_axes,
+            )
 
             refuse_later_axes(mesh, "a GPT mesh")
+            self._context = context_size(mesh)
+        if c.sequence_layout not in ("contiguous", "zigzag"):
+            raise ValueError(f"unknown sequence_layout {c.sequence_layout!r}")
+        if c.sequence_layout == "zigzag" and self._context == 1:
+            raise ValueError(
+                "sequence_layout='zigzag' needs a sharded context axis "
+                "(ring attention over a mesh with context > 1)"
+            )
         #: the device mesh the Trainer trains this model over (None: one
         #: device); the forward computes on this rank's rows either way.
         self.mesh = mesh
@@ -732,7 +748,7 @@ class GPT(Model):
         c = self.config
         q, k, v = self._qkv(x, w)
         o = attn_mod.attention(
-            q, k, v, causal=True, impl=c.attn_impl,
+            q, k, v, mesh=self.mesh, causal=True, impl=c.attn_impl,
             block_q=c.flash_block_q, block_k=c.flash_block_k,
             layout=c.sequence_layout, window=c.attn_window,
             segment_ids=segment_ids,
@@ -747,12 +763,17 @@ class GPT(Model):
         dtype, differentiable in every parameter."""
         c = self.config
         tok = self.tok_embed.to(c.dtype)
+        positions = self._local_positions(positions, tokens.shape[1])
         x = self._embed(tok, self.pos_embed.to(c.dtype), tokens, positions)
         remat = c.remat and torch.is_grad_enabled()
         checkpoint = functools.partial(
             torch.utils.checkpoint.checkpoint, use_reentrant=False,
             context_fn=_remat_context,
         )
+        if self._context > 1:
+            # The recompute reissues the ring's rotations: it must run the
+            # whole region on every rank, whatever this rank's graph needs.
+            checkpoint = _no_early_stop(checkpoint)
         for w in self._train_layers():
             if remat and remat_attention(c):
                 x = checkpoint(self._block, x, w, segment_ids)
@@ -762,6 +783,27 @@ class GPT(Model):
             else:
                 x = self._block(x, w, segment_ids)
         return x
+
+    def _local_positions(self, positions: Optional[torch.Tensor],
+                         s_local: int) -> Optional[torch.Tensor]:
+        """On a context axis above 1, this rank's learned position ids:
+        its global ones (contiguous), or its columns of the replicated
+        [S] ``positions`` map (zigzag)."""
+        if self._context == 1:
+            return positions
+        from determined_tpu_torch.parallel.mesh import context_index
+
+        start = context_index(self.mesh) * s_local
+        if positions is None:
+            if self.config.sequence_layout == "zigzag":
+                raise ValueError(
+                    "sequence_layout='zigzag' needs a zigzag-emitting data "
+                    "pipeline (data/tokens.py zigzag_ring) supplying "
+                    "positions")
+            return torch.arange(start, start + s_local, device=self.device)
+        if positions.dim() == 1 and positions.shape[0] == s_local * self._context:
+            return positions[start:start + s_local]
+        return positions
 
     def _block(self, x: torch.Tensor, w: Dict[str, torch.Tensor],
                segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
@@ -843,6 +885,16 @@ class GPT(Model):
         n = torch.clamp(n_tok, min=1.0)
         loss = obj / n
         return loss, {"loss": loss, "accuracy": acc_sum / n, "tokens": n_tok}
+
+
+def _no_early_stop(checkpoint):
+    def call(*args, **kwargs):
+        from torch.utils.checkpoint import set_checkpoint_early_stop
+
+        with set_checkpoint_early_stop(False):
+            return checkpoint(*args, **kwargs)
+
+    return call
 
 
 def remat_attention(config: GPTConfig) -> bool:

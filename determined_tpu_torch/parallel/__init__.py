@@ -4,21 +4,28 @@ Port of ``determined_tpu/parallel``. The reference's data plane is GSPMD
 over a ``jax.sharding.Mesh``; here it is one process per device, joined by
 ``torch.distributed``, with a ``DeviceMesh`` over the reference's six
 axes and DTensor placements from the same logical-axis rule table. The
-Trainer shards parameters and optimizer state over ``fsdp`` and splits
-batches over ``("data", "fsdp")`` (``trainer/_trainer.py``).
+Trainer shards parameters and optimizer state over ``fsdp``, splits
+batches' rows over ``("data", "fsdp")`` and their sequence over
+``context`` (``trainer/_mesh.py``), where attention runs as ring
+attention (``ring.py``) or Ulysses (``ulysses.py``) on the context group.
 
-Not ported yet, and refused by name: ring and Ulysses attention (the
-context axis; ROADMAP queue 1, item 4, part 2) and the pipeline schedules
-(item 4, part 3).
+Not ported yet, and refused by name: the tensor axis (ROADMAP queue 1,
+item 4, part 2) and the pipeline schedules and experts (item 4, part 3).
 """
 from determined_tpu_torch.parallel.mesh import (
     AXIS_NAMES,
     MeshConfig,
     batch_axes,
+    context_index,
     data_parallel_size,
     make_mesh,
     make_multislice_mesh,
     validate_divisibility,
+)
+from determined_tpu_torch.parallel.ring import (
+    make_ring_attention,
+    ring_attention,
+    zigzag_indices,
 )
 from determined_tpu_torch.parallel.sharding import (
     DEFAULT_RULES,
@@ -29,21 +36,23 @@ from determined_tpu_torch.parallel.sharding import (
     shard_pytree_like,
     spec_for_pytree,
 )
+from determined_tpu_torch.parallel.ulysses import (
+    make_ulysses_attention,
+    ulysses_attention,
+)
 
 
 def _later(name: str, part: str):
     def refused(*args, **kwargs):
         raise NotImplementedError(
-            f"{name} comes with ROADMAP queue 1, item 4, {part}; this slice "
-            "trains over data and fsdp"
+            f"{name} comes with ROADMAP queue 1, item 4, {part}; the port "
+            "trains over data, fsdp and context"
         )
 
     refused.__name__ = name
     return refused
 
 
-ring_attention = _later("ring_attention", "part 2 (the context axis)")
-ulysses_attention = _later("ulysses_attention", "part 2 (the context axis)")
 pipeline_apply = _later("pipeline_apply", "part 3 (pipeline stages)")
 circular_pipeline_apply = _later("circular_pipeline_apply",
                                  "part 3 (pipeline stages)")
@@ -56,6 +65,7 @@ __all__ = [
     "make_mesh",
     "make_multislice_mesh",
     "batch_axes",
+    "context_index",
     "data_parallel_size",
     "validate_divisibility",
     "ShardingRules",
@@ -65,4 +75,9 @@ __all__ = [
     "logical_to_sharding",
     "spec_for_pytree",
     "shard_pytree_like",
+    "ring_attention",
+    "make_ring_attention",
+    "zigzag_indices",
+    "ulysses_attention",
+    "make_ulysses_attention",
 ]

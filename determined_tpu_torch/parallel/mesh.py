@@ -14,11 +14,11 @@ one device per rank, the ranks laid out row-major over the six axes as
 the reference reshapes its device list. The mesh lives on CUDA unless the
 caller passes ``device="cpu"``.
 
-This slice trains over ``data`` and ``fsdp``. A mesh with ``tensor``,
-``context``, ``pipeline`` or ``expert`` above 1 is refused by name
-(``refuse_later_axes``): tensor parallelism and the context axis (ring
-and Ulysses attention) are ROADMAP queue 1, item 4, part 2; pipeline
-stages and experts are part 3.
+The port trains over ``data``, ``fsdp`` and ``context`` (the sequence
+split over the context group, attention by ring or Ulysses). A mesh with
+``tensor``, ``pipeline`` or ``expert`` above 1 is refused by name
+(``refuse_later_axes``): tensor parallelism is ROADMAP queue 1, item 4,
+part 2; pipeline stages and experts are part 3.
 """
 from __future__ import annotations
 
@@ -37,7 +37,6 @@ AXIS_NAMES: Tuple[str, ...] = ("pipeline", "data", "fsdp", "expert",
 #: The axes of later parts of the multi-device item, by the part that
 #: lifts their refusal.
 _LATER_AXES = {"tensor": "part 2 (tensor parallelism)",
-               "context": "part 2 (ring and Ulysses attention)",
                "pipeline": "part 3 (pipeline stages)",
                "expert": "part 3 (experts)"}
 
@@ -120,8 +119,8 @@ def refuse_later_axes(sizes: Any, what: str = "mesh") -> None:
         if degree != 1:
             raise NotImplementedError(
                 f"{what} with {axis}={degree}: the {axis} axis comes with "
-                f"ROADMAP queue 1, item 4, {part}; this slice trains over "
-                "data and fsdp"
+                f"ROADMAP queue 1, item 4, {part}; the port trains over "
+                "data, fsdp and context"
             )
 
 
@@ -201,6 +200,15 @@ def data_parallel_index(mesh: Any) -> int:
     names = mesh.mesh_dim_names
     return (coord[names.index("data")] * _axis(mesh, "fsdp")
             + coord[names.index("fsdp")])
+
+
+def context_size(mesh: Any) -> int:
+    return _axis(mesh, "context")
+
+
+def context_index(mesh: Any) -> int:
+    """This rank's sequence chunk: its coordinate on the context axis."""
+    return int(mesh.get_coordinate()[mesh.mesh_dim_names.index("context")])
 
 
 def validate_divisibility(mesh: Any, *, global_batch: int,

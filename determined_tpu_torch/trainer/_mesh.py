@@ -1,4 +1,5 @@
-"""The Trainer's state on a ``data × fsdp`` device mesh, and its collectives.
+"""The Trainer's state on a ``data × fsdp × context`` device mesh, and its
+collectives.
 
 The reference lets GSPMD shard its jitted step over the mesh. Here one
 process drives one device, and ``MeshLayout`` does by hand what the
@@ -8,10 +9,11 @@ reference's shardings imply, from the same rule table
 - **Parameters and optimizer state** live as each rank's block: a
   parameter whose "embed" dimension the rules map to ``fsdp`` is split
   along that dimension over the fsdp axis, every other one is whole on
-  every rank. The trial's optimizer chain (``trainer.optim``, optax's
-  arithmetic) runs on the blocks, so the AdamW moments take the
-  parameters' layout, and ``optim.global_norm`` is the whole gradient's
-  norm (``norm_reduction``: the blocks' sums of squares, all-reduced over
+  every rank; every block is replicated over ``data`` and ``context``.
+  The trial's optimizer chain (``trainer.optim``, optax's arithmetic)
+  runs on the blocks, so the AdamW moments take the parameters' layout,
+  and ``optim.global_norm`` is the whole gradient's norm
+  (``norm_reduction``: the blocks' sums of squares, all-reduced over
   fsdp once a step; the whole parameters' added once).
 - **The model computes with whole parameters** (its ``nn.Parameter``s, a
   working copy): ``gather`` all-gathers the blocks into them over fsdp
@@ -23,19 +25,29 @@ reference's shardings imply, from the same rule table
   the working copy is not (ZeRO-1-like, unlike the reference's GSPMD
   layout, where the parameters too live split). The attention kernels
   see each rank's local activations as plain tensors.
-- **The batch** is split by rows over ``("data", "fsdp")``, data major
-  (``rows``); the trial's ``replicated_batch_keys`` (default
-  ``positions``) go to every rank whole.
+- **The batch** (``local``): rows split over ``("data", "fsdp")``, data
+  major (``rows``); on a context axis above 1 the sequence (dimension 1
+  of every batch array but a per-row [B] one) split over ``context``,
+  each rank one slice of ``S / context`` columns (``columns``). On the
+  zigzag layout that slice is the rank's two chunks (i, 2R−1−i),
+  adjacent in the loader's permuted order. The trial's
+  ``replicated_batch_keys`` (default ``positions``) go to every rank
+  whole. On a context axis the Trainer first pre-shifts a batch that
+  has no ``targets`` (``preshift``): the in-model shift and the packed
+  boundary mask cross the edge between two ranks' chunks, which each
+  rank alone cannot see.
 - **The loss is the global token mean.** Each rank's loss is its own
-  rows' mean; ``loss_weight`` weights it by the rank's share of the
-  gang's token count (``tokens``; the ranks' row share 1/dp for a model
-  that reports none), so that the ranks' weighted losses sum to the
-  reference's loss over the global batch, and so do their gradients.
+  tokens' mean; ``loss_weight`` weights it by the rank's share of the
+  gang's token count (``tokens``; 1/(dp·cp) for a model that reports
+  none), so that the ranks' weighted losses sum to the reference's loss
+  over the global batch, and so do their gradients (a rank's gradient
+  holds what its queries sent back around the ring too).
 - **Gradients**: a split parameter's is reduce-scattered over fsdp
-  (summed) and all-reduced over data; a whole one's is all-reduced over
-  the gang in one flat buffer. The global norm all-reduces the split
-  blocks' sum of squares over fsdp, once for each call of
-  ``optim.global_norm`` (the trainer's and the chain's clip).
+  (summed) and all-reduced over every other replica of its block, data
+  and context; a whole one's is all-reduced over the gang in one flat
+  buffer. The global norm all-reduces the split blocks' sum of squares
+  over fsdp, once for each call of ``optim.global_norm`` (the trainer's
+  and the chain's clip).
 - **Metrics**: every scalar metric is summed over the gang after the same
   weighting (``tokens`` unweighted), in one all-reduce, so every rank
   holds the same global loss and grad norm, and the non-finite guard,
@@ -43,10 +55,10 @@ reference's shardings imply, from the same rule table
   every rank.
 
 A mesh is refused by name when an axis of a later part of the
-multi-device item is above 1, or when the rules split a parameter over
-any axis but fsdp. A collective over a group of one rank is skipped, so
-one rank on a ``data=1 × fsdp=1`` mesh does the one-device step's work
-and the layout's bookkeeping.
+multi-device item (tensor, pipeline, expert) is above 1, or when the
+rules split a parameter over any axis but fsdp. A collective over a
+group of one rank is skipped, so one rank on a ``data=1 × fsdp=1`` mesh
+does the one-device step's work and the layout's bookkeeping.
 """
 from __future__ import annotations
 
@@ -57,6 +69,8 @@ import numpy as np
 import torch
 
 from determined_tpu_torch.parallel.mesh import (
+    context_index,
+    context_size,
     data_parallel_index,
     data_parallel_size,
     refuse_later_axes,
@@ -102,9 +116,12 @@ class MeshLayout:
         self.mesh = mesh
         self.fsdp_group = mesh.get_group("fsdp")
         self.data_group = mesh.get_group("data")
+        self.context_group = mesh.get_group("context")
         self.world = int(dist.get_world_size())
         self.dp = data_parallel_size(mesh)
         self.dp_index = data_parallel_index(mesh)
+        self.cp = context_size(mesh)
+        self.cp_index = context_index(mesh)
         fsdp = int(mesh.shape[mesh.mesh_dim_names.index("fsdp")])
         axes = flatten_axes(logical_axes)
         self.blocks: List[ParamBlock] = []
@@ -183,10 +200,25 @@ class MeshLayout:
         n = x.shape[0] // self.dp
         return x[self.dp_index * n:(self.dp_index + 1) * n]
 
+    def columns(self, x: Any) -> Any:
+        """This rank's slice of the sequence (dimension 1) of a batch
+        array: one chunk of S / context columns (a per-row array [B]
+        stays whole)."""
+        if self.cp == 1 or x.ndim < 2:
+            return x
+        n = x.shape[1] // self.cp
+        return x[:, self.cp_index * n:(self.cp_index + 1) * n]
+
+    def local(self, x: Any) -> Any:
+        """This rank's block of a global batch array."""
+        return self.columns(self.rows(x))
+
     def check_batch(self, batch: Dict[str, Any], replicated: frozenset) -> None:
         for k, v in batch.items():
             if k not in replicated:
-                validate_divisibility(self.mesh, global_batch=len(v))
+                seq = v.shape[1] if self.cp > 1 and v.ndim > 1 else None
+                validate_divisibility(self.mesh, global_batch=len(v),
+                                      seq_len=seq)
 
     def shard_view_blocks(self) -> List[Tuple[Tuple[int, ...], Tuple[int, ...], bool]]:
         """(global shape, starts, replica0) per parameter, for
@@ -201,12 +233,12 @@ class MeshLayout:
     # -- the step's collectives ----------------------------------------------
     def loss_weight(self, metrics: Dict[str, torch.Tensor]) -> Any:
         """This rank's share of the global mean: its tokens over the
-        gang's (all-reduced), or 1/dp without a ``tokens`` metric."""
+        gang's (all-reduced), or 1/(dp·cp) without a ``tokens`` metric."""
         import torch.distributed as dist
 
         tokens = metrics.get("tokens")
         if tokens is None:
-            return 1.0 / self.dp
+            return 1.0 / (self.dp * self.cp)
         mine = tokens.detach().float().reshape(())
         total = mine.clone()
         if self.world > 1:
@@ -229,8 +261,10 @@ class MeshLayout:
                                 *src.shape[1:]),
                                dtype=src.dtype, device=src.device)
             dist.reduce_scatter_tensor(part, src, group=self.fsdp_group)
-            if int(self.data_group.size()) > 1:
-                dist.all_reduce(part, group=self.data_group)
+            # the block's other replicas: data × context
+            for group in (self.data_group, self.context_group):
+                if int(group.size()) > 1:
+                    dist.all_reduce(part, group=group)
             out[i] = part.movedim(0, b.dim).contiguous()
         if whole and self.world > 1:
             flat = torch.cat([grads[i].reshape(-1) for i in whole])
@@ -269,6 +303,30 @@ class MeshLayout:
         if self.world > 1:
             dist.all_reduce(vals)
         return dict(zip(keys, vals.unbind(0)))
+
+
+def preshift(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """A global batch with the in-model next-token shift made explicit:
+    ``targets`` = tokens shifted by one, the last column masked, and the
+    packed boundary and padding mask (``GPT.loss``'s, from
+    ``segment_ids``) folded into ``loss_mask``, shifted with the targets.
+    The per-token sums equal the in-model shift's."""
+    tokens = np.asarray(batch["tokens"])
+    mask = batch.get("loss_mask")
+    mask = (np.ones(tokens.shape, np.float32) if mask is None
+            else np.asarray(mask, np.float32))
+    seg = batch.get("segment_ids")
+    if seg is not None:
+        seg = np.asarray(seg)
+        boundary = np.concatenate(
+            [np.ones_like(mask[:, :1]),
+             (seg[:, 1:] == seg[:, :-1]).astype(np.float32)], axis=1)
+        mask = mask * boundary * (seg != 0)
+    targets = np.zeros_like(tokens)
+    targets[:, :-1] = tokens[:, 1:]
+    shifted = np.zeros_like(mask)
+    shifted[:, :-1] = mask[:, 1:]
+    return dict(batch, targets=targets, loss_mask=shifted)
 
 
 def rank_seed(seed: int, rank: int) -> int:

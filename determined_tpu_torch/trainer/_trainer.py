@@ -47,11 +47,12 @@ covers the directive's ``steps``, is uploaded through the trial's storage
 manager as ``profile-capture-<id>`` and reported on ``POST
 /api/v1/profiles/captures/<id>/complete``.
 
-On a device mesh (``mesh=``, a ``DeviceMesh`` over ``data × fsdp`` from
-``parallel.make_mesh``; ``trainer/_mesh.py``; in a gang of more than one
-process without one, as in the reference, the default ``MeshConfig()``:
-data over the whole gang) every rank of the gang runs
-this loop on its rows of each global batch: the parameters and the
+On a device mesh (``mesh=``, a ``DeviceMesh`` over ``data × fsdp ×
+context`` from ``parallel.make_mesh``; ``trainer/_mesh.py``; in a gang
+of more than one process without one, as in the reference, the default
+``MeshConfig()``: data over the whole gang) every rank of the gang runs
+this loop on its rows of each global batch, and on a context axis its
+chunk of the sequence (attention by ring or Ulysses): the parameters and the
 optimizer state are split over fsdp by the model's ``logical_axes()``
 through the sharding ``rules``, the loss is the global token mean, and
 every decision (the guard, the spike detector, rollback-and-skip, the
@@ -65,8 +66,8 @@ the replica-divergence audit (``_divergence_audit``). Each rank draws
 from its own generator, seeded from (seed, rank).
 
 The step runs on CUDA unless the caller passes ``device="cpu"``. Refused
-by name: a mesh with tensor, context, pipeline or expert above 1 (later
-parts of the multi-device item), ``resume_event="resize"`` and a resize
+by name: a mesh with tensor, pipeline or expert above 1 (later parts of
+the multi-device item), ``resume_event="resize"`` and a resize
 directive from the master (the elastic slice) and the orbax checkpoint
 format (it needs JAX).
 """
@@ -98,7 +99,7 @@ from determined_tpu_torch.storage.base import CorruptCheckpointError
 from determined_tpu_torch.tensorboard import EventFileWriter, TensorboardManager
 from determined_tpu_torch.trainer import _checkpoint as ckpt_io
 from determined_tpu_torch.trainer import _sentinel, _timeline, optim
-from determined_tpu_torch.trainer._mesh import MeshLayout, rank_seed
+from determined_tpu_torch.trainer._mesh import MeshLayout, preshift, rank_seed
 from determined_tpu_torch.trainer._trial import TorchTrial, build_model
 from determined_tpu_torch.trainer._units import Batch, TrainUnit, to_batches
 
@@ -373,14 +374,18 @@ class Trainer:
 
     # -- the step ----------------------------------------------------------
     def _put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """The batch on the device; on a mesh this rank's rows of it (the
-        trial's ``replicated_batch_keys``, default ``positions``, whole)."""
+        """The batch on the device; on a mesh this rank's block of it: its
+        rows, and on a context axis its columns of the pre-shifted batch
+        (``_mesh.preshift``; the trial's ``replicated_batch_keys``, default
+        ``positions``, whole)."""
         layout = self._layout
         if layout is not None:
             replicated = frozenset(getattr(
                 self.trial, "replicated_batch_keys", frozenset({"positions"})))
+            if layout.cp > 1 and "tokens" in batch and "targets" not in batch:
+                batch = preshift(batch)
             layout.check_batch(batch, replicated)
-            batch = {k: v if k in replicated else layout.rows(np.asarray(v))
+            batch = {k: v if k in replicated else layout.local(np.asarray(v))
                      for k, v in batch.items()}
         return {
             k: torch.as_tensor(np.asarray(v)).to(self.device, non_blocking=True)

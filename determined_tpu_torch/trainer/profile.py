@@ -98,8 +98,8 @@ class RepeatedBatchTrial(TorchTrial):
         self.batch = batch
         self.seed = seed
 
-    def build_model(self, device):
-        return gpt.GPT(self.config, device=device, seed=self.seed)
+    def build_model(self, device, mesh=None):
+        return gpt.GPT(self.config, device=device, seed=self.seed, mesh=mesh)
 
     def build_optimizer(self):
         return optim.chain(optim.clip_by_global_norm(1.0),

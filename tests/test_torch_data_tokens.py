@@ -7,7 +7,7 @@ reference's (``determined_tpu.data``), on the CPU.
   yardstick: the reference holds its own native stream equal to it).
 - ``skip(n)`` then next equals the n-th batch, natively and in python.
 - ``lm_dataset``'s shard and synthetic streams equal the reference's.
-- The zigzag layout is refused by name.
+- The zigzag layout: ``tests/test_torch_ring.py``.
 - The native library is built under ``determined_tpu_torch/_build/``,
   not the reference's ``native/_build/``.
 All comparisons are exact (integer tokens).
@@ -119,13 +119,6 @@ def test_shard_files_are_the_references_bytes(tmp_path):
     with pytest.raises(ValueError, match="uint16"):
         ttokens.write_token_shard(str(tmp_path / "x.bin"),
                                   np.array([1 << 16]), 2)
-
-
-def test_zigzag_is_refused_by_name(shards):
-    with pytest.raises(NotImplementedError, match="zigzag.*item 4"):
-        ttokens.lm_dataset(None, B, S, vocab_size=10, zigzag_ring=2)
-    with pytest.raises(NotImplementedError, match="zigzag.*item 4"):
-        ttokens.TokenDataset(shards[2], B, S, zigzag_ring=4)
 
 
 def test_too_few_tokens_raises(tmp_path):

@@ -171,7 +171,7 @@ def test_gpt2_trial_batches_are_the_references(tmp_path):
                                           next(jt)["tokens"])
     zig = tgpt2.GPT2PretrainTrial(
         {"model_config": dict(TINY_GPT, sequence_layout="zigzag")})
-    with pytest.raises(NotImplementedError, match="zigzag.*item 4"):
+    with pytest.raises(ValueError, match="zigzag.*sharded context axis"):
         zig.build_training_data()
 
 
@@ -322,7 +322,7 @@ def test_resolve_mesh_refuses_a_mesh_by_name():
     tests/test_torch_rendezvous.py)."""
     assert tharness.resolve_mesh({}, {}) is None
     with pytest.raises(NotImplementedError, match="item 4"):
-        tharness.resolve_mesh({}, {"mesh": {"fsdp": 2, "context": 2}})
+        tharness.resolve_mesh({}, {"mesh": {"fsdp": 2, "tensor": 2}})
     with pytest.raises(NotImplementedError, match="item 4"):
         tharness.resolve_mesh({"mesh": {"data": 8, "pipeline": 2}},
                               {"mesh": {"fsdp": 2}})

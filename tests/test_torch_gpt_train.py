@@ -233,8 +233,10 @@ def test_attention_dense_and_flash_match_reference(causal, window, segments):
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
 def test_attention_refuses_sharded_impls(impl):
+    """Without a mesh the sharded impls are refused, as in the reference
+    (the context axis: tests/test_torch_ring.py, test_torch_context.py)."""
     x = torch.zeros((1, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    with pytest.raises(ValueError, match=f"{impl} attention needs a mesh"):
         tattn.attention(x, x, x, impl=impl)
 
 

@@ -273,8 +273,7 @@ def test_one_rank_mesh_step_is_the_one_device_step(one_process_group,
 
 
 @pytest.mark.parametrize("axis,part", [
-    ("tensor", "part 2"), ("context", "part 2"), ("pipeline", "part 3"),
-    ("expert", "part 3"),
+    ("tensor", "part 2"), ("pipeline", "part 3"), ("expert", "part 3"),
 ])
 def test_later_axes_are_refused_by_name(axis, part):
     cfg = tmesh.MeshConfig(**{axis: 2})
@@ -290,7 +289,6 @@ def test_later_axes_are_refused_by_name(axis, part):
 
 
 @pytest.mark.parametrize("name,part", [
-    ("ring_attention", "part 2"), ("ulysses_attention", "part 2"),
     ("pipeline_apply", "part 3"), ("circular_pipeline_apply", "part 3"),
     ("stack_circular_stages", "part 3"),
 ])

@@ -295,6 +295,26 @@ script exits non-zero without the final result line:
    K/V staged through pinned host buffers: gloo's send and receive take
    host memory only).
 
+20. tensor — training over the tensor axis (``parallel/tensor.py``,
+   ``models/gpt.py``'s slices, ``trainer/_mesh.py``): gangs on the one
+   card over gloo as subprocesses (``TENSOR_RANK``), GPT-2-small at full
+   width and depth, bf16 over fp32, the headline trial's seeded weights
+   carried in by ``load_jax_params``' numpy path, the runs of
+   ``TENSOR_RUNS``: two ranks at ``MeshConfig(data=1, tensor=2)``, B 8 ×
+   1024 (the mono pair at 6 heads a rank) with a sharded save at step 2
+   and the audit every step, and phase train-packed's batch with
+   ``attn_window=256`` (``flash_fwd`` and the fused blocked backward);
+   four ranks at ``context=2 × tensor=2``, B 8 × 1024 by ring and by
+   Ulysses. Every loss within 1e-3 relative and every grad norm within
+   ``GRAD_NORM_RTOL`` of the one-device run (phase train; phase
+   context's packed window run), every rank alike; per step
+   and rank exactly the flash launches of its heads; each rank's
+   resident state below phase mesh's one rank's; the save's files in
+   the reference's names with the tensor offsets, a fresh gang's
+   restore bit for bit and its losses on equal to the uninterrupted
+   run's. Prints per run each rank's step ms, peak memory and state, and
+   the collectives a step by group with their bytes.
+
 Phase 3 also holds ``flash_fwd`` at the cached-tail geometry (separate
 query and key segment ids as ``_prefill_cached`` builds them, one row all
 padding) and at the speculative gather verify's (B 8, s_q 5, s_k 1029,
@@ -303,11 +323,14 @@ kv_offset 1024, dead rows in query segment 2), ``paged_attention`` at
 hops of phase 19 (``hop_case``, bf16 with an lse cotangent): S_local
 8192 causal and full, the zigzag half chunks, S_local 16384 and 32768
 full (the fused and the two-pass backward), the window hop at kv_offset
-512 with segments, and the mono pair at B 8 × 512 causal and full.
+512 with segments, and the mono pair at B 8 × 512 causal and full;
+and phase 20's shapes at 6 heads: the mono pair at B 8 × 1024, the
+packed window's ``flash_fwd`` and fused backward, the ring's mono hops
+at B 8 × 512.
 
 The last lines are the whole run's seconds, the kernels' JSON record
 (each kernel's ``launches`` summed over the main paths that run it:
-phases 4, 6, 8, 9 and 11 to 19), the card's name and power limit, and
+phases 4, 6, 8, 9 and 11 to 20), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -581,6 +604,191 @@ for run in runs:
                                 for k, v in nbytes.items()}))
     del trainer, trial
     gc.collect()
+with open(out, "w") as f:
+    json.dump(results, f)
+dctx.close()
+dist.destroy_process_group()
+"""
+#: phase tensor: the runs, each on ranks of the one card over gloo
+#: (GPT-2-small at full width and depth, bf16 over fp32, the headline
+#: trial's seeded weights carried in by ``load_jax_params``' numpy path):
+#: name → (gang, mesh axes besides data=1, data ("tokens": the headline
+#: trial's repeated batch, "packed": phase train-packed's batch), GPTConfig
+#: fields, steps, step of a sharded save (0: none), the kernels of a
+#: layer's flash calls (forward, backward), the calls a layer on a rank of
+#: context index i makes ("one": 1; "ring": i + 1; "none": 0)).
+TENSOR_RUNS = {
+    "headline-t2": (2, {"tensor": 2}, "tokens", {}, 3, 2,
+                    ("flash_fwd_mono", "flash_bwd_mono"), "one"),
+    "packed-window-t2": (2, {"tensor": 2}, "packed", {"attn_window": 256},
+                         3, 0, ("flash_fwd", "flash_bwd_blocked"), "one"),
+    "headline-c2t2-ring": (4, {"context": 2, "tensor": 2}, "tokens", {}, 2,
+                           0, ("flash_fwd_mono", "flash_bwd_mono"), "ring"),
+    "headline-c2t2-ulysses": (4, {"context": 2, "tensor": 2}, "tokens",
+                              {"attn_impl": "ulysses"}, 2, 0, (), "none"),
+}
+#: phase tensor: each run's grad norms against the one-device run's,
+#: relative; a replicated leaf's gradient summed over the tensor group
+#: (t times too large) moves them past it
+GRAD_NORM_RTOL = 1e-2
+#: ``python -c TENSOR_RANK <rank> <world> <port> <out.json> <spec.json>``:
+#: one rank of a gang on the one card, joined over gloo at
+#: 127.0.0.1:<port>, training each run of the spec: its losses, step ms,
+#: per-step launches, peak memory, resident state (``state_gb``: the
+#: working copy, the blocks that are not part of it and the AdamW moments,
+#: each storage once), the collectives a step by name and group, the
+#: audits; after a run with a sharded save, the checkpoint's files, a
+#: fresh trainer's bitwise restore and its losses on from the save.
+TENSOR_RANK = """
+import dataclasses, datetime, gc, json, os, sys
+import numpy as np
+import torch, torch.distributed as dist
+rank, world, port = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+out, spec = sys.argv[4], sys.argv[5]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=world,
+                        timeout=datetime.timedelta(seconds=600))
+from determined_tpu_torch import core
+from determined_tpu_torch.core._distributed import DistributedContext
+from determined_tpu_torch.models import gpt
+from determined_tpu_torch.ops import _build
+from determined_tpu_torch.parallel import MeshConfig, make_mesh
+from determined_tpu_torch.parallel.ring import Ring
+from determined_tpu_torch.trainer import Batch, Trainer
+from determined_tpu_torch.trainer import _checkpoint as ckpt_io
+from determined_tpu_torch.trainer.profile import (RUNGS, RepeatedBatchTrial,
+                                                  packed_batch)
+with open(spec) as f:
+    spec = json.load(f)
+tree = ckpt_io.nest(dict(np.load(spec["params"])))
+dctx = DistributedContext(rank=rank, size=world)
+calls, nbytes, in_step, labels = {}, {}, [False], {}
+def counting(name, real):
+    def call(*args, **kw):
+        if in_step[0]:
+            t = args[1] if name in ("reduce_scatter_tensor",
+                                    "all_to_all_single") else args[0]
+            key = f"{name} {labels.get(id(kw.get('group')), 'gang')}"
+            calls[key] = calls.get(key, 0) + 1
+            nbytes[key] = nbytes.get(key, 0) + t.numel() * t.element_size()
+        return real(*args, **kw)
+    return call
+for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "broadcast", "all_to_all_single"):
+    setattr(dist, name, counting(name, getattr(dist, name)))
+class Trial(RepeatedBatchTrial):
+    def build_model(self, device, mesh=None):
+        return gpt.load_jax_params(super().build_model(device, mesh), tree)
+def shards(trainer):
+    return [leaf.local.detach().cpu().clone() for _, leaf in
+            ckpt_io._flatten_with_path(trainer._state_view())
+            if isinstance(leaf, ckpt_io.Shard)]
+results = []
+for run in spec["runs"]:
+    name, sizes, data, fields, steps, save_at = (run[k] for k in (
+        "name", "mesh", "data", "fields", "steps", "save_at"))
+    mesh = make_mesh(MeshConfig(data=1, **sizes))
+    labels.clear()
+    labels.update({id(mesh.get_group(a)): a for a in ("fsdp", "context",
+                                                      "tensor")})
+    cfg = dataclasses.replace(RUNGS["headline"][1], **fields)
+    def make_trial(cfg=cfg, data=data):
+        trial = Trial(8, 1024, config=cfg)
+        if data == "packed":
+            batch = packed_batch(8, 1024, 3, cfg.vocab_size)
+            def repeated(batch=batch):
+                while True:
+                    yield batch
+            trial.build_training_data = repeated
+            trial.replicated_batch_keys = frozenset()
+        return trial
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = core._dummy_init(distributed=dctx,
+                           checkpoint_storage=spec["ckpt"])
+    trainer = Trainer(make_trial(), ctx, mesh=mesh,
+                      health={"divergence_check_period": 1} if save_at
+                      else None)
+    labels[id(trainer._layout.replica_group)] = "replica"
+    per_step, seen, audits, saved = [], [], [], {}
+    calls.clear(); nbytes.clear()
+    shifts0 = dict(Ring.stats)
+    step_fn, flush, audit, save = (trainer._train_step, trainer._flush,
+                                   trainer._divergence_audit,
+                                   trainer._save_checkpoint)
+    def counted(batch, poison=1.0):
+        before = {n: k.launches for n, k in _build.KERNELS.items()}
+        in_step[0] = True
+        try:
+            result = step_fn(batch, poison)
+        finally:
+            in_step[0] = False
+        per_step.append({n: k.launches - before[n]
+                         for n, k in _build.KERNELS.items()})
+        return result
+    def recording(pending, t_start, flush=flush, seen=seen):
+        agg, reason = flush(pending, t_start)
+        seen.append(agg)
+        return agg, reason
+    def audited():
+        audits.append(trainer.steps_completed)
+        audit()
+    def recording_save(**kw):
+        if trainer._step == save_at:
+            saved["blocks"] = shards(trainer)
+        return save(**kw)
+    trainer._train_step, trainer._flush = counted, recording
+    trainer._divergence_audit, trainer._save_checkpoint = audited, recording_save
+    trainer.fit(max_length=Batch(steps), report_period=Batch(1),
+                checkpoint_period=Batch(save_at) if save_at else None)
+    torch.cuda.synchronize()
+    working = list(trainer.model.parameters())
+    split = [t for t in trainer._params
+             if all(t.data_ptr() != w.data_ptr() for w in working)]
+    split += [t for s in trainer._opt_state[1][0][1:] for t in s]
+    gb = lambda ts: sum(t.numel() * t.element_size() for t in ts) / 1e9
+    res = dict(
+        name=name, rank=rank, coordinate=[int(x) for x in
+                                          mesh.get_coordinate()],
+        losses=[m["loss"] for m in seen],
+        grad_norms=[m["grad_norm"] for m in seen],
+        step_ms=[1e3 / m["batches_per_second"] for m in seen],
+        per_step=per_step, audits=audits,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        state_gb=gb(working) + gb(split),
+        wqkv_shape=list(trainer.model.blocks["wqkv"].shape),
+        rotations_per_step=(Ring.stats["shifts"] - shifts0["shifts"]) / steps,
+        collectives_per_step={k: v / steps for k, v in calls.items()},
+        collective_mb_per_step={k: round(v / steps / 1e6, 3)
+                                for k, v in nbytes.items()})
+    del trainer, working, split
+    gc.collect()
+    torch.cuda.empty_cache()
+    if save_at:
+        ids = {}
+        for uuid_ in os.listdir(spec["ckpt"]):
+            with open(os.path.join(spec["ckpt"], uuid_, "metadata.json")) as f:
+                ids[json.load(f)["steps_completed"]] = uuid_
+        res["files"] = sorted(os.listdir(os.path.join(spec["ckpt"],
+                                                      ids[save_at])))
+        resumed = Trainer(make_trial(), core._dummy_init(
+            distributed=dctx, checkpoint_storage=spec["ckpt"]), mesh=mesh)
+        seen = []
+        resumed._flush = lambda p, t, flush=resumed._flush, seen=seen: (
+            recording(p, t, flush, seen))
+        resumed.fit(max_length=Batch(save_at), report_period=Batch(1),
+                    latest_checkpoint=ids[save_at])
+        got = shards(resumed)
+        res["resume_bitwise"] = len(got) == len(saved["blocks"]) and all(
+            torch.equal(a, b) for a, b in zip(got, saved["blocks"]))
+        resumed.fit(max_length=Batch(steps), report_period=Batch(1))
+        res["resumed_losses"] = [m["loss"] for m in seen]
+        del resumed, got, saved
+        gc.collect()
+        torch.cuda.empty_cache()
+    results.append(res)
 with open(out, "w") as f:
     json.dump(results, f)
 dctx.close()
@@ -1047,7 +1255,7 @@ class Smoke:
 
     # -- phase 3: flash forward ------------------------------------------------
     def flash_case(self, name, dtype, *, b, s_q, s_k, kv_offset=0,
-                   window=None, segs=None, seed=0, block=512):
+                   window=None, segs=None, seed=0, block=512, h=12):
         """flash_fwd against its plain version and SDPA. `segs`: None,
         "packed" (seeded documents), "decode" (the gather-decode layout),
         "spec" (the speculative gather verify's), an int32 [b, s_k] array
@@ -1058,7 +1266,7 @@ class Smoke:
 
         from determined_tpu_torch.ops import flash_attention as tfa
 
-        h, d = 12, 64
+        d = 64
         gen = torch.Generator(device=self.dev).manual_seed(seed)
         rng = np.random.default_rng(seed)
         q = self.randn((b, s_q, h, d), dtype, gen)
@@ -1224,13 +1432,13 @@ class Smoke:
 
     # -- phase 3: the mono pair (training attention) ----------------------------
     def mono_case(self, name, dtype, *, b, s, causal, dlse, seed=0,
-                  timed=False):
+                  timed=False, h=12):
         import torch
         import torch.nn.functional as F
 
         from determined_tpu_torch.ops import flash_attention as tfa
 
-        h, d = 12, 64
+        d = 64
         gen = torch.Generator(device=self.dev).manual_seed(seed)
         qkv = self.randn((b, s, 3, h, d), dtype, gen)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # as GPT passes them
@@ -1383,7 +1591,7 @@ class Smoke:
 
     # -- phase 3: the blocked backward kernels ----------------------------------
     def blocked_inputs(self, dtype, *, b, s_q, s_k, kv_offset=0, window=None,
-                       segs=False, dlse=False, seed=0):
+                       segs=False, dlse=False, seed=0, h=12):
         """q/k/v as strided views of one [B, S, 3, H, D] tensor (as GPT
         passes them), do, lse/delta from the plain forward, an optional lse
         cotangent and segment ids (`segs`: True for seeded documents of
@@ -1394,7 +1602,7 @@ class Smoke:
 
         from determined_tpu_torch.ops import flash_attention as tfa
 
-        h, d = 12, 64
+        d = 64
         gen = torch.Generator(device=self.dev).manual_seed(seed)
         qkv = self.randn((b, s_k, 3, h, d), dtype, gen)
         q = qkv[:, s_k - s_q:, 0]
@@ -1505,7 +1713,10 @@ class Smoke:
         s_k = k.shape[1]
         rows = torch.arange(s_q, device=self.dev)[:, None] + kw["kv_offset"]
         cols = torch.arange(s_k, device=self.dev)[None, :]
-        mask = (rows >= cols)[None].expand(b, s_q, s_k)
+        mask = rows >= cols
+        if kw["window"] is not None:
+            mask = mask & (rows - cols < kw["window"])
+        mask = mask[None].expand(b, s_q, s_k)
         if kw.get("segment_ids") is not None:
             mask = mask & (kw["segment_ids"][:, :, None]
                            == kw["kv_segment_ids"][:, None, :])
@@ -2026,6 +2237,7 @@ class Smoke:
         rec = self.train_record(reports, launches, peak_gb, cfg, b, s, warm=2)
         self.train_step_ms = rec["step_ms_median"]  # phase exec's yardstick
         self.train_losses, self.train_peak_gb = losses, peak_gb  # phase mesh
+        self.train_grad_norms = [m["grad_norm"] for m in reports]
         self.report("train", "gpt2-small bf16 remat=False", rec)
         return launches
 
@@ -3614,6 +3826,7 @@ class Smoke:
             split += [t for s in one._opt_state[1][0][1:] for t in s]
             gb = lambda ts: sum(t.numel() * t.element_size() for t in ts) / 1e9
             state_gb, split_gb = gb(working) + gb(split), gb(split)
+            self.mesh_state_gb = state_gb  # phase tensor's yardstick
             del one, working, split
             # the sharded save at step 4, resumed by a fresh trainer
             ids = {}
@@ -3817,6 +4030,10 @@ class Smoke:
                 trial.build_training_data = repeated
             reports, _, one, peak_gb, cfg = self.fit_counted(trial, steps)
             refs[name] = [m["loss"] for m in reports]
+            if name == "packed-window-ring":  # phase tensor's yardstick too
+                self.packed_window_losses = refs[name]
+                self.packed_window_grad_norms = [m["grad_norm"]
+                                                 for m in reports]
             self.report("context", f"gpt2-small bf16 {name} one device",
                         self.train_record(reports, one, peak_gb, cfg, b, seq,
                                           warm=1))
@@ -3912,6 +4129,159 @@ class Smoke:
         shutil.rmtree(tmp, ignore_errors=True)
         self.report("context", "phase", dict(gang_seconds=gang_s,
                                              seconds=time.perf_counter() - t0))
+        return launches
+
+    def tensor_phase(self):
+        """Training over the tensor axis: gangs on the one card over gloo
+        (``TENSOR_RANK``), each run of ``TENSOR_RUNS`` held against the
+        one-device run of the same trial (phase train; the packed window
+        run of phase context): every loss within 1e-3 relative, every rank
+        alike; per step and rank, the flash launches of its H/tensor = 6
+        heads and nothing else; the resident state of a rank below one
+        device's (phase mesh's one rank); the tensor=2 run's sharded save
+        in the reference's names, restored bit for bit by a fresh trainer
+        that goes on with the uninterrupted run's losses, the audit every
+        step finding nothing. → launches."""
+        import json
+        import shutil
+        import socket
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch.trainer.profile import RepeatedBatchTrial
+
+        def close(losses, want, what, rtol=1e-3):
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+            assert 0 < len(losses) <= len(want) and max(rel) < rtol, (
+                what, losses, want)
+            return max(rel)
+
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="dtpu-tensor-")
+        # the headline trial's seeded weights, whole, for load_jax_params
+        model = RepeatedBatchTrial(8, 1024).build_model(self.dev)
+        params = os.path.join(tmp, "params.npz")
+        np.savez(params, **{n: p.detach().cpu().numpy()
+                            for n, p in model.named_parameters()})
+        del model
+        torch.cuda.empty_cache()
+        refs = {"headline-t2": self.train_losses,
+                "packed-window-t2": self.packed_window_losses,
+                "headline-c2t2-ring": self.train_losses,
+                "headline-c2t2-ulysses": self.train_losses}
+        # the grad norms too: AdamW all but hides a gradient's scale from
+        # the losses, and a replicated leaf's gradient summed over the
+        # tensor group comes out tensor times too large
+        norm_refs = {"headline-t2": self.train_grad_norms,
+                     "packed-window-t2": self.packed_window_grad_norms,
+                     "headline-c2t2-ring": self.train_grad_norms,
+                     "headline-c2t2-ulysses": self.train_grad_norms}
+        results, seconds = {}, {}
+        for world in (2, 4):
+            runs = [dict(name=name, mesh=r[1], data=r[2], fields=r[3],
+                         steps=r[4], save_at=r[5])
+                    for name, r in TENSOR_RUNS.items() if r[0] == world]
+            spec = os.path.join(tmp, f"runs{world}.json")
+            with open(spec, "w") as f:
+                json.dump(dict(params=params, runs=runs,
+                               ckpt=os.path.join(tmp, f"ckpt{world}")), f)
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            outs = [os.path.join(tmp, f"w{world}-rank{r}.json")
+                    for r in range(world)]
+            logs = [tempfile.TemporaryFile() for _ in range(world)]
+            t1 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", TENSOR_RANK, str(r), str(world),
+                 str(port), outs[r], spec], stdout=logs[r],
+                stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+                for r in range(world)]
+            try:
+                codes = [p.wait(timeout=600) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for r, code in enumerate(codes):
+                logs[r].seek(0)
+                assert code == 0, (world, r, logs[r].read().decode()[-4000:])
+                logs[r].close()
+            for out in outs:
+                with open(out) as f:
+                    for x in json.load(f):
+                        results.setdefault(x["name"], []).append(x)
+            seconds[world] = time.perf_counter() - t1
+        n = 12  # GPT-2-small's layers
+        launches = {}
+        for name, (world, sizes, data, fields, steps, save_at, kernels,
+                   calls) in TENSOR_RUNS.items():
+            ranks = results[name]
+            assert len(ranks) == world, (name, len(ranks))
+            rec = dict(backend="gloo", ranks=world, **sizes, steps=steps,
+                       batch=8, seq=1024, heads_per_rank=6)
+            for x in ranks:
+                r = x["rank"]
+                assert x["losses"] == ranks[0]["losses"], (name, x)
+                assert x["grad_norms"] == ranks[0]["grad_norms"], (name, x)
+                assert x["wqkv_shape"] == [12, 768, 3, 6, 64], x
+                context_index = x["coordinate"][4]
+                per_layer = {"one": 1, "ring": context_index + 1,
+                             "none": 0}[calls]
+                want = {k: n * per_layer for k in kernels} if per_layer else {}
+                for i, step in enumerate(x["per_step"]):
+                    got = {k: v for k, v in step.items() if v}
+                    assert got == want, (name, r, i, step, want)
+                    for k, v in step.items():
+                        launches[k] = launches.get(k, 0) + v
+                assert x["state_gb"] < self.mesh_state_gb, (
+                    name, r, x["state_gb"], self.mesh_state_gb)
+                rec[f"rank{r}_step_ms_median"] = float(
+                    np.median(x["step_ms"][1:]))
+                rec[f"rank{r}_peak_gb"] = x["peak_gb"]
+                rec[f"rank{r}_state_gb"] = x["state_gb"]
+                rec[f"rank{r}_launches_per_step"] = want
+                if save_at:
+                    assert x["audits"] == list(range(1, steps + 1)), x
+                    assert x["resume_bitwise"], (name, r)
+                    close(x["resumed_losses"], x["losses"][save_at:],
+                          f"{name} rank {r} resumed")
+                    assert x["resumed_losses"] == (
+                        x["losses"][save_at:]), (name, r)
+            x = ranks[0]
+            rec.update(
+                loss_first=x["losses"][0], loss_last=x["losses"][-1],
+                max_rel_loss_vs_one_device=close(
+                    x["losses"], refs[name], f"{name} vs one device"),
+                max_rel_grad_norm_vs_one_device=close(
+                    x["grad_norms"], norm_refs[name],
+                    f"{name} grad norm vs one device", GRAD_NORM_RTOL),
+                one_device_state_gb=self.mesh_state_gb,
+                rotations_per_step=x["rotations_per_step"],
+                collectives_per_step=x["collectives_per_step"],
+                collective_mb_per_step=x["collective_mb_per_step"])
+            if save_at:
+                files = x["files"]
+                assert files.count("manifest.json") == 1, files
+                for f in ("params__blocks__wqkv.shard0_0_0_0_0.npy",
+                          "params__blocks__wqkv.shard0_0_0_6_0.npy",
+                          "params__tok_embed.shard0_0.npy",
+                          "params__tok_embed.shard25152_0.npy",
+                          "params__blocks__wi.shard0_0_1536.npy",
+                          "params__pos_embed.npy", "params__blocks__bo.npy"):
+                    assert f in files, (f, files)
+                rec.update(ckpt_files=len(files), resume_bitwise=True,
+                           resumed_loss=x["resumed_losses"][0],
+                           audits=len(x["audits"]))
+            self.report("tensor", f"gpt2-small bf16 {name}", rec)
+        shutil.rmtree(tmp, ignore_errors=True)
+        self.report("tensor", "phase", dict(
+            gang2_seconds=seconds[2], gang4_seconds=seconds[4],
+            seconds=time.perf_counter() - t0))
         return launches
 
     def train_parity_phase(self, route="mono"):
@@ -4101,6 +4471,19 @@ def main() -> int:
         smoke.mono_case(f"ring-hop-{'diag' if causal else 'full'}", bf16,
                         b=8, s=512, causal=causal, dlse=True, seed=9,
                         timed=True)
+    # the shapes phase tensor gives the kernels: 6 heads a rank at
+    # tensor=2 (the headline mono pair; the packed window's flash_fwd and
+    # fused blocked backward) and the ring's hops at context=2 x tensor=2
+    smoke.mono_case("train-h6", bf16, b=8, s=1024, causal=True, dlse=False,
+                    seed=3, timed=True, h=6)
+    smoke.flash_case("packed-window256-h6", bf16, b=8, s_q=1024, s_k=1024,
+                     window=256, segs=packed_ids, block=1024, h=6)
+    smoke.blocked_case("packed-window256-h6", bf16, timed=True, b=8,
+                       s_q=1024, s_k=1024, window=256, segs=packed_ids, h=6)
+    for causal in (True, False):
+        smoke.mono_case(f"ring-hop-{'diag' if causal else 'full'}-h6", bf16,
+                        b=8, s=512, causal=causal, dlse=True, seed=9,
+                        timed=True, h=6)
 
     # -- phases 4 to 10: the main paths ----------------------------------------------
     launches = smoke.engine_phase()
@@ -4116,14 +4499,14 @@ def main() -> int:
                      if n in ("flash_bwd_dq", "flash_bwd_dkv")})
     smoke.train_packed_phase()
 
-    # -- phases 11 to 19: checkpoints, the fixture, the rest of serving, the
+    # -- phases 11 to 20: checkpoints, the fixture, the rest of serving, the
     # -- rest of the training loop, the exec layer off and on the cluster, the
-    # -- mesh and the context axis -------------------------------------------------
+    # -- mesh, the context axis and the tensor axis ---------------------------------
     for phase in (smoke.checkpoint_phase, smoke.fixture_phase,
                   smoke.serving_http_phase, smoke.serving_parity_phase,
                   smoke.train_health_phase, smoke.exec_phase,
                   smoke.cluster_phase, smoke.mesh_phase,
-                  smoke.context_phase):
+                  smoke.context_phase, smoke.tensor_phase):
         for name, count in phase().items():
             launches[name] += count
 

@@ -9,7 +9,8 @@ warmup + cosine schedule when ``warmup_steps`` is set. Entrypoint:
 ``determined_tpu_torch.examples.gpt2_trial:GPT2PretrainTrial``.
 
 The global batch is ``microbatch`` × the mesh's batch-sharding degree
-(data × fsdp; 1 without a mesh) when ``microbatch`` is set, else
+(data × fsdp, as the reference's trial: the ranks of a tensor group take
+the same rows; 1 without a mesh) when ``microbatch`` is set, else
 ``batch_size``. ``sequence_layout="zigzag"`` (ring attention over a
 sharded context axis) asks the loader for ``zigzag_ring`` = the mesh's
 context size: pre-shifted batches in zigzag order.

@@ -34,9 +34,8 @@ master before the exit (``_report_divergence``: ``POST
 /api/v1/trials/<id>/status`` with ``{"event": "divergence", "detail":
 ...}``).
 
-Refused by name: a mesh with tensor, context, pipeline or expert above 1
-(ROADMAP queue 1, item 4, parts 2–3) and checkpoint storage other than
-``shared_fs``. Not ported: the elastic resize loop (item 5).
+Refused by name: a mesh with pipeline or expert above 1 (ROADMAP queue
+1, item 4, part 3) and checkpoint storage other than ``shared_fs``. Not ported: the elastic resize loop (item 5).
 
 Launch: ``DTPU_ENTRYPOINT=pkg.module:Trial DTPU_TRIAL_ID=1 ...
 python -m determined_tpu_torch.exec.harness``; under the reference's
@@ -74,8 +73,8 @@ def import_entrypoint(entrypoint: str) -> Any:
 def resolve_mesh(hparams: Dict[str, Any], cfg: Dict[str, Any],
                  device: Optional[str] = None) -> Any:
     """The mesh from hparams or config (hparams first, so a searcher can
-    sweep layouts) over the gang ``core.init()`` joined: None without
-    one."""
+    sweep layouts) over the gang ``core.init()`` joined, on any of the
+    data, fsdp, context and tensor axes: None without one."""
     mesh_cfg = hparams.get("mesh") or cfg.get("mesh")
     if not mesh_cfg:
         return None

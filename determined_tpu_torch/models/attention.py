@@ -18,8 +18,11 @@ rows and sequence chunk) and ``impl`` picks the path.
   call a hop; ``layout="zigzag"`` (the sequence already in zigzag order,
   as the zigzag loader emits it) needs it.
 - ``"ulysses"``: ``parallel/ulysses.py``, dense local attention over
-  H/context heads; no window, no segments, heads divisible by the
-  context axis.
+  H/(tensor · context) heads; no window, no segments, the rank's heads
+  divisible by the context axis.
+
+On a tensor axis above 1 every path runs on the rank's H/tensor heads
+(the reference's ``shard_map`` over heads split by ``tensor``).
 """
 from __future__ import annotations
 
@@ -81,7 +84,8 @@ def attention(
 ) -> torch.Tensor:
     """Multi-head attention over [B, S, H, D] tensors (see the module
     docstring for ``impl``). mesh: the DeviceMesh the tensors are this
-    rank's block of (rows over data × fsdp, sequence over context).
+    rank's block of (rows over data × fsdp, sequence over context, heads
+    over tensor).
     block_q/block_k: flash tile sizes, fitted down to divisors of the
     sequence. segment_ids: [B, S] int ids for packed sequences; attention
     only within equal ids."""
@@ -131,10 +135,13 @@ def attention(
             )
         if mesh is None:
             raise ValueError("ulysses attention needs a mesh")
+        tp = int(mesh.shape[mesh.mesh_dim_names.index("tensor")])
         if q.shape[2] % context:
+            # the reference's message, over the whole heads
             raise ValueError(
-                f"ulysses needs heads ({q.shape[2]}) divisible by the "
-                f"context axis ({context})"
+                f"ulysses needs heads ({q.shape[2] * tp}) divisible by "
+                f"tensor ({tp}) and heads/tensor ({q.shape[2]}) divisible "
+                f"by the context axis ({context})"
             )
         from determined_tpu_torch.parallel.ulysses import ulysses_attention
 

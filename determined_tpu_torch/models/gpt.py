@@ -36,13 +36,11 @@ style and change nothing here: the port always runs a Python loop over
 the layers. ``fused_loss=True`` computes the loss through the chunked
 cross-entropy (``ops/fused_cross_entropy.py``), which never materializes
 the ``[B, S, V]`` logits. Mixture of experts and pipeline stages belong
-to a later part of the multi-device item and are refused by name, as is
-a mesh with tensor above 1.
+to a later part of the multi-device item and are refused by name.
 
 Under a device mesh (``GPT(..., mesh=)``, the Trainer's ``data × fsdp ×
-context`` layout) the module computes on each rank's local rows and, on
-a context axis above 1, its chunk of the sequence, with whole
-parameters: attention goes through ``models.attention`` with the mesh
+context × tensor`` layout) the module computes on each rank's local rows
+and, on a context axis above 1, its chunk of the sequence: attention goes through ``models.attention`` with the mesh
 (``"auto"``: ring attention on the context group; ``attn_impl="ulysses"``
 the all-to-all), and a rank's learned position ids are its global ones
 (contiguous: ``context_index · S_local + arange(S_local)``; zigzag, where
@@ -50,6 +48,21 @@ the zigzag loader's batches arrive pre-shifted in zigzag order: its
 columns of the replicated ``positions`` map). ``logical_axes()`` names
 the parameters' dimensions for the sharding rules, in the reference's
 structure and names.
+
+On a tensor axis above 1 (``tensor=t``) the module holds this rank's
+slice of each parameter whose dimensions the reference splits over
+``tensor`` ("heads", "mlp", "vocab"; ``tensor_dims``): ``wqkv`` [L, d, 3,
+H/t, Dh], ``bqkv``, ``wo`` [L, H/t, Dh, d], ``wi`` [L, d, F/t], ``bi``,
+``wo_mlp`` [L, F/t, d], ``tok_embed`` [V/t, d] (and ``head`` [d, V/t]),
+each cut from one global init from the seed; the others are whole. The
+trunk runs Megatron's splits (``parallel/tensor.py``): the inputs of
+``wqkv``, ``wi`` and the head go through *f*, the outputs of ``wo`` and
+``wo_mlp`` through *g* before their replicated biases; the embedding is
+the vocab-parallel lookup; attention runs on the rank's H/t heads; the
+logits are the rank's [B, S, V/t] columns, and the loss is the
+vocab-parallel cross-entropy (``fused_loss`` takes that dense path, as
+the reference turns its chunked loss off on a tensor mesh). The serving
+methods are refused on such a mesh: the reference serves on none.
 
 The methods drop the reference's leading ``params`` argument: the module
 owns its parameters.
@@ -78,6 +91,12 @@ from determined_tpu_torch.ops.flash_attention import (
 )
 from determined_tpu_torch.ops.fused_cross_entropy import fused_next_token_sums
 from determined_tpu_torch.ops.paged_attention import paged_attention
+from determined_tpu_torch.parallel.tensor import (
+    copy_to_tensor,
+    reduce_from_tensor,
+    vocab_parallel_embedding,
+    vocab_parallel_token_sums,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,12 +226,6 @@ def _aligned_token_sums(logits: torch.Tensor, targets: torch.Tensor,
     return nll_sum, z_sum, acc_sum, mask.sum()
 
 
-def _next_token_sums(logits: torch.Tensor, tokens: torch.Tensor,
-                     mask: torch.Tensor):
-    """Classic in-model shift: position i predicts token i+1."""
-    return _aligned_token_sums(logits[:, :-1], tokens[:, 1:], mask[:, 1:])
-
-
 class GPT(Model):
     """Decoder-only LM over [B, S] int tokens. Parameters are created on
     ``device`` (CUDA unless the caller passes ``device="cpu"``) from a
@@ -238,14 +251,33 @@ class GPT(Model):
         #: the context axis's degree: above 1 each rank holds one chunk
         #: of the sequence
         self._context = 1
+        #: the tensor axis's degree, this rank's index on it and its group
+        #: (None: one rank); the first vocabulary row of this rank's slice
+        self._tensor, self._tensor_index, self._tgroup = 1, 0, None
         if mesh is not None:
             from determined_tpu_torch.parallel.mesh import (
                 context_size,
                 refuse_later_axes,
+                tensor_index,
+                tensor_size,
             )
+            from determined_tpu_torch.parallel.tensor import tensor_group
 
             refuse_later_axes(mesh, "a GPT mesh")
             self._context = context_size(mesh)
+            self._tensor = tensor_size(mesh)
+            self._tensor_index = tensor_index(mesh)
+            self._tgroup = tensor_group(mesh)
+        t = self._tensor
+        for what, n in (("n_heads", c.n_heads), ("d_ff", c.d_ff),
+                        ("vocab_size", c.vocab_size)):
+            if n % t:
+                raise ValueError(
+                    f"GPT {what}={n} is not divisible by the tensor axis "
+                    f"({t}): each rank of the tensor group holds {what}/"
+                    "tensor of the split parameters")
+        self._heads = c.n_heads // t
+        self._vocab_start = self._tensor_index * (c.vocab_size // t)
         if c.sequence_layout not in ("contiguous", "zigzag"):
             raise ValueError(f"unknown sequence_layout {c.sequence_layout!r}")
         if c.sequence_layout == "zigzag" and self._context == 1:
@@ -257,39 +289,61 @@ class GPT(Model):
         #: device); the forward computes on this rank's rows either way.
         self.mesh = mesh
         self.config = c
+        #: {parameter name: the dimension this rank holds a tensor slice
+        #: of}: the one that ``logical_axes()`` names "heads", "mlp" or
+        #: "vocab", the names the rules map to ``tensor``
+        self._tensor_dims: Dict[str, int] = {}
+        if t > 1:
+            from determined_tpu_torch.parallel.sharding import (
+                DEFAULT_RULES,
+                flatten_axes,
+            )
+
+            for name, axes in flatten_axes(self.logical_axes()).items():
+                for dim, logical in enumerate(axes):
+                    if DEFAULT_RULES.lookup(logical) == "tensor":
+                        self._tensor_dims[name] = dim
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         pd = c.param_dtype
         d, f, h, hd, n_l = c.d_model, c.d_ff, c.n_heads, c.head_dim, c.n_layers
         res_std = 0.02 / (2 * n_l) ** 0.5
 
-        def normal(shape, std):
+        def keep(name, t):
+            """The global init `t` of `name`, or this rank's slice of it."""
+            part = self._tensor_slice(name, t)
+            return nn.Parameter(t if part is t else part.clone())
+
+        def normal(name, shape, std):
             t = torch.empty(shape, dtype=pd, device=dev)
-            return nn.Parameter(t.normal_(0.0, std, generator=gen))
+            return keep(name, t.normal_(0.0, std, generator=gen))
 
-        def full(shape, value):
-            return nn.Parameter(torch.full(shape, value, dtype=pd, device=dev))
+        def full(name, shape, value):
+            return keep(name, torch.full(shape, value, dtype=pd, device=dev))
 
-        self.tok_embed = normal((c.vocab_size, d), 0.02)
-        self.pos_embed = normal((c.seq_len, d), 0.02)
+        self.tok_embed = normal("tok_embed", (c.vocab_size, d), 0.02)
+        self.pos_embed = normal("pos_embed", (c.seq_len, d), 0.02)
+        blocks = {
+            "ln1_scale": (full, (n_l, d), 1.0),
+            "ln1_bias": (full, (n_l, d), 0.0),
+            "wqkv": (normal, (n_l, d, 3, h, hd), 0.02),
+            "bqkv": (full, (n_l, 3, h, hd), 0.0),
+            "wo": (normal, (n_l, h, hd, d), res_std),
+            "bo": (full, (n_l, d), 0.0),
+            "ln2_scale": (full, (n_l, d), 1.0),
+            "ln2_bias": (full, (n_l, d), 0.0),
+            "wi": (normal, (n_l, d, f), 0.02),
+            "bi": (full, (n_l, f), 0.0),
+            "wo_mlp": (normal, (n_l, f, d), res_std),
+            "bo_mlp": (full, (n_l, d), 0.0),
+        }
         self.blocks = nn.ParameterDict({
-            "ln1_scale": full((n_l, d), 1.0),
-            "ln1_bias": full((n_l, d), 0.0),
-            "wqkv": normal((n_l, d, 3, h, hd), 0.02),
-            "bqkv": full((n_l, 3, h, hd), 0.0),
-            "wo": normal((n_l, h, hd, d), res_std),
-            "bo": full((n_l, d), 0.0),
-            "ln2_scale": full((n_l, d), 1.0),
-            "ln2_bias": full((n_l, d), 0.0),
-            "wi": normal((n_l, d, f), 0.02),
-            "bi": full((n_l, f), 0.0),
-            "wo_mlp": normal((n_l, f, d), res_std),
-            "bo_mlp": full((n_l, d), 0.0),
-        })
-        self.lnf_scale = full((d,), 1.0)
-        self.lnf_bias = full((d,), 0.0)
+            name: make(f"blocks.{name}", shape, arg)
+            for name, (make, shape, arg) in blocks.items()})
+        self.lnf_scale = full("lnf_scale", (d,), 1.0)
+        self.lnf_bias = full("lnf_bias", (d,), 0.0)
         if not c.tie_embeddings:
-            self.head = normal((d, c.vocab_size), 0.02)
+            self.head = normal("head", (d, c.vocab_size), 0.02)
         #: the optional serving copy: compute-dtype casts made once
         #: (cache_compute_weights), keyed by parameter name.
         self._compute: Dict[str, torch.Tensor] = {}
@@ -298,6 +352,28 @@ class GPT(Model):
         """The config's fwd+bwd FLOPs per token (the trainer's
         ``step_flops``)."""
         return self.config.train_flops_per_token()
+
+    def tensor_dims(self) -> Dict[str, int]:
+        """{parameter name: the dimension this module holds a tensor
+        slice of}; empty unless the tensor axis is above 1."""
+        return dict(self._tensor_dims)
+
+    def _tensor_slice(self, name: str, x: Any) -> Any:
+        """This rank's slice of the whole parameter `name` (a tensor or a
+        numpy array); the array itself when `name` is not split."""
+        dim = self._tensor_dims.get(name)
+        if dim is None:
+            return x
+        n = x.shape[dim] // self._tensor
+        lo = self._tensor_index * n
+        return x[(slice(None),) * dim + (slice(lo, lo + n),)]
+
+    def _refuse_tensor(self, what: str) -> None:
+        if self._tensor > 1:
+            raise NotImplementedError(
+                f"GPT.{what} on a mesh with tensor={self._tensor}: the "
+                "reference serves on no mesh; serve from a GPT built "
+                "without one")
 
     def logical_axes(self) -> Dict[str, Any]:
         """The reference's ``GPT.logical_axes()``: each parameter's
@@ -382,28 +458,32 @@ class GPT(Model):
         """ln1 + fused QKV projection → q, k, v [B, S, H, Dh] (views of
         one [B, S, 3, H, Dh] tensor)."""
         c = self.config
-        h = _layernorm(x, w["ln1_scale"], w["ln1_bias"])
+        h = copy_to_tensor(_layernorm(x, w["ln1_scale"], w["ln1_bias"]),
+                           self._tgroup)
         qkv = (
             torch.matmul(h, w["wqkv"].reshape(c.d_model, -1))
             + w["bqkv"].reshape(-1)
-        ).view(*x.shape[:-1], 3, c.n_heads, c.head_dim)
+        ).view(*x.shape[:-1], 3, self._heads, c.head_dim)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
     def _out_proj(self, o: torch.Tensor, w: Dict[str, torch.Tensor]):
-        """einsum("bshk,hkd->bsd", o, wo) + bo."""
+        """einsum("bshk,hkd->bsd", o, wo) + bo (the rank's heads' share,
+        summed over the tensor group before the bias)."""
         c = self.config
-        return torch.matmul(
-            o.reshape(*o.shape[:2], c.n_heads * c.head_dim),
-            w["wo"].reshape(c.n_heads * c.head_dim, c.d_model),
-        ) + w["bo"]
+        return reduce_from_tensor(torch.matmul(
+            o.reshape(*o.shape[:2], self._heads * c.head_dim),
+            w["wo"].reshape(self._heads * c.head_dim, c.d_model),
+        ), self._tgroup) + w["bo"]
 
     def _mlp_half(self, x: torch.Tensor,
                   w: Dict[str, torch.Tensor]) -> torch.Tensor:
-        h = _layernorm(x, w["ln2_scale"], w["ln2_bias"])
+        h = copy_to_tensor(_layernorm(x, w["ln2_scale"], w["ln2_bias"]),
+                           self._tgroup)
         m = torch.matmul(h, w["wi"]) + w["bi"]
         # jax.nn.gelu defaults to the tanh approximation.
         m = F.gelu(m, approximate="tanh")
-        m = torch.matmul(m, w["wo_mlp"]) + w["bo_mlp"]
+        m = reduce_from_tensor(torch.matmul(m, w["wo_mlp"]),
+                               self._tgroup) + w["bo_mlp"]
         return x + m
 
     def _embed(self, tok: torch.Tensor, pos: torch.Tensor,
@@ -412,13 +492,16 @@ class GPT(Model):
         # F.embedding, not tok[ids]: its backward sums the rows of a
         # repeated id in a fixed order; indexing's (index_put_ with
         # accumulate) adds them by atomics in any order across CPU threads.
-        x = F.embedding(tokens.long(), tok)
+        x = vocab_parallel_embedding(tokens.long(), tok, self._vocab_start,
+                                     self._tgroup)
         if positions is not None:
             return x + F.embedding(positions.long(), pos)
         return x + pos[: tokens.shape[1]]
 
     def _head(self, x: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(_layernorm(x, self.lnf_scale, self.lnf_bias), w_out)
+        """Logits [..., V] (on a tensor axis this rank's V/t columns)."""
+        h = _layernorm(x, self.lnf_scale, self.lnf_bias)
+        return torch.matmul(copy_to_tensor(h, self._tgroup), w_out)
 
     def _serving_embed(self, tokens, positions=None):
         return self._embed(self._cw("tok_embed"), self._cw("pos_embed"),
@@ -438,6 +521,7 @@ class GPT(Model):
               segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B, S] int → logits [B, S, V] (compute dtype): the
         training forward without a graph, on the live parameters."""
+        self._refuse_tensor("apply")
         return self.forward(tokens.to(self.device), positions, segment_ids)
 
     @torch.no_grad()
@@ -457,6 +541,7 @@ class GPT(Model):
         → (logits [B, S, V] compute dtype, k [L, B, S, H, Dh],
         v [L, B, S, H, Dh] compute dtype).
         """
+        self._refuse_tensor("prefill_kv")
         c = self.config
         s = tokens.shape[1]
         x = self._serving_embed(tokens, positions)
@@ -511,6 +596,7 @@ class GPT(Model):
         ``kv_offset = S_max − 1`` with segment ids trimming the dead tail.
         ``q_pad`` pads the query rows (rows past 0 are dropped).
         """
+        self._refuse_tensor("decode_kv")
         c = self.config
         if kernel not in ("paged", "gather"):
             raise ValueError(
@@ -606,6 +692,7 @@ class GPT(Model):
         → (logits [B, S, V] compute dtype, k [L, B, S, H, Dh], v) — the
         K/V of the TAIL only.
         """
+        self._refuse_tensor("prefill_kv_cached")
         c = self.config
         s = tokens.shape[1]
         sp = prefix_k.shape[2]
@@ -668,6 +755,7 @@ class GPT(Model):
         Q fresh rows' K/V concatenated behind it at ``kv_offset = S_max``;
         dead query rows take segment 2, which no key carries.
         """
+        self._refuse_tensor("decode_kv_spec")
         c = self.config
         if kernel not in ("paged", "gather"):
             raise ValueError(
@@ -770,9 +858,10 @@ class GPT(Model):
             torch.utils.checkpoint.checkpoint, use_reentrant=False,
             context_fn=_remat_context,
         )
-        if self._context > 1:
-            # The recompute reissues the ring's rotations: it must run the
-            # whole region on every rank, whatever this rank's graph needs.
+        if self._context > 1 or self._tensor > 1:
+            # The recompute reissues the ring's rotations and the tensor
+            # all-reduces: it must run the whole region on every rank,
+            # whatever this rank's graph needs.
             checkpoint = _no_early_stop(checkpoint)
         for w in self._train_layers():
             if remat and remat_attention(c):
@@ -813,7 +902,8 @@ class GPT(Model):
                 positions: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The differentiable forward: tokens [B, S] int → logits
-        [B, S, V] in the compute dtype."""
+        [B, S, V] in the compute dtype (on a tensor axis this rank's
+        [B, S, V/t] columns)."""
         c = self.config
         x = self._forward_trunk(tokens, positions, segment_ids)
         w_out = (self.tok_embed.t() if c.tie_embeddings else self.head)
@@ -850,16 +940,21 @@ class GPT(Model):
                 (segment_ids[:, 1:] == segment_ids[:, :-1]).float(),
             ], dim=1)
             mask = mask * boundary * (segment_ids != 0)
-        if c.fused_loss:
+        if c.fused_loss and self._tensor == 1:
             # The reference also requires one pipeline stage and no
-            # experts; the constructor refuses both.
+            # experts (the constructor refuses both) and no tensor axis.
             return self._loss_fused(tokens, targets, positions, mask,
                                     segment_ids)
         logits = self.forward(tokens, positions, segment_ids).float()
-        if targets is not None:
-            sums = _aligned_token_sums(logits, targets, mask)
+        if targets is None:
+            # Classic in-model shift: position i predicts token i+1.
+            logits, targets, mask = logits[:, :-1], tokens[:, 1:], mask[:, 1:]
+        if self._tensor > 1:
+            sums = vocab_parallel_token_sums(
+                logits, targets, mask, self._vocab_start, c.vocab_size,
+                self._tgroup)
         else:
-            sums = _next_token_sums(logits, tokens, mask)
+            sums = _aligned_token_sums(logits, targets, mask)
         nll_sum, z_sum, acc_sum, n_tok = sums
         n = torch.clamp(n_tok, min=1.0)
         loss = nll_sum / n
@@ -912,9 +1007,14 @@ def load_jax_params(model: GPT, tree: Dict[str, Any], *,
                     serving_copy: bool = False) -> GPT:
     """Fill `model`'s parameters from the reference's parameter pytree
     (``models.base.load_params``: every key and shape checked before
-    anything is written). ``serving_copy`` then makes the compute-dtype
-    copy (``GPT.cache_compute_weights``); without it any earlier copy is
-    dropped, so the forward casts the new values per call."""
+    anything is written); on a tensor axis above 1 the tree is whole and
+    the model takes its rank's slices. ``serving_copy`` then makes the
+    compute-dtype copy (``GPT.cache_compute_weights``); without it any
+    earlier copy is dropped, so the forward casts the new values per
+    call."""
+    if model.tensor_dims():
+        tree = {name: model._tensor_slice(name, leaf)
+                for name, leaf in _flatten(tree)}
     load_params(model, tree)
     model._compute.clear()
     if serving_copy:

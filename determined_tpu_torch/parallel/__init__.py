@@ -8,9 +8,11 @@ Trainer shards parameters and optimizer state over ``fsdp``, splits
 batches' rows over ``("data", "fsdp")`` and their sequence over
 ``context`` (``trainer/_mesh.py``), where attention runs as ring
 attention (``ring.py``) or Ulysses (``ulysses.py``) on the context group.
+On a ``tensor`` axis the model holds Megatron's column and row slices,
+with the collectives of ``tensor.py``.
 
-Not ported yet, and refused by name: the tensor axis (ROADMAP queue 1,
-item 4, part 2) and the pipeline schedules and experts (item 4, part 3).
+Not ported yet, and refused by name: the pipeline schedules and experts
+(ROADMAP queue 1, item 4, part 3).
 """
 from determined_tpu_torch.parallel.mesh import (
     AXIS_NAMES,
@@ -46,7 +48,7 @@ def _later(name: str, part: str):
     def refused(*args, **kwargs):
         raise NotImplementedError(
             f"{name} comes with ROADMAP queue 1, item 4, {part}; the port "
-            "trains over data, fsdp and context"
+            "trains over data, fsdp, context and tensor"
         )
 
     refused.__name__ = name

@@ -14,11 +14,12 @@ one device per rank, the ranks laid out row-major over the six axes as
 the reference reshapes its device list. The mesh lives on CUDA unless the
 caller passes ``device="cpu"``.
 
-The port trains over ``data``, ``fsdp`` and ``context`` (the sequence
-split over the context group, attention by ring or Ulysses). A mesh with
-``tensor``, ``pipeline`` or ``expert`` above 1 is refused by name
-(``refuse_later_axes``): tensor parallelism is ROADMAP queue 1, item 4,
-part 2; pipeline stages and experts are part 3.
+The port trains over ``data``, ``fsdp``, ``context`` (the sequence
+split over the context group, attention by ring or Ulysses) and
+``tensor`` (Megatron's column and row splits, ``parallel/tensor.py``). A
+mesh with ``pipeline`` or ``expert`` above 1 is refused by name
+(``refuse_later_axes``): pipeline stages and experts are ROADMAP queue 1,
+item 4, part 3.
 """
 from __future__ import annotations
 
@@ -36,8 +37,7 @@ AXIS_NAMES: Tuple[str, ...] = ("pipeline", "data", "fsdp", "expert",
 
 #: The axes of later parts of the multi-device item, by the part that
 #: lifts their refusal.
-_LATER_AXES = {"tensor": "part 2 (tensor parallelism)",
-               "pipeline": "part 3 (pipeline stages)",
+_LATER_AXES = {"pipeline": "part 3 (pipeline stages)",
                "expert": "part 3 (experts)"}
 
 
@@ -120,7 +120,7 @@ def refuse_later_axes(sizes: Any, what: str = "mesh") -> None:
             raise NotImplementedError(
                 f"{what} with {axis}={degree}: the {axis} axis comes with "
                 f"ROADMAP queue 1, item 4, {part}; the port trains over "
-                "data, fsdp and context"
+                "data, fsdp, context and tensor"
             )
 
 
@@ -209,6 +209,16 @@ def context_size(mesh: Any) -> int:
 def context_index(mesh: Any) -> int:
     """This rank's sequence chunk: its coordinate on the context axis."""
     return int(mesh.get_coordinate()[mesh.mesh_dim_names.index("context")])
+
+
+def tensor_size(mesh: Any) -> int:
+    return _axis(mesh, "tensor")
+
+
+def tensor_index(mesh: Any) -> int:
+    """This rank's slice of the split parameters: its coordinate on the
+    tensor axis."""
+    return int(mesh.get_coordinate()[mesh.mesh_dim_names.index("tensor")])
 
 
 def validate_divisibility(mesh: Any, *, global_batch: int,

@@ -416,6 +416,15 @@ def _gather(x: torch.Tensor, splits) -> torch.Tensor:
     return x
 
 
+def mesh_splits(mesh: Any, axes: Sequence[str], dim: int) -> tuple:
+    """``_Local`` / ``_Global`` splits of dimension `dim` over the mesh
+    `axes` (outer first): (dim, group, this rank's index, size) each."""
+    names = mesh.mesh_dim_names
+    return tuple(
+        (dim, mesh.get_group(a), int(mesh.get_local_rank(a)),
+         int(mesh.shape[names.index(a)])) for a in axes)
+
+
 def make_ring_attention(
     mesh: Any,
     *,
@@ -432,9 +441,10 @@ def make_ring_attention(
     """ring_attention over a DeviceMesh, on global [B, S, H, D] tensors.
 
     Returns a callable `(q, k, v, segment_ids=None) -> o`: the inputs are
-    the same on every rank; each rank takes its rows (over `batch_axes`)
-    and its sequence chunk (over `seq_axis`), runs the ring, and the
-    output is gathered back whole on every rank. Differentiable: a
+    the same on every rank; each rank takes its rows (over `batch_axes`),
+    its sequence chunk (over `seq_axis`) and its heads (over
+    `heads_axis`), runs the ring, and the output is gathered back whole
+    on every rank. Differentiable: a
     cotangent that is the same on every rank gives every rank the whole
     input gradients.
 
@@ -443,25 +453,23 @@ def make_ring_attention(
     output permuted back. data_layout="zigzag": the inputs are already in
     zigzag order (a zigzag-emitting loader) and run without the permute.
     """
-    del heads_axis  # the mesh's tensor axis is 1 (refused above 1)
     if zigzag is None:
         zigzag = causal and window is None
     ring = Ring(mesh, seq_axis)
-    names = mesh.mesh_dim_names
-    row_splits = tuple(
-        (0, mesh.get_group(a), int(mesh.get_local_rank(a)),
-         int(mesh.shape[names.index(a)])) for a in batch_axes)
-    col_split = ((1, ring.group, ring.index, ring.size),)
+    # segment ids [B, S] take the rows and the columns; q/k/v the heads too
+    seg_splits = (mesh_splits(mesh, batch_axes, 0)
+                  + ((1, ring.group, ring.index, ring.size),))
+    splits = seg_splits + mesh_splits(mesh, (heads_axis,), 2)
 
     def call(layout, q, k, v, segment_ids=None):
-        local = [_Local.apply(x, row_splits + col_split) for x in (q, k, v)]
+        local = [_Local.apply(x, splits) for x in (q, k, v)]
         seg = None
         if segment_ids is not None:
-            seg = _Local.apply(segment_ids, row_splits + col_split)
+            seg = _Local.apply(segment_ids, seg_splits)
         o = ring_attention(
             *local, group=ring, causal=causal, block_q=block_q,
             block_k=block_k, layout=layout, window=window, segment_ids=seg)
-        return _Global.apply(o, row_splits + col_split)
+        return _Global.apply(o, splits)
 
     if data_layout == "zigzag":
         if not causal or ring.size <= 1:

@@ -92,16 +92,14 @@ def make_ulysses_attention(
 ):
     """ulysses_attention over a DeviceMesh, on global [B, S, H, D]
     tensors that are the same on every rank (``make_ring_attention``'s
-    contract): each rank's rows and sequence chunk, the result gathered
-    back whole."""
-    from determined_tpu_torch.parallel.ring import _Global, _Local
+    contract): each rank's rows, sequence chunk and heads (H/tensor over
+    the mesh's ``tensor`` axis, of which the all-to-all gives each rank
+    H/(tensor · context)), the result gathered back whole."""
+    from determined_tpu_torch.parallel.ring import _Global, _Local, mesh_splits
 
-    names = mesh.mesh_dim_names
-    splits = tuple(
-        (0, mesh.get_group(a), int(mesh.get_local_rank(a)),
-         int(mesh.shape[names.index(a)])) for a in batch_axes)
-    splits += ((1, mesh.get_group(seq_axis), int(mesh.get_local_rank(seq_axis)),
-                int(mesh.shape[names.index(seq_axis)])),)
+    splits = (mesh_splits(mesh, batch_axes, 0)
+              + mesh_splits(mesh, (seq_axis,), 1)
+              + mesh_splits(mesh, ("tensor",), 2))
     group = mesh.get_group(seq_axis)
 
     def call(q, k, v):

@@ -24,7 +24,8 @@ as the JAX ``Trainer`` writes them.
 A gang on a device mesh saves its state sharded, as the reference's
 multi-host pod does: every per-parameter leaf is this rank's block of it
 (``Shard``: the local tensor, the leaf's global shape, the block's
-starts, whether this rank holds replica 0 of the block). Each rank writes
+starts — its fsdp and tensor offsets — whether this rank holds replica
+0 of the block). Each rank writes
 the blocks it holds replica 0 of — a block that is not the whole leaf as
 ``{name}.shard<starts>.npy`` (starts joined by ``_``), a whole one under
 the leaf's own name — and the chief alone writes the rest (the step, the

@@ -1,5 +1,5 @@
-"""The Trainer's state on a ``data × fsdp × context`` device mesh, and its
-collectives.
+"""The Trainer's state on a ``data × fsdp × context × tensor`` device
+mesh, and its collectives.
 
 The reference lets GSPMD shard its jitted step over the mesh. Here one
 process drives one device, and ``MeshLayout`` does by hand what the
@@ -8,17 +8,23 @@ reference's shardings imply, from the same rule table
 
 - **Parameters and optimizer state** live as each rank's block: a
   parameter whose "embed" dimension the rules map to ``fsdp`` is split
-  along that dimension over the fsdp axis, every other one is whole on
-  every rank; every block is replicated over ``data`` and ``context``.
+  along that dimension over the fsdp axis; on a tensor axis above 1 one
+  that the model holds a slice of (``tensor_dims``: its "heads", "mlp"
+  or "vocab" dimension, which the reference's rules map to ``tensor``)
+  is split along it over the tensor axis, and a parameter may be split both ways, on two
+  dimensions; every other one is whole on every rank. Every block is
+  replicated over ``data`` and ``context``, and a parameter that the
+  tensor axis does not split over it too.
   The trial's optimizer chain (``trainer.optim``, optax's arithmetic)
   runs on the blocks, so the AdamW moments take the parameters' layout,
   and ``optim.global_norm`` is the whole gradient's norm
   (``norm_reduction``: the blocks' sums of squares, all-reduced over
   fsdp once a step; the whole parameters' added once).
-- **The model computes with whole parameters** (its ``nn.Parameter``s, a
-  working copy): ``gather`` all-gathers the blocks into them over fsdp
-  after every update and restore, so between steps the working copy
-  equals the gathered state. A parameter that is whole on every rank is
+- **The model computes with its parameters** (its ``nn.Parameter``s, a
+  working copy: whole, or on a tensor axis the rank's tensor slices):
+  ``gather`` all-gathers the blocks into them over fsdp only after every
+  update and restore, so between steps the working copy equals the
+  gathered state. A parameter that is whole on every rank is
   its own block (the block aliases it), so only the split ones have a
   second copy. Every rank thus keeps the whole working copy and, in the
   step, whole gradients: the optimizer state and the blocks are split,
@@ -38,25 +44,32 @@ reference's shardings imply, from the same rule table
   rank alone cannot see.
 - **The loss is the global token mean.** Each rank's loss is its own
   tokens' mean; ``loss_weight`` weights it by the rank's share of the
-  gang's token count (``tokens``; 1/(dp·cp) for a model that reports
-  none), so that the ranks' weighted losses sum to the reference's loss
-  over the global batch, and so do their gradients (a rank's gradient
-  holds what its queries sent back around the ring too).
-- **Gradients**: a split parameter's is reduce-scattered over fsdp
-  (summed) and all-reduced over every other replica of its block, data
-  and context; a whole one's is all-reduced over the gang in one flat
-  buffer. The global norm all-reduces the split blocks' sum of squares
-  over fsdp, once for each call of ``optim.global_norm`` (the trainer's
-  and the chain's clip).
-- **Metrics**: every scalar metric is summed over the gang after the same
-  weighting (``tokens`` unweighted), in one all-reduce, so every rank
-  holds the same global loss and grad norm, and the non-finite guard,
-  the spike detector, rollback-and-skip and the reports decide alike on
-  every rank.
+  token count of its tensor group's replicas (``tokens``; 1/(dp·cp) for
+  a model that reports none), so that the ranks' weighted losses sum to
+  the reference's loss over the global batch, and so do their gradients
+  (a rank's gradient holds what its queries sent back around the ring
+  too). The ranks of one tensor group compute the same loss over the
+  same rows (``replica_group``: the ranks that hold one tensor slice).
+- **Gradients**: a parameter split over fsdp is reduce-scattered over
+  fsdp (summed) and all-reduced over every other replica of its block,
+  data and context; any other is all-reduced over data × fsdp × context
+  (the gang when the tensor axis has one rank) in one flat buffer. A
+  tensor slice's gradient is its own rank's, and one that the tensor
+  axis replicates is the same on every rank of the group (*f* sums
+  theirs); neither is summed over tensor. The global norm all-reduces
+  the blocks' sums of squares over the axes that split them, fsdp and
+  tensor, once for each call of ``optim.global_norm`` (the trainer's and
+  the chain's clip); a replicated block counts once.
+- **Metrics**: every scalar metric is summed over data × fsdp × context
+  after the same weighting (``tokens`` unweighted), in one all-reduce, so
+  every rank holds the same global loss and grad norm, and the
+  non-finite guard, the spike detector, rollback-and-skip and the
+  reports decide alike on every rank.
 
 A mesh is refused by name when an axis of a later part of the
-multi-device item (tensor, pipeline, expert) is above 1, or when the
-rules split a parameter over any axis but fsdp. A collective over a
+multi-device item (pipeline, expert) is above 1, or when the rules split
+a parameter over any axis but fsdp (the tensor axis splits what the
+model holds sliced, ``tensor_dims``). A collective over a
 group of one rank is skipped, so one rank on a ``data=1 × fsdp=1`` mesh
 does the one-device step's work and the layout's bookkeeping.
 """
@@ -74,6 +87,7 @@ from determined_tpu_torch.parallel.mesh import (
     data_parallel_index,
     data_parallel_size,
     refuse_later_axes,
+    tensor_size,
     validate_divisibility,
 )
 from determined_tpu_torch.parallel.sharding import (
@@ -89,11 +103,14 @@ from determined_tpu_torch.trainer._checkpoint import Shard
 @dataclasses.dataclass(frozen=True)
 class ParamBlock:
     """Where one parameter lives: its global shape, the dimension split
-    over fsdp (None: whole on every rank), this rank's block and whether
-    it holds replica 0 of the block."""
+    over fsdp (None: whole over fsdp), the dimension split over tensor
+    (None: whole over tensor; else the model holds that slice), this
+    rank's block (global indices) and whether it holds replica 0 of the
+    block."""
 
     shape: Tuple[int, ...]
     dim: Optional[int]
+    tdim: Optional[int]
     region: Tuple[Tuple[int, int], ...]
     replica0: bool
 
@@ -102,10 +119,34 @@ class ParamBlock:
         return tuple(lo for lo, _ in self.region)
 
 
+def _replica_group(mesh: Any) -> Optional[Any]:
+    """The group of the ranks that hold the same tensor slice as this one
+    (every axis but ``tensor``); None (the whole gang) when the tensor
+    axis has one rank. Every rank of the gang makes every such group
+    (``new_group``'s contract)."""
+    import torch.distributed as dist
+
+    names = mesh.mesh_dim_names
+    t = int(mesh.shape[names.index("tensor")])
+    if t == 1:
+        return None
+    ranks = mesh.mesh.movedim(names.index("tensor"), -1).reshape(-1, t)
+    mine = int(mesh.get_coordinate()[names.index("tensor")])
+    groups = [dist.new_group([int(r) for r in ranks[:, j]]) for j in range(t)]
+    return groups[mine]
+
+
 class MeshLayout:
     def __init__(self, mesh: Any, rules: ShardingRules, logical_axes: Any,
-                 named: Sequence[Tuple[str, torch.Tensor]]) -> None:
+                 named: Sequence[Tuple[str, torch.Tensor]],
+                 tensor_dims: Optional[Dict[str, int]] = None) -> None:
+        """`tensor_dims`: {parameter name: the dimension the model holds
+        a tensor slice of} (``GPT.tensor_dims``; none: every parameter
+        whole). The model's slices place a parameter over the tensor
+        axis; the rules place it over the others."""
         import torch.distributed as dist
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor import Shard as DShard
 
         refuse_later_axes(mesh)
         if mesh.size() != dist.get_world_size():
@@ -122,47 +163,67 @@ class MeshLayout:
         self.dp_index = data_parallel_index(mesh)
         self.cp = context_size(mesh)
         self.cp_index = context_index(mesh)
+        self.tp = tensor_size(mesh)
+        self.tensor_group = mesh.get_group("tensor")
+        #: the ranks that hold the same tensor slice (None: the gang)
+        self.replica_group = _replica_group(mesh)
         fsdp = int(mesh.shape[mesh.mesh_dim_names.index("fsdp")])
+        ti = mesh.mesh_dim_names.index("tensor")
         axes = flatten_axes(logical_axes)
+        tensor_dims = tensor_dims or {}
         self.blocks: List[ParamBlock] = []
         for name, p in named:
             if name not in axes:
                 raise ValueError(
                     f"parameter {name} has no entry in the model's "
                     "logical_axes()")
-            placements = logical_to_sharding(axes[name], mesh, rules)
+            placements = list(logical_to_sharding(axes[name], mesh, rules))
+            tdim = tensor_dims.get(name)
+            placements[ti] = Replicate() if tdim is None else DShard(tdim)
             dim = None
             for i, pl in enumerate(placements):
-                if not pl.is_shard() or int(mesh.shape[i]) == 1:
+                if not pl.is_shard() or int(mesh.shape[i]) == 1 or i == ti:
                     continue
                 axis = mesh.mesh_dim_names[i]
                 if axis != "fsdp":
                     raise ValueError(
                         f"the sharding rules split parameter {name} over "
                         f"{axis!r}; the Trainer splits parameters over "
-                        "fsdp only"
+                        "fsdp and, where the model holds slices, tensor"
                     )
                 dim = pl.dim
-                if p.shape[dim] % fsdp:
-                    raise ValueError(
-                        f"parameter {name} {tuple(p.shape)}: dimension "
-                        f"{dim} is not divisible by fsdp={fsdp}"
-                    )
+            if dim is not None and dim == tdim:
+                raise ValueError(
+                    f"the sharding rules split dimension {dim} of parameter "
+                    f"{name} over both fsdp and tensor; the Trainer splits "
+                    "a dimension over one of them")
+            if dim is not None and p.shape[dim] % fsdp:
+                raise ValueError(
+                    f"parameter {name} {tuple(p.shape)}: dimension "
+                    f"{dim} is not divisible by fsdp={fsdp}"
+                )
+            shape = tuple(n * self.tp if d == tdim else n
+                          for d, n in enumerate(p.shape))
             self.blocks.append(ParamBlock(
-                tuple(p.shape), dim,
-                tuple(local_region(p.shape, placements, mesh)),
+                shape, dim, tdim,
+                tuple(local_region(shape, placements, mesh)),
                 replica_index(placements, mesh) == 0,
             ))
         device = named[0][1].device if named else torch.device("cpu")
-        #: 1.0 for a parameter split over fsdp: the norm's all-reduced part.
-        self._split = torch.tensor(
-            [float(b.dim is not None) for b in self.blocks], device=device)
+        #: per parameter 1.0 where fsdp / tensor / both split it: the
+        #: norm's parts all-reduced over those axes.
+        self._norm_parts = torch.tensor(
+            [[float(b.dim is not None and b.tdim is None),
+              float(b.dim is None and b.tdim is not None),
+              float(b.dim is not None and b.tdim is not None)]
+             for b in self.blocks], device=device).reshape(-1, 3)
 
     # -- placement ---------------------------------------------------------
     def block_of(self, full: torch.Tensor, i: int) -> torch.Tensor:
-        """This rank's block of parameter i: a whole parameter's is the
-        parameter itself (its storage), a split one's a copy of its
-        region."""
+        """This rank's block of parameter i: one whole over fsdp is the
+        working copy itself (its storage), a split one's a copy of its
+        region (the fsdp dimension is never split over tensor, so its
+        indices are the working copy's)."""
         b = self.blocks[i]
         if b.dim is None:
             return full.detach()
@@ -172,7 +233,8 @@ class MeshLayout:
     def gather(self, blocks: Sequence[torch.Tensor],
                fulls: Sequence[torch.Tensor]) -> None:
         """The working copy ← the gathered blocks (all-gather over fsdp
-        for the split parameters; a whole one is its own block)."""
+        for the parameters split over it; one whole over fsdp is its own
+        block)."""
         import torch.distributed as dist
 
         with torch.no_grad():
@@ -186,14 +248,20 @@ class MeshLayout:
                 full.copy_(out.movedim(0, b.dim))
 
     def broadcast_from_rank0(self, fulls: Sequence[torch.Tensor]) -> None:
-        """Every rank starts from rank 0's parameters."""
+        """Every rank starts from rank 0's parameters; a tensor slice
+        from the first rank that holds the same slice."""
         import torch.distributed as dist
 
         if self.world == 1:
             return
         with torch.no_grad():
-            for full in fulls:
-                dist.broadcast(full, src=0)
+            for b, full in zip(self.blocks, fulls):
+                if b.tdim is None:
+                    dist.broadcast(full, src=0)
+                elif self.world > self.tp:
+                    group = self.replica_group
+                    dist.broadcast(full, src=dist.get_global_rank(group, 0),
+                                   group=group)
 
     def rows(self, x: Any) -> Any:
         """This rank's rows of a global batch array."""
@@ -241,8 +309,8 @@ class MeshLayout:
             return 1.0 / (self.dp * self.cp)
         mine = tokens.detach().float().reshape(())
         total = mine.clone()
-        if self.world > 1:
-            dist.all_reduce(total)
+        if self.world > self.tp:
+            dist.all_reduce(total, group=self.replica_group)
         return mine / torch.clamp(total, min=1.0)
 
     def reduce_grads(self, grads: Sequence[torch.Tensor]
@@ -266,9 +334,9 @@ class MeshLayout:
                 if int(group.size()) > 1:
                     dist.all_reduce(part, group=group)
             out[i] = part.movedim(0, b.dim).contiguous()
-        if whole and self.world > 1:
+        if whole and self.world > self.tp:
             flat = torch.cat([grads[i].reshape(-1) for i in whole])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=self.replica_group)
             for i, piece in zip(whole, flat.split(
                     [grads[i].numel() for i in whole])):
                 out[i] = piece.view_as(grads[i])
@@ -277,31 +345,40 @@ class MeshLayout:
     def sum_of_squares(self, tensors: Sequence[torch.Tensor],
                        sq: torch.Tensor) -> torch.Tensor:
         """``optim.norm_reduction``'s total for per-parameter tensors:
-        the split parameters' sums all-reduced over fsdp, plus the whole
-        ones' (held alike by every rank)."""
+        the sums of the parameters split over fsdp all-reduced over fsdp,
+        of those split over tensor over tensor, of those split both ways
+        over both, plus the whole ones' (held alike by every rank)."""
         import torch.distributed as dist
 
         if len(tensors) != len(self.blocks):
             raise ValueError(
                 f"a global norm over {len(tensors)} tensors of a sharded "
                 f"state of {len(self.blocks)} parameters")
-        split = (sq * self._split).sum()
+        fsdp, tensor, both = (sq[:, None] * self._norm_parts).sum(dim=0)
         if int(self.fsdp_group.size()) > 1:
-            dist.all_reduce(split, group=self.fsdp_group)
-        return split + (sq * (1.0 - self._split)).sum()
+            fsdp_both = torch.stack([fsdp, both])
+            dist.all_reduce(fsdp_both, group=self.fsdp_group)
+            fsdp, both = fsdp_both
+        if self.tp > 1:
+            tensor_both = torch.stack([tensor, both])
+            dist.all_reduce(tensor_both, group=self.tensor_group)
+            tensor, both = tensor_both
+        whole = (sq * (1.0 - self._norm_parts.sum(dim=1))).sum()
+        return fsdp + tensor + both + whole
 
     def reduce_metrics(self, metrics: Dict[str, torch.Tensor],
                        weight: Any) -> Dict[str, torch.Tensor]:
-        """Every scalar metric summed over the gang, weighted by
-        `weight` (``tokens`` unweighted), in one all-reduce."""
+        """Every scalar metric summed over data × fsdp × context,
+        weighted by `weight` (``tokens`` unweighted), in one all-reduce
+        (every rank of a tensor group holds the same metrics)."""
         import torch.distributed as dist
 
         keys = [k for k, v in metrics.items() if v.dim() == 0]
         vals = torch.stack([
             metrics[k].detach().float() * (1.0 if k == "tokens" else weight)
             for k in keys])
-        if self.world > 1:
-            dist.all_reduce(vals)
+        if self.world > self.tp:
+            dist.all_reduce(vals, group=self.replica_group)
         return dict(zip(keys, vals.unbind(0)))
 
 

@@ -20,7 +20,9 @@ Port of ``determined_tpu/trainer/_sentinel.py``:
   (Σx, Σx²) in fp32 of each parameter block a rank holds, keyed by the
   block's logical region, gathered by the chief and compared across
   every holder of the same region (the data-parallel replicas, and the
-  ranks an fsdp axis replicates a parameter over). Replicas hold the same
+  ranks an fsdp or tensor axis replicates a parameter over; the tensor
+  slices of one parameter are different regions, never compared).
+  Replicas hold the same
   bytes and run the same reduction, so equality is exact; a mismatch is
   silent data corruption, and the trial errors with the minority
   holder's rank and device named (``ReplicaDivergenceError``). One

@@ -48,13 +48,15 @@ manager as ``profile-capture-<id>`` and reported on ``POST
 /api/v1/profiles/captures/<id>/complete``.
 
 On a device mesh (``mesh=``, a ``DeviceMesh`` over ``data × fsdp ×
-context`` from ``parallel.make_mesh``; ``trainer/_mesh.py``; in a gang
-of more than one process without one, as in the reference, the default
-``MeshConfig()``: data over the whole gang) every rank of the gang runs
-this loop on its rows of each global batch, and on a context axis its
-chunk of the sequence (attention by ring or Ulysses): the parameters and the
-optimizer state are split over fsdp by the model's ``logical_axes()``
-through the sharding ``rules``, the loss is the global token mean, and
+context × tensor`` from ``parallel.make_mesh``; ``trainer/_mesh.py``; in
+a gang of more than one process without one, as in the reference, the
+default ``MeshConfig()``: data over the whole gang) every rank of the
+gang runs this loop on its rows of each global batch, and on a context
+axis its chunk of the sequence (attention by ring or Ulysses): the
+parameters and the optimizer state are split over fsdp, and over tensor
+where the model holds tensor slices (``tensor_dims``, Megatron's splits
+of ``parallel/tensor.py``), by the model's ``logical_axes()`` through
+the sharding ``rules``, the loss is the global token mean, and
 every decision (the guard, the spike detector, rollback-and-skip, the
 reports, the searcher's progress, the checkpoint's ``storage_id``) is
 taken from values that are equal on every rank. Checkpoints are sharded
@@ -66,8 +68,8 @@ the replica-divergence audit (``_divergence_audit``). Each rank draws
 from its own generator, seeded from (seed, rank).
 
 The step runs on CUDA unless the caller passes ``device="cpu"``. Refused
-by name: a mesh with tensor, pipeline or expert above 1 (later parts of
-the multi-device item), ``resume_event="resize"`` and a resize
+by name: a mesh with pipeline or expert above 1 (a later part of the
+multi-device item), ``resume_event="resize"`` and a resize
 directive from the master (the elastic slice) and the orbax checkpoint
 format (it needs JAX).
 """
@@ -187,8 +189,9 @@ class Trainer:
         self._layout: Optional[MeshLayout] = None
         rank = self.core.distributed.rank if mesh is not None else 0
         if mesh is not None:
-            self._layout = MeshLayout(mesh, rules, self.model.logical_axes(),
-                                      named)
+            self._layout = MeshLayout(
+                mesh, rules, self.model.logical_axes(), named,
+                getattr(self.model, "tensor_dims", dict)())
             self._layout.broadcast_from_rank0(self._full)
             self._params = [self._layout.block_of(p, i)
                             for i, p in enumerate(self._full)]

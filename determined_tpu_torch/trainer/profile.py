@@ -1,7 +1,8 @@
 """Where a train step of the port spends its time, on the card.
 
     python -m determined_tpu_torch.trainer.profile [--rung headline]
-        [--steps 5] [--batch B] [--seq S] [--packed] [--mesh]
+        [--steps 5] [--batch B] [--seq S] [--packed]
+        [--mesh [MESH_JSON]]
 
 Builds one of ``bench.py``'s training rungs (``RUNGS``) — GPT-2-small at
 full width and depth, bf16 compute over fp32 master parameters, seeded
@@ -20,7 +21,13 @@ adamw(3e-4))``:
 of seeded random documents of 32-1024 tokens (``packed_batch``): segment
 ids then route attention through the blocked kernels. ``--mesh`` runs
 the step on a one-rank ``data=1 × fsdp=1`` mesh over NCCL
-(``trainer/_mesh.py``), to set against the same rung without one.
+(``trainer/_mesh.py``), to set against the same rung without one;
+``--mesh '{"tensor": 2}'`` (``MeshConfig`` fields as JSON) on that mesh
+over a gang that each process joins from ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR`` and ``MASTER_PORT``, rank r on card r mod the cards,
+over NCCL, or over gloo when the ranks outnumber the cards (NCCL puts no
+two ranks on one device); the batch's rows split over data × fsdp, not
+over tensor, and rank 0 prints.
 
 It puts the model behind the ``Trainer`` and runs its guarded step on
 the calling thread: two warm-up steps, ``--steps`` timed with the
@@ -40,6 +47,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import List, Optional
 
@@ -141,7 +149,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--seq", type=int, default=None)
     ap.add_argument("--top", type=int, default=10)
     ap.add_argument("--packed", action="store_true")
-    ap.add_argument("--mesh", action="store_true")
+    ap.add_argument("--mesh", nargs="?", const="{}", default=None,
+                    help="MeshConfig fields as JSON (default data=1, fsdp=1)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -150,17 +159,31 @@ def main(argv: Optional[List[str]] = None) -> int:
     args.batch = args.batch or rung_batch
     args.seq = args.seq or rung_cfg.seq_len
     trial = RepeatedBatchTrial(args.batch, args.seq, config=rung_cfg)
-    mesh = None
-    if args.mesh:
+    mesh, core_context, rank = None, None, 0
+    if args.mesh is not None:
         import torch.distributed as dist
 
+        from determined_tpu_torch import core
+        from determined_tpu_torch.core._distributed import DistributedContext
         from determined_tpu_torch.parallel import MeshConfig, make_mesh
 
-        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
-                                world_size=1,
-                                device_id=torch.device("cuda", 0))
-        mesh = make_mesh(MeshConfig(data=1, fsdp=1))
-    trainer = Trainer(trial, mesh=mesh)
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        rank = int(os.environ.get("RANK", "0"))
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(rank % cards)
+        nccl = world <= cards
+        kw = dict(device_id=torch.device("cuda", rank % cards) if nccl
+                  else None)
+        if world == 1:
+            kw["store"] = dist.HashStore()
+        else:
+            kw["init_method"] = "env://"
+        dist.init_process_group("nccl" if nccl else "gloo", rank=rank,
+                                world_size=world, **kw)
+        core_context = core._dummy_init(
+            distributed=DistributedContext(rank=rank, size=world))
+        mesh = make_mesh(MeshConfig(**json.loads(args.mesh)))
+    trainer = Trainer(trial, core_context, mesh=mesh)
     host_batch = next(iter(trial.build_training_data()))
     if args.packed:
         host_batch = packed_batch(args.batch, args.seq, 3,
@@ -205,7 +228,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     out = {
         "device": torch.cuda.get_device_name(0),
         "rung": args.rung + (" packed" if args.packed else "")
-        + (" mesh" if args.mesh else ""),
+        + (f" mesh {args.mesh}" if args.mesh is not None else ""),
         "config": f"gpt2-small bf16 remat={cfg.remat} "
                   f"fused_loss={cfg.fused_loss} "
                   f"remat_attention={gpt.remat_attention(cfg)}",
@@ -229,8 +252,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             for name, us, count in kernels[:args.top]
         ],
     }
-    print(json.dumps(out))
-    if args.mesh:
+    if rank == 0:
+        print(json.dumps(out))
+    if mesh is not None:
+        core_context.distributed.close()
         torch.distributed.destroy_process_group()
     return 0
 

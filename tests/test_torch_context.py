@@ -27,7 +27,8 @@ reference's virtual CPU devices each. Every join has a timeout.
   one merged manifest, replica 0 (context index 0) of each fsdp block;
   the reference's ``load_pytree`` reads every rank's blocks, and a fresh
   gang trainer resumes it bitwise with the uninterrupted run's next loss.
-- Tensor, pipeline and expert above 1 are still refused by name.
+- Pipeline and expert above 1 are still refused by name, beside the
+  context axis and beside the tensor axis.
 """
 import glob
 import json
@@ -499,17 +500,17 @@ def test_gang_resumes_its_context_checkpoint_bitwise(gang):
             m["loss"] for m in res["ckpt_run"]][2:], r
 
 
-@pytest.mark.parametrize("axis,part", [
-    ("tensor", "part 2"), ("pipeline", "part 3"), ("expert", "part 3"),
+@pytest.mark.parametrize("axis,beside", [
+    ("pipeline", "tensor"), ("pipeline", "context"), ("expert", "context"),
 ])
-def test_other_axes_are_still_refused_by_name(axis, part):
+def test_other_axes_are_still_refused_by_name(axis, beside):
     from determined_tpu_torch.parallel import MeshConfig
     from determined_tpu_torch.parallel.mesh import refuse_later_axes
 
     with pytest.raises(NotImplementedError,
-                       match=f"{axis}=2.*item 4, {part}"):
-        refuse_later_axes(MeshConfig(**{axis: 2}))
-    refuse_later_axes(MeshConfig(context=2))
+                       match=f"{axis}=2.*item 4, part 3"):
+        refuse_later_axes(MeshConfig(**{axis: 2, beside: 2}))
+    refuse_later_axes(MeshConfig(**{beside: 2}))
 
 
 if __name__ == "__main__":

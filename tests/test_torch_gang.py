@@ -288,15 +288,16 @@ def worker(rank: int, store: str, out: str) -> None:
 # ---------------------------------------------------------------------------
 # The fixture: the gang, and the JAX references meanwhile
 # ---------------------------------------------------------------------------
-def _numpy_tree():
-    """The GPT's parameters from a numpy seed: normal(0, 0.02) weights and
-    biases, layernorm scales 1 + normal(0, 0.02)."""
+def _numpy_tree(kw=KW):
+    """The GPT's parameters (GPTConfig fields `kw`) from a numpy seed:
+    normal(0, 0.02) weights and biases, layernorm scales 1 + normal(0,
+    0.02)."""
     import torch
 
     from determined_tpu_torch.models import gpt
 
     rng = np.random.default_rng(3)
-    model = gpt.GPT(gpt.GPTConfig(dtype=torch.float32, **KW), device="cpu")
+    model = gpt.GPT(gpt.GPTConfig(dtype=torch.float32, **kw), device="cpu")
     return {n: ((1.0 if "scale" in n else 0.0)
                 + 0.02 * rng.standard_normal(p.shape)).astype(np.float32)
             for n, p in model.named_parameters()}

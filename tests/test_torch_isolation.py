@@ -9,8 +9,9 @@ TensorBoard writer, the profiler agent, the exec layer (harness,
 built-in trials, the launch chain and proxy registration), the data
 layer (the native loader's binding too), the vision models, the GPT-2
 pretrain example and the multi-device layer (the mesh and sharding rules,
-ring and Ulysses attention, the gang's distributed context, the
-trainer's mesh layout), and finds none of them loaded."""
+ring and Ulysses attention, the tensor axis's collectives, the gang's
+distributed context, the trainer's mesh layout), and finds none of them
+loaded."""
 import ast
 import subprocess
 import sys
@@ -84,6 +85,7 @@ def test_port_never_imports_jax(source):
             "determined_tpu_torch.parallel.sharding, "
             "determined_tpu_torch.parallel.ring, "
             "determined_tpu_torch.parallel.ulysses, "
+            "determined_tpu_torch.parallel.tensor, "
             "determined_tpu_torch.core._distributed, "
             "determined_tpu_torch.trainer._mesh, "
             "determined_tpu_torch._info\n"

@@ -165,9 +165,17 @@ def test_specs_over_gpt_logical_axes_match_the_reference(tie, rules):
                                                trules)) == tuple(spec)
 
 
+#: meshes whose rules split GPT leaves on two dimensions over two axes
+#: ("embed" over fsdp, "heads" / "mlp" / "vocab" over tensor)
+TWO_AXIS_MESHES = [
+    {"data": 2, "fsdp": 2, "tensor": 2}, {"fsdp": 2, "tensor": 4},
+    {"fsdp": 4, "tensor": 2}, {"fsdp": 2, "context": 2, "tensor": 2},
+]
+
+
 @pytest.mark.parametrize("kw", [
     {"data": 2, "fsdp": 4}, {"fsdp": 8}, {"data": 4, "fsdp": 2},
-    {"data": 2, "fsdp": 2, "tensor": 2},
+    *TWO_AXIS_MESHES,
 ])
 def test_local_regions_match_the_reference_shard_indices(kw):
     """Every device's block of every GPT leaf (and of a batch) under the
@@ -191,6 +199,32 @@ def test_local_regions_match_the_reference_shard_indices(kw):
                 tsharding.logical_to_spec(axes[name]), tm)
             assert tsharding.local_region(shape, placements, tm) == want, (
                 name, coord)
+
+
+@pytest.mark.parametrize("kw", TWO_AXIS_MESHES)
+def test_replica_index_matches_the_reference_replica_ids(kw):
+    """Every device's copy of its block of every GPT leaf: the port's
+    ``replica_index`` is the reference's ``replica_id`` (0: the copy a
+    checkpoint writes), leaves split on two dimensions included."""
+    ref, _ = _cfgs(kw)
+    sizes = ref.resolve(8).axis_sizes()
+    jm = _ref_mesh(sizes)
+    coords = {jm.devices[c]: c for c in np.ndindex(*sizes)}
+    _, tg = _gpt_pair(True)
+    axes = dict(_leaves(tg.logical_axes()))
+    split_twice = 0
+    for name, p in tg.named_parameters():
+        spec = jsharding.logical_to_spec(axes[name])
+        split_twice += sum(a is not None for a in spec) == 2
+        arr = jax.device_put(np.zeros(p.shape, np.float32),
+                             NamedSharding(jm, spec))
+        for shard in arr.addressable_shards:
+            tm = _port_mesh(sizes, coords[shard.device])
+            placements = tsharding.spec_to_placements(
+                tsharding.logical_to_spec(axes[name]), tm)
+            assert tsharding.replica_index(placements, tm) == (
+                shard.replica_id), (name, coords[shard.device])
+    assert split_twice == 5  # wqkv, wo, wi, wo_mlp and tok_embed
 
 
 @pytest.mark.parametrize("kw,dcn", [
@@ -272,18 +306,18 @@ def test_one_rank_mesh_step_is_the_one_device_step(one_process_group,
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("axis,part", [
-    ("tensor", "part 2"), ("pipeline", "part 3"), ("expert", "part 3"),
+@pytest.mark.parametrize("axis,kw", [
+    ("pipeline", {"tensor": 2}), ("pipeline", {}), ("expert", {}),
 ])
-def test_later_axes_are_refused_by_name(axis, part):
-    cfg = tmesh.MeshConfig(**{axis: 2})
+def test_later_axes_are_refused_by_name(axis, kw):
+    cfg = tmesh.MeshConfig(**{axis: 2}, **kw)
     for call in (lambda: tmesh.make_mesh(cfg, device="cpu"),
                  lambda: tmesh.make_multislice_mesh(cfg, device="cpu")):
         with pytest.raises(NotImplementedError,
-                           match=f"{axis}=2.*item 4, {part}"):
+                           match=f"{axis}=2.*item 4, part 3"):
             call()
-    sizes = cfg.resolve(2).axis_sizes()
-    with pytest.raises(NotImplementedError, match=f"{axis}=2.*item 4, {part}"):
+    sizes = cfg.resolve(2 * max(kw.values(), default=1)).axis_sizes()
+    with pytest.raises(NotImplementedError, match=f"{axis}=2.*item 4, part 3"):
         tgpt.GPT(tgpt.GPTConfig(**tgpt.tiny().__dict__), device="cpu",
                  mesh=_port_mesh(sizes))
 

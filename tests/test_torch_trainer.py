@@ -336,7 +336,7 @@ def _mesh_of(**sizes):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=_mesh_of(tensor=2)), "tensor=2.*item 4, part 2"),
+    (dict(mesh=_mesh_of(tensor=2, pipeline=2)), "pipeline=2.*item 4, part 3"),
     (dict(mesh=_mesh_of(pipeline=2)), "pipeline=2.*item 4, part 3"),
     (dict(mesh=_mesh_of(fsdp=2, expert=2)), "expert=2.*item 4, part 3"),
     (dict(resume_event="resize"), "resize.*elastic slice"),

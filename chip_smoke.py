@@ -267,11 +267,15 @@ script exits non-zero without the final result line:
    audit every step: both ranks report the same losses, within 1e-3 of
    the one rank's, 12 + 12 mono launches a step, and the drill on rank 0
    raises ``ReplicaDivergenceError`` naming rank 0 on both ranks (two
-   holders: no majority, both named). Prints both step times, the peak
-   memory and the state's resident bytes of one rank and of each of the
-   two: ``state_gb`` the whole working copy, the parameter blocks that
-   are not part of it and the AdamW moments (each storage once),
-   ``split_gb`` the blocks and moments alone.
+   holders: no majority, both named). At fsdp=2 the state is ZeRO-3's:
+   a rank's model holds its parameter blocks alone, each layer's weights
+   gathered at use (``trainer/_mesh.py``), and its grad norms are held
+   against the one rank's at ``GRAD_NORM_RTOL``. Prints both step times,
+   the peak memory and the state's resident bytes of one rank and of each
+   of the two: ``state_gb`` the model's parameters (the blocks), the
+   trainer's parameter tensors that are not theirs and the AdamW moments
+   (each storage once), ``split_gb`` the last two alone; and the gang's
+   all-gathers and reduce-scatters and their MB a step.
 
 19. context — training over the context axis (``parallel/ring.py``,
    ``parallel/ulysses.py``, ``trainer/_mesh.py``): two ranks on the one
@@ -345,28 +349,37 @@ HBM_BYTES_PER_S = 3.35e12
 CLUSTER_STEPS = 12    # the cluster phase's searcher operation
 #: ``python -c COUNTING_BOOT <module> <out.json> <args...>`` runs
 #: ``<module>`` as ``python -m <module> <args...>`` does and, at exit,
-#: writes the process's kernel launch counts and the trainer's per-step
-#: counts to ``<out.json>`` (the counts live in that process).
+#: writes the process's kernel launch counts, the trainer's per-step
+#: counts (with the rendezvous generation of each step) and the seconds
+#: of each checkpoint restore to ``<out.json>`` (the counts live in that
+#: process).
 COUNTING_BOOT = """
-import atexit, json, runpy, sys
+import atexit, json, os, runpy, sys, time
 module, out = sys.argv[1], sys.argv[2]
 sys.argv = [module] + sys.argv[3:]
 from determined_tpu_torch.ops import _build
 from determined_tpu_torch.trainer import Trainer
-per_step = []
-step_fn = Trainer._train_step
+per_step, generations, restores = [], [], []
+step_fn, restore_fn = Trainer._train_step, Trainer._restore_with_fallback
 def counted(trainer, batch, poison=1.0):
     before = {n: k.launches for n, k in _build.KERNELS.items()}
     result = step_fn(trainer, batch, poison)
     per_step.append({n: k.launches - before[n]
                      for n, k in _build.KERNELS.items()})
+    generations.append(int(os.environ.get("DTPU_ALLOC_GENERATION", "0")))
     return result
+def timed_restore(trainer, storage_id):
+    t0 = time.perf_counter()
+    restore_fn(trainer, storage_id)
+    restores.append(time.perf_counter() - t0)
 Trainer._train_step = counted
+Trainer._restore_with_fallback = timed_restore
 def dump():
     with open(out, "w") as f:
         json.dump({"launches": {n: k.launches
                                 for n, k in _build.KERNELS.items()},
-                   "per_step": per_step}, f)
+                   "per_step": per_step, "generations": generations,
+                   "restores": restores}, f)
 atexit.register(dump)
 runpy.run_module(module, run_name="__main__", alter_sys=True)
 """
@@ -375,10 +388,11 @@ MESH_SAVE_AT = 4      # ... with a sharded save at this step
 MESH_GANG_STEPS = 3   # phase mesh, two ranks on the one card over gloo
 #: ``python -c MESH_RANK <rank> <port> <out.json>``: one rank of a gang of
 #: two on the one card, joined over gloo at 127.0.0.1:<port>: the headline
-#: trial on an fsdp=2 mesh for MESH_GANG_STEPS steps with the audit every
-#: step, its per-step launches, peak memory and state bytes (``state_gb``
-#: and ``split_gb``, as the phase counts them), then the
-#: ``train.divergence.rank0`` drill.
+#: trial on an fsdp=2 mesh (ZeRO-3: the model's parameters are the rank's
+#: blocks, gathered at use) for MESH_GANG_STEPS steps with the audit every
+#: step, its losses and grad norms, per-step launches, peak memory and
+#: state bytes (``state_gb`` and ``split_gb``, as the phase counts them),
+#: then the ``train.divergence.rank0`` drill.
 MESH_RANK = """
 import datetime, json, os, sys, time
 import torch, torch.distributed as dist
@@ -444,6 +458,7 @@ split = [t for t in trainer._params
 split += [t for s in trainer._opt_state[1][0][1:] for t in s]
 gb = lambda ts: sum(t.numel() * t.element_size() for t in ts) / 1e9
 res = dict(rank=rank, losses=[m["loss"] for m in seen],
+           grad_norms=[m["grad_norm"] for m in seen],
            step_ms=[1e3 / m["batches_per_second"] for m in seen],
            per_step=per_step, audits=audits,
            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -623,7 +638,7 @@ TENSOR_RUNS = {
     "packed-window-t2": (2, {"tensor": 2}, "packed", {"attn_window": 256},
                          3, 0, ("flash_fwd", "flash_bwd_blocked"), "one"),
     "headline-c2t2-ring": (4, {"context": 2, "tensor": 2}, "tokens", {}, 2,
-                           0, ("flash_fwd_mono", "flash_bwd_mono"), "ring"),
+                           1, ("flash_fwd_mono", "flash_bwd_mono"), "ring"),
     "headline-c2t2-ulysses": (4, {"context": 2, "tensor": 2}, "tokens",
                               {"attn_impl": "ulysses"}, 2, 0, (), "none"),
 }
@@ -794,6 +809,59 @@ with open(out, "w") as f:
 dctx.close()
 dist.destroy_process_group()
 """
+ELASTIC_STEPS = 6     # phase elastic: the resized gang's searcher operation
+ELASTIC_SAVE_AT = 2   # ... its checkpoint period; rank 1 dies after it
+#: ``python -c ELASTIC_RANK <rank> <port> <out.json> <ckpt dir> <uuid>
+#: <step>``: one rank of a gang of two on the one card over gloo at
+#: ``MeshConfig(data=1, fsdp=2)`` restores the checkpoint `uuid` (saved
+#: by phase tensor on another layout) onto its blocks and trains one
+#: step: the restore's seconds, the state's equality across the ranks,
+#: the step's loss and launches.
+ELASTIC_RANK = """
+import datetime, json, sys, time
+import torch, torch.distributed as dist
+rank, port, out, ckpt, uuid_ = (int(sys.argv[1]), int(sys.argv[2]),
+                                sys.argv[3], sys.argv[4], sys.argv[5])
+step = int(sys.argv[6])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=300))
+from determined_tpu_torch import core
+from determined_tpu_torch.core._distributed import DistributedContext
+from determined_tpu_torch.ops import _build
+from determined_tpu_torch.parallel import MeshConfig, make_mesh
+from determined_tpu_torch.trainer import Batch, Trainer
+from determined_tpu_torch.trainer.profile import RUNGS, RepeatedBatchTrial
+dctx = DistributedContext(rank=rank, size=2)
+mesh = make_mesh(MeshConfig(data=1, fsdp=2))
+ctx = core._dummy_init(distributed=dctx, checkpoint_storage=ckpt)
+trainer = Trainer(RepeatedBatchTrial(8, 1024, config=RUNGS["headline"][1]),
+                  ctx, mesh=mesh)
+t0 = time.perf_counter()
+trainer._restore_with_fallback(uuid_)
+torch.cuda.synchronize()
+restore_s = time.perf_counter() - t0
+assert trainer.steps_completed == step, trainer.steps_completed
+seen, flush = [], trainer._flush
+def recording(pending, t_start):
+    agg, reason = flush(pending, t_start)
+    seen.append(agg)
+    return agg, reason
+trainer._flush = recording
+before = {n: k.launches for n, k in _build.KERNELS.items()}
+trainer.fit(max_length=Batch(step + 1), report_period=Batch(1))
+launches = {n: k.launches - before[n] for n, k in _build.KERNELS.items()}
+loss = seen[-1]["loss"]
+with open(out, "w") as f:
+    json.dump(dict(rank=rank, restore_s=restore_s, loss=loss,
+                   launches=launches,
+                   held=[list(p.shape) for p in trainer.model.parameters()]),
+              f)
+dctx.close()
+dist.destroy_process_group()
+"""
 FLASH_SOURCE = "determined_tpu_torch/ops/csrc/flash_fwd.cu"
 FLASH_REPLACES = "determined_tpu/ops/flash_attention.py:236"
 PAGED_SOURCE = "determined_tpu_torch/ops/csrc/paged_attention.cu"
@@ -944,8 +1012,13 @@ class StandInMaster:
     reports that step; ``preempt(alloc)`` sets it by hand. The preemption
     long-poll holds until the signal is set or its ``timeout_seconds``
     pass; so does the rendezvous table, until ``rendezvous_size``
-    processes of the allocation have posted their address. ``tests/test_torch_cluster.py`` holds every answer's keys and
-    value types against the live master's."""
+    processes of the allocation have posted their address.
+    ``resize(alloc, lost_ranks)`` is the master's elastic resize: the
+    survivors re-numbered in rank order under the next generation; a
+    caller at an older generation then gets the directive on its beat and
+    on its preemption poll (which returns at once), and a 409 with it from
+    the rendezvous routes. ``tests/test_torch_cluster.py`` holds every
+    answer's keys and value types against the live master's."""
 
     ROUTES = (
         ("POST", r"/api/v1/trials/(\d+)/metrics", "_metrics"),
@@ -989,6 +1062,7 @@ class StandInMaster:
         self.acked = set()
         self.rendezvous_size = 1
         self.addrs = {}             # allocation -> {rank: address}
+        self.resizes = {}           # allocation -> its latest directive
         self._preempt = set()
         self._cond = threading.Condition()
         self._routes = [(m, re.compile(f"^{p}$"), getattr(self, h))
@@ -1019,6 +1093,8 @@ class StandInMaster:
                         status, payload = 200, handler(
                             match.groups(), body, parse_qs(url.query),
                             self.client_address[0])
+                        if isinstance(payload, tuple):
+                            status, payload = payload
                         break
                 data = json.dumps(payload).encode()
                 try:
@@ -1057,6 +1133,46 @@ class StandInMaster:
 
     def _preempted(self, alloc: str) -> bool:
         return alloc in self._preempt or "*" in self._preempt
+
+    def resize(self, alloc: str, lost_ranks, reason: str = "") -> dict:
+        """The master's elastic resize of `alloc`'s gang: the ranks but
+        `lost_ranks` re-numbered 0.. in rank order, the generation
+        bumped, the rendezvous table reset."""
+        with self._cond:
+            last = self.resizes.get(alloc)
+            gen = last["generation"] if last else 0
+            size = last["num_processes"] if last else self.rendezvous_size
+            survivors = [r for r in range(size) if r not in set(lost_ranks)]
+            directive = {
+                "generation": gen + 1, "from_generation": gen,
+                "num_processes": len(survivors),
+                "rank_map": {str(old): new
+                             for new, old in enumerate(survivors)},
+                "reason": reason,
+            }
+            self.resizes[alloc] = directive
+            self.addrs[alloc] = {}
+            self._cond.notify_all()
+            return dict(directive)
+
+    def _stale(self, alloc: str, generation) -> dict:
+        """The directive a caller at `generation` must apply, or None."""
+        directive = self.resizes.get(alloc)
+        if (directive is None or generation is None
+                or int(generation) >= directive["generation"]):
+            return None
+        return dict(directive)
+
+    def _fence(self, alloc: str, generation):
+        """The live master's 409 for a stale rendezvous generation."""
+        directive = self._stale(alloc, generation)
+        if directive is None:
+            return None
+        return 409, {"error": f"allocation {alloc}: generation "
+                              f"{generation} is stale (now "
+                              f"{directive['generation']})",
+                     "resync": True, "generation": directive["generation"],
+                     "resize": directive}
 
     # -- the routes: answers shaped as api_server.py's -----------------------
     def _empty(self, groups, body, query, client):
@@ -1107,6 +1223,9 @@ class StandInMaster:
         alloc, step = groups[0], int(body.get("step", 0))
         resp = {}
         with self._cond:
+            directive = self._stale(alloc, body.get("generation"))
+            if directive is not None:
+                return {"resize": directive}
             if (self.preempt_after_step is not None
                     and step >= self.preempt_after_step):
                 self._preempt.add(alloc)
@@ -1126,14 +1245,20 @@ class StandInMaster:
 
         alloc = groups[0]
         wait = float((query.get("timeout_seconds") or ["60"])[0])
+        gen = (query.get("generation") or [None])[0]
         deadline = time_mod.time() + wait
         with self._cond:
-            while not self._preempted(alloc):
+            while (not self._preempted(alloc)
+                   and self._stale(alloc, gen) is None):
                 left = deadline - time_mod.time()
                 if left <= 0:
                     break
                 self._cond.wait(timeout=min(left, 1.0))
-            return {"preempt": self._preempted(alloc)}
+            resp = {"preempt": self._preempted(alloc)}
+            directive = self._stale(alloc, gen)
+            if directive is not None:
+                resp["resize"] = directive
+            return resp
 
     def _ack(self, groups, body, query, client):
         with self._cond:
@@ -1149,6 +1274,9 @@ class StandInMaster:
 
     def _arrive(self, groups, body, query, client):
         with self._cond:
+            fenced = self._fence(groups[0], body.get("generation", 0))
+            if fenced is not None:
+                return fenced
             self.addrs.setdefault(groups[0], {})[int(body["rank"])] = \
                 body["addr"]
             self._cond.notify_all()
@@ -1160,8 +1288,14 @@ class StandInMaster:
         wait = float((query.get("timeout_seconds") or ["600"])[0])
         deadline = time_mod.time() + wait
         with self._cond:
+            fenced = self._fence(groups[0],
+                                 (query.get("generation") or ["0"])[0])
+            if fenced is not None:
+                return fenced
+            last = self.resizes.get(groups[0])
+            size = last["num_processes"] if last else self.rendezvous_size
             table = self.addrs.setdefault(groups[0], {})
-            while len(table) < self.rendezvous_size:
+            while len(table) < size:
                 left = deadline - time_mod.time()
                 if left <= 0:
                     break
@@ -1169,7 +1303,7 @@ class StandInMaster:
             addrs = [table[r] for r in sorted(table)]
             return {"container_addrs": addrs,
                     "coordinator_address": addrs[0] if addrs else "",
-                    "num_processes": self.rendezvous_size}
+                    "num_processes": size}
 
     def _spans(self, groups, body, query, client):
         with self._cond:
@@ -3816,9 +3950,9 @@ class Smoke:
                 assert step["flash_fwd"] == 0, (i, step)
             assert audits == [2, 4, 6], audits
             rec = self.train_record(reports, run, peak_gb, cfg, b, s, warm=2)
-            # the trained state's resident bytes: the working copy, the
-            # parameter blocks that are not part of it (at fsdp=1 each
-            # block is its parameter) and the AdamW moments
+            # the trained state's resident bytes: the model's parameters,
+            # the trainer's parameter tensors that are not theirs (none:
+            # the model holds the blocks) and the AdamW moments
             one = saved.pop("trainer")
             working = list(one.model.parameters())
             split = [t for t in one._params
@@ -3949,6 +4083,15 @@ class Smoke:
             assert "suspect rank 0 device cuda:0" in r["drill"], r["drill"]
         gang_err = close(ranks[0]["losses"], losses[:MESH_GANG_STEPS],
                          "two ranks vs one rank")
+        norms = [m["grad_norm"] for m in reports][:MESH_GANG_STEPS]
+        gang_norm_err = max(abs(a - b) / abs(b) for a, b in zip(
+            ranks[0]["grad_norms"], norms))
+        assert gang_norm_err < GRAD_NORM_RTOL, (ranks[0]["grad_norms"], norms)
+        for r in ranks:
+            assert r["grad_norms"] == ranks[0]["grad_norms"], ranks
+            # ZeRO-3: between steps a rank holds its blocks (12 bytes a
+            # parameter: master, mu, nu), not a whole fp32 copy
+            assert r["state_gb"] < 0.6 * state_gb, (r["state_gb"], state_gb)
         self.report("mesh", "gpt2-small bf16 B8x1024 data x fsdp", dict(
             one_rank_backend="nccl", steps=len(reports),
             loss_first=losses[0], loss_last=losses[-1],
@@ -3972,6 +4115,8 @@ class Smoke:
             gang_collectives_per_step=ranks[0]["collectives_per_step"],
             gang_collective_mb_per_step=ranks[0]["collective_mb_per_step"],
             gang_max_rel_loss_vs_one_rank=gang_err,
+            gang_max_rel_grad_norm_vs_one_rank=gang_norm_err,
+            gang_launches_per_step_and_rank=ranks[0]["per_step"][-1],
             gang_drill=ranks[0]["drill"][:120],
             gang_seconds=two_s,
             seconds=time.perf_counter() - t0,
@@ -4278,9 +4423,287 @@ class Smoke:
                            resumed_loss=x["resumed_losses"][0],
                            audits=len(x["audits"]))
             self.report("tensor", f"gpt2-small bf16 {name}", rec)
-        shutil.rmtree(tmp, ignore_errors=True)
+        # the sharded saves phase elastic restores onto other layouts (it
+        # removes them): run → (its checkpoint directory, the save's step)
+        self.tensor_saves = {
+            name: (os.path.join(tmp, f"ckpt{r[0]}"), r[5])
+            for name, r in TENSOR_RUNS.items() if r[5]}
+        self.tensor_tmp = tmp
         self.report("tensor", "phase", dict(
             gang2_seconds=seconds[2], gang4_seconds=seconds[4],
+            seconds=time.perf_counter() - t0))
+        return launches
+
+    def elastic_phase(self):
+        """The elastic resize end to end, against ``StandInMaster``: a gang
+        of two ranks on the one card over gloo, each launched as the
+        platform launches a task (``python -m
+        determined_tpu_torch.exec.prep_and_run``: the rendezvous, then the
+        harness), trains GPT-2-small at B 8 x 1024 on ``fsdp=2`` and saves
+        at step 2; rank 1 is SIGKILLed right after that save registers
+        and the stand-in resizes the gang (generation 1, rank_map {"0":
+        0}). The survivor's failed collective asks the master, leaves
+        ``fit`` by ``ElasticResizeExit``, re-enters the rendezvous, refits
+        the mesh to one rank over NCCL, restores step 2 onto it and trains
+        to step 6, exit 0: its losses from step 3 on within 1e-3 of one
+        device restored from the same checkpoint, the ledger's resize and
+        no restart. Then restore only, one step after each, against the
+        one-device continuation within 1e-3: phase tensor's ``tensor=2``
+        save onto one rank over NCCL, and its ``context=2 x tensor=2``
+        save onto ``fsdp=2`` (``ELASTIC_RANK``). → launches."""
+        import datetime
+        import secrets
+        import shutil
+        import socket
+        import tempfile
+
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        from determined_tpu_torch import core
+        from determined_tpu_torch.exec.builtin_trials import SyntheticTrial
+        from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.parallel import MeshConfig, make_mesh
+        from determined_tpu_torch.trainer import Batch, Trainer
+        from determined_tpu_torch.trainer.profile import (
+            RUNGS,
+            RepeatedBatchTrial,
+        )
+
+        def close(got, want, what):
+            rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+            assert len(got) == len(want) > 0 and max(rel) < 1e-3, (
+                what, got, want)
+            return max(rel)
+
+        def free_port():
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                return sock.getsockname()[1]
+
+        def by_step(directory):
+            ids = {}
+            for uuid_ in os.listdir(directory):
+                path = os.path.join(directory, uuid_, "metadata.json")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        ids[json.load(f)["steps_completed"]] = uuid_
+            return ids
+
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="dtpu-elastic-")
+        store = os.path.join(tmp, "ckpt")
+        master = StandInMaster(op_length=ELASTIC_STEPS)
+        master.rendezvous_size = 2
+        alloc = "1.7.0"
+        hp = {"model": "gpt2-small", "batch_size": 8, "seq_len": 1024,
+              "lr": 3e-4}
+        cfg = {"searcher": {"name": "single", "metric": "loss",
+                            "max_length": {"batches": ELASTIC_STEPS}},
+               "min_checkpoint_period": {"batches": ELASTIC_SAVE_AT},
+               "scheduling_unit": 1, "tensorboard": False}
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("DTPU_")}
+        env.update(
+            TMPDIR=tmp, DTPU_MASTER=master.url,
+            DTPU_SESSION_TOKEN=secrets.token_hex(16),
+            DTPU_CLUSTER_ID="chip-smoke", DTPU_TASK_ID="trial-7",
+            DTPU_TASK_TYPE="TRIAL", DTPU_TRIAL_ID="7",
+            DTPU_EXPERIMENT_ID="1", DTPU_TRIAL_SEED="0",
+            DTPU_HPARAMS=json.dumps(dict(hp, mesh={"data": 1, "fsdp": 2})),
+            DTPU_EXPERIMENT_CONFIG=json.dumps(cfg),
+            DTPU_CHECKPOINT_STORAGE=json.dumps(
+                {"type": "shared_fs", "host_path": store}),
+            DTPU_ENTRYPOINT="determined_tpu_torch.exec.builtin_trials:"
+                           "SyntheticTrial",
+            DTPU_ALLOCATION_ID=alloc, DTPU_ALLOC_NUM_PROCS="2")
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(2)]
+        procs = [self.counted_launch(
+            "determined_tpu_torch.exec.prep_and_run", [],
+            dict(env, DTPU_ALLOC_RANK=str(r)), outs[r], logs[r])
+            for r in range(2)]
+        try:
+            def saved():
+                return [b for b in master.checkpoints.values()
+                        if b["state"] == "COMPLETED"
+                        and b["metadata"]["steps_completed"]
+                        == ELASTIC_SAVE_AT]
+
+            try:
+                master.wait_for(lambda: saved() or procs[0].poll()
+                                is not None, 600, "the step-2 checkpoint")
+            finally:
+                if procs[0].poll() is not None:
+                    with open(logs[0]) as f:
+                        raise AssertionError(f.read()[-4000:])
+            t_kill = time.perf_counter()
+            procs[1].kill()
+            directive = master.resize(alloc, [1], "rank 1 SIGKILLed")
+            rc = procs[0].wait(timeout=600)
+            t_exit = time.perf_counter()
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        with open(logs[0]) as f:
+            log = f.read()
+        assert rc == 0, (rc, log[-4000:])
+        assert directive == {"generation": 1, "from_generation": 0,
+                             "num_processes": 1, "rank_map": {"0": 0},
+                             "reason": "rank 1 SIGKILLed"}, directive
+        assert "elastic resize" in log and "entering fit (resize)" in log, (
+            log[-4000:])
+        with open(outs[0]) as f:
+            counts = json.load(f)
+        bodies = [(p, b) for m, p, h, b in master.requests if m == "POST"]
+        reports = {}
+        for p, b in bodies:
+            if p == "/api/v1/trials/7/metrics" and b["group"] == "training":
+                reports[b["steps_completed"]] = b["metrics"]
+        ledger = [b["metrics"] for p, b in bodies
+                  if p == "/api/v1/trials/7/metrics"
+                  and b["group"] == "profiling"][-1]
+        beats = [b["generation"] for p, b in bodies
+                 if p == f"/api/v1/allocations/{alloc}/progress"]
+        assert 7 in master.completed, master.completed
+        assert sorted(reports) == list(range(1, ELASTIC_STEPS + 1)), reports
+        assert beats[-1] == 1 and 0 in beats, beats
+        assert ledger["ledger_resizes"] >= 1, ledger
+        assert ledger["resize_lost_s"] > 0, ledger
+        assert ledger["ledger_restarts"] == 0, ledger
+        # the survivor's steps on both legs: the mono pair, 12 + 12 a step
+        gens = counts["generations"]
+        assert gens[0] == 0 and gens[-1] == 1, gens
+        assert gens.count(1) == ELASTIC_STEPS - ELASTIC_SAVE_AT, gens
+        for i, step in enumerate(counts["per_step"]):
+            got = {n: v for n, v in step.items() if v}
+            assert got == {"flash_fwd_mono": 12, "flash_bwd_mono": 12}, (
+                i, step)
+        launches = dict(counts["launches"])
+        assert not os.path.exists(outs[1])  # SIGKILLed: no exit handler ran
+        uuid2 = by_step(store)[ELASTIC_SAVE_AT]
+        # one device, restored from the same checkpoint
+        ctx = core._dummy_init(checkpoint_storage=store)
+        one = Trainer(SyntheticTrial(hp), ctx)
+        before = {n: k.launches for n, k in _build.KERNELS.items()}
+        one.fit(max_length=Batch(ELASTIC_STEPS), report_period=Batch(1),
+                latest_checkpoint=uuid2)
+        for n, k in _build.KERNELS.items():
+            launches[n] += k.launches - before[n]
+        one_losses = [m["loss"] for g, _, m in ctx.train._reported
+                      if g == "training"]
+        survivor = [reports[s]["loss"]
+                    for s in range(ELASTIC_SAVE_AT + 1, ELASTIC_STEPS + 1)]
+        resize_err = close(survivor, one_losses, "survivor vs one device")
+        del one, ctx
+        torch.cuda.empty_cache()
+        resize_s = time.perf_counter() - t0
+        rec = dict(
+            backend_before="gloo", ranks_before=2, fsdp_before=2,
+            backend_after="nccl", ranks_after=1, generation=1,
+            kill_to_exit_s=t_exit - t_kill,
+            drain_to_resume_s=ledger["resize_lost_s"],
+            restore_s=counts["restores"][-1],
+            survivor_max_rel_loss_vs_one_device=resize_err,
+            goodput_pct=ledger.get("goodput_pct"),
+            mono_launches_per_step=counts["per_step"][-1],
+            steps_before=gens.count(0), steps_after=gens.count(1),
+            seconds=resize_s)
+        self.report("elastic", "gpt2-small bf16 fsdp=2 gloo -> 1 rank nccl",
+                    rec)
+        master.stop()
+
+        # -- restore only: phase tensor's saves onto other layouts ----------
+        t1 = time.perf_counter()
+        trial = lambda: RepeatedBatchTrial(  # noqa: E731
+            8, 1024, config=RUNGS["headline"][1])
+
+        def one_device(directory, uuid_, step):
+            ctx = core._dummy_init(checkpoint_storage=directory)
+            trainer = Trainer(trial(), ctx)
+            trainer._restore_with_fallback(uuid_)
+            trainer.fit(max_length=Batch(step + 1), report_period=Batch(1))
+            return [m for g, _, m in ctx.train._reported
+                    if g == "training"][-1]["loss"]
+
+        t2_dir, t2_step = self.tensor_saves["headline-t2"]
+        t2_uuid = by_step(t2_dir)[t2_step]
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300),
+            device_id=torch.device("cuda", 0))
+        try:
+            ctx = core._dummy_init(checkpoint_storage=t2_dir)
+            meshed = Trainer(trial(), ctx,
+                             mesh=make_mesh(MeshConfig(data=1, fsdp=1)))
+            t_r = time.perf_counter()
+            meshed._restore_with_fallback(t2_uuid)
+            torch.cuda.synchronize()
+            t2_restore_s = time.perf_counter() - t_r
+            before = {n: k.launches for n, k in _build.KERNELS.items()}
+            meshed.fit(max_length=Batch(t2_step + 1), report_period=Batch(1))
+            t2_launches = {n: k.launches - before[n]
+                           for n, k in _build.KERNELS.items()}
+            t2_loss = [m for g, _, m in ctx.train._reported
+                       if g == "training"][-1]["loss"]
+            del meshed, ctx
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        t2_err = close([t2_loss], [one_device(t2_dir, t2_uuid, t2_step)],
+                       "tensor=2 save onto one rank")
+        for n, v in t2_launches.items():
+            launches[n] += v
+        assert {n: v for n, v in t2_launches.items() if v} == {
+            "flash_fwd_mono": 12, "flash_bwd_mono": 12}, t2_launches
+
+        c_dir, c_step = self.tensor_saves["headline-c2t2-ring"]
+        c_uuid = by_step(c_dir)[c_step]
+        port = free_port()
+        outs = [os.path.join(tmp, f"fsdp2-rank{r}.json") for r in range(2)]
+        logs = [tempfile.TemporaryFile() for _ in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", ELASTIC_RANK, str(r), str(port), outs[r],
+             c_dir, c_uuid, str(c_step)], stdout=logs[r],
+            stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+            for r in range(2)]
+        try:
+            codes = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = []
+        for r, code in enumerate(codes):
+            logs[r].seek(0)
+            assert code == 0, (r, logs[r].read().decode()[-4000:])
+            logs[r].close()
+            with open(outs[r]) as f:
+                ranks.append(json.load(f))
+        assert ranks[0]["loss"] == ranks[1]["loss"], ranks
+        # the blocks at fsdp=2: wqkv [12, 384, 3, 12, 64] a rank
+        assert [12, 384, 3, 12, 64] in ranks[0]["held"], ranks[0]["held"]
+        c_err = close([ranks[0]["loss"]], [one_device(c_dir, c_uuid, c_step)],
+                      "context=2 x tensor=2 save onto fsdp=2")
+        for x in ranks:
+            got = {n: v for n, v in x["launches"].items() if v}
+            assert got == {"flash_fwd_mono": 12, "flash_bwd_mono": 12}, x
+            for n, v in x["launches"].items():
+                launches[n] += v
+        self.report("elastic", "restore onto another layout", dict(
+            t2_onto_one_rank_nccl_max_rel_loss=t2_err,
+            t2_onto_one_rank_restore_s=t2_restore_s,
+            c2t2_onto_fsdp2_gloo_max_rel_loss=c_err,
+            c2t2_onto_fsdp2_restore_s=[x["restore_s"] for x in ranks],
+            seconds=time.perf_counter() - t1))
+        shutil.rmtree(self.tensor_tmp, ignore_errors=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        self.report("elastic", "phase", dict(
             seconds=time.perf_counter() - t0))
         return launches
 
@@ -4499,14 +4922,15 @@ def main() -> int:
                      if n in ("flash_bwd_dq", "flash_bwd_dkv")})
     smoke.train_packed_phase()
 
-    # -- phases 11 to 20: checkpoints, the fixture, the rest of serving, the
+    # -- phases 11 to 21: checkpoints, the fixture, the rest of serving, the
     # -- rest of the training loop, the exec layer off and on the cluster, the
-    # -- mesh, the context axis and the tensor axis ---------------------------------
+    # -- mesh, the context axis, the tensor axis and the elastic resize ----------
     for phase in (smoke.checkpoint_phase, smoke.fixture_phase,
                   smoke.serving_http_phase, smoke.serving_parity_phase,
                   smoke.train_health_phase, smoke.exec_phase,
                   smoke.cluster_phase, smoke.mesh_phase,
-                  smoke.context_phase, smoke.tensor_phase):
+                  smoke.context_phase, smoke.tensor_phase,
+                  smoke.elastic_phase):
         for name, count in phase().items():
             launches[name] += count
 

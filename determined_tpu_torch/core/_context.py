@@ -15,8 +15,10 @@ from the environment:
   process per device, the local rank's ``cuda:<local_rank>`` (or the CPU
   when the caller passes ``device="cpu"``), ``torch.distributed`` joined
   at the chief's coordinator address with an explicit timeout — NCCL on
-  the card, gloo on the CPU, never one in place of the other — and the
-  ``DistributedContext`` on gloo groups of its own. ``close()`` leaves the
+  the cards, gloo on the CPU, and gloo on the cards when a host's ranks
+  outnumber its cards (NCCL puts no two ranks on one device; the ranks
+  then share the cards round-robin) — and the ``DistributedContext`` on
+  gloo groups of its own. ``close()`` leaves the
   groups on every exit path, so a failing rank does not strand its
   peers;
 - off-cluster: dummy contexts (``_dummy_init``), the official way to run
@@ -145,9 +147,15 @@ def _init_gang(rdzv: _info.RendezvousInfo,
     dev = resolve_device(device)
     kwargs: dict = {}
     if dev.type == "cuda":
-        torch.cuda.set_device(rdzv.local_rank)
-        backend = "nccl"
-        kwargs["device_id"] = torch.device("cuda", rdzv.local_rank)
+        cards = torch.cuda.device_count()
+        mine = rdzv.container_addrs[rdzv.container_rank]
+        if rdzv.container_addrs.count(mine) > cards:
+            torch.cuda.set_device(rdzv.local_rank % cards)
+            backend = "gloo"
+        else:
+            torch.cuda.set_device(rdzv.local_rank)
+            backend = "nccl"
+            kwargs["device_id"] = torch.device("cuda", rdzv.local_rank)
     elif dev.type == "cpu":
         backend = "gloo"
     else:

@@ -6,8 +6,8 @@ progress and status to their trial routes, and the heartbeat to ``POST
 /api/v1/allocations/<id>/progress``, whose response may carry an
 operator's ``profile_capture`` directive (latched, popped by the trainer
 at its report boundary through ``take_profile_capture``) or an elastic
-``resize`` directive (returned; the trainer refuses it by name, ROADMAP
-queue 1, item 5).
+``resize`` directive (returned; the trainer folds it into the boundary's
+preemption broadcast and leaves ``fit`` through ``ElasticResizeExit``).
 
 ``DummyTrainContext`` is the off-cluster one: reports are logged and kept
 in ``_reported`` as (group, steps_completed, metrics), heartbeats in

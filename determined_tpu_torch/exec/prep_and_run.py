@@ -15,8 +15,8 @@ Port of ``determined_tpu/exec/prep_and_run.py`` on the port's master
    409 from the master carries the resize directive that re-maps this
    rank (and the round is retried under the new generation), or drops it
    (exit 0). A gang of one publishes nothing and clears stale variables.
-   ``apply_resize`` (re-entering the rendezvous for an elastic resize) is
-   refused by name: ROADMAP queue 1, item 5;
+   ``apply_resize`` re-enters the rendezvous for an elastic resize, in the
+   same process: the harness's resize loop calls it;
 3. the entrypoint runs: ``pkg.module:TrialClass`` through the trial
    harness in this process, with SIGTERM translated into a preemption
    request (``POST .../signals/preemption_from_task``), so the trainer
@@ -37,6 +37,7 @@ import socket
 import subprocess
 import sys
 
+from determined_tpu_torch.common import faults
 from determined_tpu_torch.common.api_session import HTTPError, Session
 
 logger = logging.getLogger("determined_tpu_torch.exec")
@@ -141,12 +142,37 @@ def _rendezvous_round(master_url: str, alloc_id: str, rank: int,
 
 
 def apply_resize(master_url: str, directive: dict) -> bool:
-    """Re-entering the rendezvous under a resize directive's generation:
-    the elastic slice."""
-    raise NotImplementedError(
-        f"apply_resize({directive!r}): an elastic gang resize comes with "
-        "ROADMAP queue 1, item 5"
-    )
+    """Re-enter the rendezvous under a resize directive's generation:
+    this process's rank re-numbered through ``rank_map``, the identity
+    variables (rank, size, generation, rendezvous table) rewritten, and
+    the protocol run again, so the survivors (and any newcomers) form
+    the new gang in the same allocation and process. A 409 on the way
+    (a newer resize) re-maps again, or exits 0 when it drops this rank.
+
+    Returns False when the directive dropped this rank (the caller exits
+    cleanly); raises when it could not map it (``resync_only``). The
+    ``resize.rendezvous`` fault site fails the re-entry in drills."""
+    old_rank = int(os.environ.get("DTPU_ALLOC_RANK", "0"))
+    new_rank = (directive.get("rank_map") or {}).get(str(old_rank))
+    if new_rank is None:
+        if directive.get("resync_only"):
+            raise RuntimeError(
+                f"resize directive could not map rank {old_rank} (history "
+                "gap); erroring out for re-sync")
+        logger.info("resize to generation %s dropped rank %d; exiting",
+                    directive.get("generation"), old_rank)
+        return False
+    num_procs = int(directive["num_processes"])
+    generation = int(directive["generation"])
+    os.environ["DTPU_ALLOC_RANK"] = str(new_rank)
+    os.environ["DTPU_ALLOC_NUM_PROCS"] = str(num_procs)
+    faults.inject("resize.rendezvous")
+    logger.info("elastic resize: rank %d -> %d of %d (generation %d); "
+                "re-entering the rendezvous", old_rank, int(new_rank),
+                num_procs, generation)
+    rendezvous(master_url, os.environ.get("DTPU_ALLOCATION_ID", ""),
+               int(new_rank), num_procs, generation)
+    return True
 
 
 def _task_session(master_url: str) -> Session:

@@ -46,6 +46,16 @@ class Model(nn.Module):
             node[leaf] = (None,) * p.dim()
         return out
 
+    def gather_at_use(self, layout: Any) -> bool:
+        """Offered by the Trainer on an fsdp axis above 1 (``layout``: its
+        ``trainer._mesh.MeshLayout``, whose ``split_dims`` name the
+        parameters held as this rank's blocks): a model that gathers each
+        split parameter where it uses it, through ``layout.gather``,
+        takes it and returns True. Default False: the Trainer gathers
+        every split parameter at the step's start."""
+        del layout
+        return False
+
     def eval_metrics(self, batch: Batch) -> Metrics:
         """Validation metrics for one batch; default reuses loss()."""
         loss, metrics = self.loss(batch)

@@ -347,6 +347,10 @@ class GPT(Model):
         #: the optional serving copy: compute-dtype casts made once
         #: (cache_compute_weights), keyed by parameter name.
         self._compute: Dict[str, torch.Tensor] = {}
+        #: the Trainer's layout on an fsdp axis (``gather_at_use``) and
+        #: {name: fsdp dimension} of the parameters held as its blocks
+        self._fsdp: Any = None
+        self._fsdp_dims: Dict[str, int] = {}
 
     def train_flops_per_token(self) -> float:
         """The config's fwd+bwd FLOPs per token (the trainer's
@@ -374,6 +378,11 @@ class GPT(Model):
                 f"GPT.{what} on a mesh with tensor={self._tensor}: the "
                 "reference serves on no mesh; serve from a GPT built "
                 "without one")
+        if self._fsdp_dims:
+            raise NotImplementedError(
+                f"GPT.{what} on a model that holds its fsdp blocks: the "
+                "reference serves on no mesh; serve from a GPT built "
+                "without one (Trainer.full_parameters gives its weights)")
 
     def logical_axes(self) -> Dict[str, Any]:
         """The reference's ``GPT.logical_axes()``: each parameter's
@@ -444,14 +453,35 @@ class GPT(Model):
         w.update({n: self.blocks[n][i] for n in _BLOCK_FP32})
         return w
 
+    def gather_at_use(self, layout: Any) -> bool:
+        """On an fsdp axis the split parameters are this rank's blocks;
+        the training forward gathers each where it uses it: a layer's
+        weights in that layer (inside its rematted region, whose
+        recompute gathers again), the embedding, positional table and
+        head once each."""
+        self._fsdp = layout
+        self._fsdp_dims = layout.split_dims
+        return True
+
     def _train_layers(self) -> List[Dict[str, torch.Tensor]]:
         """Every layer's weights cast from the live parameters INSIDE the
         graph (one cast per stacked parameter, then per-layer views): the
-        training forward's gradients reach the fp32 masters."""
+        training forward's gradients reach the fp32 masters. A block
+        parameter split over fsdp is gathered at each use of its layer's
+        weight instead (``_Weights``)."""
         c = self.config
-        cols = {n: self.blocks[n].to(c.dtype).unbind(0) for n in _BLOCK_COMPUTE}
+        cols: Dict[str, Any] = {}
+        for n in _BLOCK_COMPUTE:
+            dim = self._fsdp_dims.get(f"blocks.{n}")
+            if dim is None:
+                cols[n] = self.blocks[n].to(c.dtype).unbind(0)
+            else:
+                cols[n] = [functools.partial(self._fsdp.gather, layer,
+                                             dim - 1, c.dtype)
+                           for layer in self.blocks[n].unbind(0)]
         cols.update({n: self.blocks[n].unbind(0) for n in _BLOCK_FP32})
-        return [{n: cols[n][i] for n in cols} for i in range(c.n_layers)]
+        return [_Weights({n: cols[n][i] for n in cols})
+                for i in range(c.n_layers)]
 
     # -- pieces of a block ---------------------------------------------------
     def _qkv(self, x: torch.Tensor, w: Dict[str, torch.Tensor]):
@@ -850,18 +880,18 @@ class GPT(Model):
         """Embed + blocks → pre-final-layernorm [B, S, D] in the compute
         dtype, differentiable in every parameter."""
         c = self.config
-        tok = self.tok_embed.to(c.dtype)
         positions = self._local_positions(positions, tokens.shape[1])
-        x = self._embed(tok, self.pos_embed.to(c.dtype), tokens, positions)
+        x = self._embed(self._cast("tok_embed"), self._cast("pos_embed"),
+                        tokens, positions)
         remat = c.remat and torch.is_grad_enabled()
         checkpoint = functools.partial(
             torch.utils.checkpoint.checkpoint, use_reentrant=False,
             context_fn=_remat_context,
         )
-        if self._context > 1 or self._tensor > 1:
-            # The recompute reissues the ring's rotations and the tensor
-            # all-reduces: it must run the whole region on every rank,
-            # whatever this rank's graph needs.
+        if self._context > 1 or self._tensor > 1 or self._fsdp_dims:
+            # The recompute reissues the ring's rotations, the tensor
+            # all-reduces and the fsdp gathers: it must run the whole
+            # region on every rank, whatever this rank's graph needs.
             checkpoint = _no_early_stop(checkpoint)
         for w in self._train_layers():
             if remat and remat_attention(c):
@@ -872,6 +902,21 @@ class GPT(Model):
             else:
                 x = self._block(x, w, segment_ids)
         return x
+
+    def _cast(self, name: str) -> torch.Tensor:
+        """Whole parameter `name` in the compute dtype, in the graph (on an
+        fsdp axis gathered from this rank's block, ``gather_at_use``)."""
+        p = self.get_parameter(name)
+        if name in self._fsdp_dims:
+            return self._fsdp.gather(p, self._fsdp_dims[name],
+                                     self.config.dtype)
+        return p.to(self.config.dtype)
+
+    def _w_out(self) -> torch.Tensor:
+        """The head's weight [d, V] in the compute dtype, in the graph."""
+        if self.config.tie_embeddings:
+            return self._cast("tok_embed").t()
+        return self._cast("head")
 
     def _local_positions(self, positions: Optional[torch.Tensor],
                          s_local: int) -> Optional[torch.Tensor]:
@@ -904,10 +949,8 @@ class GPT(Model):
         """The differentiable forward: tokens [B, S] int → logits
         [B, S, V] in the compute dtype (on a tensor axis this rank's
         [B, S, V/t] columns)."""
-        c = self.config
         x = self._forward_trunk(tokens, positions, segment_ids)
-        w_out = (self.tok_embed.t() if c.tie_embeddings else self.head)
-        return self._head(x, w_out.to(c.dtype))
+        return self._head(x, self._w_out())
 
     def loss(self, batch: Dict[str, Any],
              generator: Optional[torch.Generator] = None
@@ -969,17 +1012,26 @@ class GPT(Model):
         c = self.config
         x = self._forward_trunk(tokens, positions, segment_ids)
         hidden = _layernorm(x, self.lnf_scale, self.lnf_bias)
-        w_out = (self.tok_embed.t() if c.tie_embeddings else self.head)
         if targets is None:
             # the in-model shift: position i predicts token i+1
             hidden = hidden[:, :-1]
             targets = tokens[:, 1:]
             mask = mask[:, 1:]
         obj, _nll, _z, acc_sum, n_tok = fused_next_token_sums(
-            hidden, w_out.to(c.dtype), targets, mask, z_loss=c.z_loss or 0.0)
+            hidden, self._w_out(), targets, mask, z_loss=c.z_loss or 0.0)
         n = torch.clamp(n_tok, min=1.0)
         loss = obj / n
         return loss, {"loss": loss, "accuracy": acc_sum / n, "tokens": n_tok}
+
+
+class _Weights(dict):
+    """One layer's weights by name. A weight held as this rank's fsdp
+    block is a call that gathers it, made at each read: a rematted
+    region gathers what it reads, and its recompute gathers again."""
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        w = super().__getitem__(name)
+        return w() if callable(w) else w
 
 
 def _no_early_stop(checkpoint):

@@ -5,7 +5,8 @@ six, in its order (outermost first): ``pipeline``, ``data``, ``fsdp``,
 ``expert``, ``context``, ``tensor``. ``MeshConfig`` resolves the degrees
 as the reference does (one axis may be -1, inferred from the device
 count) and ``refit`` is the reference's arithmetic for an elastic resize
-(its use, the resize itself, is ROADMAP queue 1, item 5).
+(the harness's resize loop refits a configured mesh that no longer fits
+the resized gang, ``exec/harness.py:resolve_mesh``).
 
 ``make_mesh`` builds a ``torch.distributed.device_mesh.DeviceMesh`` over
 the gang that ``torch.distributed`` already joined (``core.init()`` joins

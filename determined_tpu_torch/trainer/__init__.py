@@ -7,11 +7,11 @@ Port of ``determined_tpu/trainer``, on one device or on a ``data ×
 fsdp`` device mesh (``_mesh.py``; see ``_trainer.py``).
 """
 from determined_tpu_torch.trainer import optim
-from determined_tpu_torch.trainer._trainer import Trainer
+from determined_tpu_torch.trainer._trainer import ElasticResizeExit, Trainer
 from determined_tpu_torch.trainer._trial import TorchTrial
 from determined_tpu_torch.trainer._units import Batch, Epoch, TrainUnit, to_batches
 
 __all__ = [
-    "Trainer", "TorchTrial", "Batch", "Epoch", "TrainUnit", "to_batches",
+    "ElasticResizeExit", "Trainer", "TorchTrial", "Batch", "Epoch", "TrainUnit", "to_batches",
     "optim",
 ]

@@ -31,8 +31,11 @@ the blocks it holds replica 0 of — a block that is not the whole leaf as
 the leaf's own name — and the chief alone writes the rest (the step, the
 optimizer's counts) and ``tree.json``. Loading into a view of ``Shard``
 leaves reads each rank's own block (``_read_region``) at the layout the
-gang has; a checkpoint sharded in another layout is refused by name
-(resharding is the elastic slice, ROADMAP queue 1, item 5).
+gang has now, whatever layout wrote the files (one rank, ``fsdp``,
+``tensor``, ``context``): the region is stitched from every shard file
+that overlaps it, and a region the files do not cover raises
+``CorruptCheckpointError``. ``load_pytree(shardings=...)`` is the same
+read with the reference's signature: a ``Placement`` per leaf.
 """
 from __future__ import annotations
 
@@ -114,6 +117,20 @@ class Shard:
     @property
     def region(self) -> List[Tuple[int, int]]:
         return [(s, s + n) for s, n in zip(self.starts, self.local.shape)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where one leaf lives on a gang: its global shape and this rank's
+    region of it ([start, stop) per dimension): the port's counterpart of
+    the reference's ``NamedSharding`` leaf in ``load_pytree``."""
+
+    shape: Tuple[int, ...]
+    region: Tuple[Tuple[int, int], ...]
+
+    @classmethod
+    def of(cls, shard: "Shard") -> "Placement":
+        return cls(tuple(shard.shape), tuple(shard.region))
 
 
 # ---------------------------------------------------------------------------
@@ -466,36 +483,33 @@ def load_pytree(directory: str, like: Any, shardings: Optional[Any] = None) -> A
     missing leaf, drifted shapes or incomplete shards changes nothing.
     A torch leaf of `like` comes back as a tensor of its dtype on its
     device; any other leaf as a numpy array of its dtype. A ``Shard`` leaf
-    comes back as its block alone, read at the gang's layout: from a
-    whole leaf's file, or from the shard file that holds exactly this
-    block.
+    comes back as its block alone, read at the gang's layout from whatever
+    files hold it (a whole leaf's file, or the shard files of any layout).
 
-    ``shardings`` (the reference's lazy restore onto a NEW device mesh)
-    is the elastic reshard, a later item (``ROADMAP.md`` queue 1, item 5);
-    so is a ``Shard`` leaf saved in another layout.
+    `shardings` (the reference's lazy restore onto a new mesh): the same
+    structure as `like`, each leaf a ``Placement`` (global shape and this
+    rank's region; a ``Shard`` gives its own) or None (the whole leaf).
+    Each leaf is read at its placement only, from the files of whatever
+    layout wrote them, and comes back as this rank's region of it.
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            "load_pytree(shardings=...) onto a new layout is the elastic "
-            "reshard (ROADMAP queue 1, item 5); a gang restores at the "
-            "layout it saved"
-        )
     leaves = list(_flatten_with_path(like))
+    if shardings is None:
+        placements: List[Optional[Placement]] = [
+            Placement.of(leaf) if isinstance(leaf, Shard) else None
+            for _, leaf in leaves]
+    else:
+        placements = [_placement(sh) for sh in _leaves_of(shardings, like)]
     inventory = _checkpoint_inventory(directory)
     host = []
-    for path, leaf in leaves:
+    for (path, leaf), place in zip(leaves, placements):
         name = _leaf_name(path)
-        if isinstance(leaf, Shard):
-            _refuse_reshard(inventory.get(name), name, leaf)
-            host.append(_read_region(
-                directory, name, leaf.region, tuple(leaf.shape),
-                _leaf_dtype(leaf.local), inventory,
-            ))
-            continue
-        shape = tuple(leaf.shape)
+        local = leaf.local if isinstance(leaf, Shard) else leaf
+        if place is None:
+            shape = tuple(local.shape)
+            place = Placement(shape, tuple((0, d) for d in shape))
         host.append(_read_region(
-            directory, name, [(0, d) for d in shape], shape,
-            _leaf_dtype(leaf), inventory,
+            directory, name, list(place.region), tuple(place.shape),
+            _leaf_dtype(local), inventory,
         ))
     out = []
     for (_, leaf), arr in zip(leaves, host):
@@ -506,18 +520,30 @@ def load_pytree(directory: str, like: Any, shardings: Optional[Any] = None) -> A
     return _unflatten(like, iter(out))
 
 
-def _refuse_reshard(entry: Optional[Dict[str, Any]], name: str,
-                    leaf: Shard) -> None:
-    """A sharded leaf must hold this rank's block as one shard file; a
-    whole leaf's file serves any block."""
-    if not entry or "file" in entry or "shards" not in entry:
-        return
-    block = (list(leaf.starts), tuple(leaf.local.shape))
-    if any((starts, fshape) == block for starts, fshape, _ in entry["shards"]):
-        return
-    raise NotImplementedError(
-        f"checkpoint leaf {name} is sharded in another layout than this "
-        f"gang's (block at {list(leaf.starts)} of {tuple(leaf.local.shape)}); "
-        "restoring onto a new layout is the elastic reshard (ROADMAP queue "
-        "1, item 5)"
-    )
+def _placement(leaf: Any) -> Optional[Placement]:
+    if leaf is None or isinstance(leaf, Placement):
+        return leaf
+    if isinstance(leaf, Shard):
+        return Placement.of(leaf)
+    raise TypeError(
+        f"a shardings leaf is a Placement, a Shard or None, not "
+        f"{type(leaf).__name__}")
+
+
+def _leaves_of(shardings: Any, like: Any) -> List[Any]:
+    """`shardings`' leaves in `like`'s order (a None or Placement leaf
+    stands for a whole subtree's leaves only where `like` has a leaf)."""
+    out: List[Any] = []
+
+    def walk(s: Any, l: Any) -> None:
+        if isinstance(l, dict):
+            for key in sorted(l):
+                walk(None if s is None else s[key], l[key])
+        elif _is_namedtuple(l) or isinstance(l, (tuple, list)):
+            for i, v in enumerate(l):
+                walk(None if s is None else s[i], v)
+        elif l is not None:
+            out.append(s)
+
+    walk(shardings, like)
+    return out

@@ -6,31 +6,37 @@ process drives one device, and ``MeshLayout`` does by hand what the
 reference's shardings imply, from the same rule table
 (``parallel/sharding.py``) over the model's ``logical_axes()``:
 
-- **Parameters and optimizer state** live as each rank's block: a
-  parameter whose "embed" dimension the rules map to ``fsdp`` is split
-  along that dimension over the fsdp axis; on a tensor axis above 1 one
-  that the model holds a slice of (``tensor_dims``: its "heads", "mlp"
-  or "vocab" dimension, which the reference's rules map to ``tensor``)
-  is split along it over the tensor axis, and a parameter may be split both ways, on two
+- **Parameters and optimizer state** live as each rank's block (ZeRO-3,
+  as the reference's GSPMD layout keeps them): a parameter whose "embed"
+  dimension the rules map to ``fsdp`` is split along that dimension
+  over the fsdp axis; on a tensor axis above 1 one that the model holds
+  a slice of (``tensor_dims``: its "heads", "mlp" or "vocab" dimension,
+  which the reference's rules map to ``tensor``) is split along it over
+  the tensor axis, and a parameter may be split both ways, on two
   dimensions; every other one is whole on every rank. Every block is
   replicated over ``data`` and ``context``, and a parameter that the
-  tensor axis does not split over it too.
+  tensor axis does not split over it too. The model's own
+  ``nn.Parameter`` of a split leaf holds the block alone
+  (``shard_parameters``, after the first broadcast from rank 0, which
+  is the only time a whole copy exists); a whole one is its own block.
   The trial's optimizer chain (``trainer.optim``, optax's arithmetic)
   runs on the blocks, so the AdamW moments take the parameters' layout,
   and ``optim.global_norm`` is the whole gradient's norm
   (``norm_reduction``: the blocks' sums of squares, all-reduced over
   fsdp once a step; the whole parameters' added once).
-- **The model computes with its parameters** (its ``nn.Parameter``s, a
-  working copy: whole, or on a tensor axis the rank's tensor slices):
-  ``gather`` all-gathers the blocks into them over fsdp only after every
-  update and restore, so between steps the working copy equals the
-  gathered state. A parameter that is whole on every rank is
-  its own block (the block aliases it), so only the split ones have a
-  second copy. Every rank thus keeps the whole working copy and, in the
-  step, whole gradients: the optimizer state and the blocks are split,
-  the working copy is not (ZeRO-1-like, unlike the reference's GSPMD
-  layout, where the parameters too live split). The attention kernels
-  see each rank's local activations as plain tensors.
+- **Gathered at use** (``gather``, an autograd Function): the forward
+  casts the block to the compute dtype and all-gathers it over fsdp
+  (bitwise the cast of the gathered fp32, at half the bytes); the
+  backward reduce-scatters the gathered weight's gradient, in fp32, over
+  fsdp into the block's gradient. The GPT gathers one layer's weights
+  at a time (``Model.gather_at_use``), inside its rematted regions,
+  whose recompute gathers again; a gathered weight that autograd would
+  keep for the backward (a matmul's operand) is saved as a token and
+  gathered again when the backward reads it (``regather_saved``), so no
+  whole weight outlives its layer. Any other model gets its split leaves
+  gathered once at the step's start (``gathered_into``); autograd frees
+  them in the backward. The attention kernels see each rank's local
+  activations as plain tensors.
 - **The batch** (``local``): rows split over ``("data", "fsdp")``, data
   major (``rows``); on a context axis above 1 the sequence (dimension 1
   of every batch array but a per-row [B] one) split over ``context``,
@@ -51,9 +57,10 @@ reference's shardings imply, from the same rule table
   too). The ranks of one tensor group compute the same loss over the
   same rows (``replica_group``: the ranks that hold one tensor slice).
 - **Gradients**: a parameter split over fsdp is reduce-scattered over
-  fsdp (summed) and all-reduced over every other replica of its block,
-  data and context; any other is all-reduced over data × fsdp × context
-  (the gang when the tensor axis has one rank) in one flat buffer. A
+  fsdp (summed) in the backward of its gather and all-reduced over
+  every other replica of its block, data and context; any other is
+  all-reduced over data × fsdp × context (the gang when the tensor axis
+  has one rank) in one flat buffer. A
   tensor slice's gradient is its own rank's, and one that the tensor
   axis replicates is the same on every rank of the group (*f* sums
   theirs); neither is summed over tensor. The global norm all-reduces
@@ -75,8 +82,9 @@ does the one-device step's work and the layout's bookkeeping.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -209,6 +217,13 @@ class MeshLayout:
                 tuple(local_region(shape, placements, mesh)),
                 replica_index(placements, mesh) == 0,
             ))
+        self.fsdp = fsdp
+        self.names = [name for name, _ in named]
+        #: {parameter name: the dimension split over fsdp} of the
+        #: parameters that live as blocks smaller than the model's tensor
+        self.split_dims = {name: b.dim for name, b in zip(self.names,
+                                                          self.blocks)
+                           if b.dim is not None}
         device = named[0][1].device if named else torch.device("cpu")
         #: per parameter 1.0 where fsdp / tensor / both split it: the
         #: norm's parts all-reduced over those axes.
@@ -219,33 +234,82 @@ class MeshLayout:
              for b in self.blocks], device=device).reshape(-1, 3)
 
     # -- placement ---------------------------------------------------------
-    def block_of(self, full: torch.Tensor, i: int) -> torch.Tensor:
-        """This rank's block of parameter i: one whole over fsdp is the
-        working copy itself (its storage), a split one's a copy of its
-        region (the fsdp dimension is never split over tensor, so its
-        indices are the working copy's)."""
-        b = self.blocks[i]
-        if b.dim is None:
-            return full.detach()
-        lo, hi = b.region[b.dim]
-        return full.detach().narrow(b.dim, lo, hi - lo).contiguous().clone()
+    def shard_parameters(self, params: Sequence[torch.Tensor]) -> None:
+        """Each split parameter's storage ← a copy of this rank's region
+        of it, freeing the whole tensor (the fsdp dimension is never split
+        over tensor, so its indices are the model's tensor's); one whole
+        over fsdp is its own block."""
+        with torch.no_grad():
+            for b, p in zip(self.blocks, params):
+                if b.dim is not None:
+                    lo, hi = b.region[b.dim]
+                    p.data = p.detach().narrow(b.dim, lo, hi - lo).clone()
 
-    def gather(self, blocks: Sequence[torch.Tensor],
-               fulls: Sequence[torch.Tensor]) -> None:
-        """The working copy ← the gathered blocks (all-gather over fsdp
-        for the parameters split over it; one whole over fsdp is its own
-        block)."""
+    def _all_gather(self, block: torch.Tensor, dim: int,
+                    dtype: Optional[torch.dtype]) -> torch.Tensor:
         import torch.distributed as dist
 
+        src = block.detach() if dtype is None else block.detach().to(dtype)
+        src = src.movedim(dim, 0).contiguous()
+        out = torch.empty((src.shape[0] * self.fsdp, *src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        dist.all_gather_into_tensor(out, src, group=self.fsdp_group)
+        return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+    def _reduce_scatter(self, whole: torch.Tensor, dim: int) -> torch.Tensor:
+        import torch.distributed as dist
+
+        src = whole.movedim(dim, 0).contiguous()
+        part = torch.empty((src.shape[0] // self.fsdp, *src.shape[1:]),
+                           dtype=src.dtype, device=src.device)
+        dist.reduce_scatter_tensor(part, src, group=self.fsdp_group)
+        return part if dim == 0 else part.movedim(0, dim).contiguous()
+
+    def gather(self, block: torch.Tensor, dim: int,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The whole tensor of `block` (this rank's part of it, split on
+        `dim` over fsdp), in `dtype` (None: the block's), through
+        ``_Gather``: its gradient is reduce-scattered into the block's. A
+        matmul that saves the result for the backward saves a token
+        under ``regather_saved``."""
+        whole = _Gather.apply(block, self, dim, dtype)
+        if whole.requires_grad:
+            whole._dtpu_regather = (self, block, dim, dtype)
+        return whole
+
+    def regather_saved(self) -> Any:
+        """Within this context autograd saves a gathered weight (or a
+        view of one) as a token, and the backward gathers it again where
+        it reads it."""
+        return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
+
+    @contextlib.contextmanager
+    def gathered_into(self, model: Any) -> Iterator[None]:
+        """The model's split parameters replaced by their gathered wholes
+        while the block runs; the blocks are back on the way out."""
+        swapped = []
+        try:
+            for name, dim in self.split_dims.items():
+                owner, _, leaf = name.rpartition(".")
+                module = model.get_submodule(owner)
+                block = module._parameters[leaf]
+                module._parameters[leaf] = _Gather.apply(block, self, dim,
+                                                         None)
+                swapped.append((module, leaf, block))
+            yield
+        finally:
+            for module, leaf, block in swapped:
+                module._parameters[leaf] = block
+
+    def gather_whole(self, blocks: Sequence[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+        """Every parameter whole over fsdp (a collective; no graph): the
+        split ones all-gathered from their blocks, the others as they
+        are."""
         with torch.no_grad():
-            for b, blk, full in zip(self.blocks, blocks, fulls):
-                if b.dim is None:
-                    continue
-                src = blk.movedim(b.dim, 0).contiguous()
-                out = torch.empty((b.shape[b.dim], *src.shape[1:]),
-                                  dtype=src.dtype, device=src.device)
-                dist.all_gather_into_tensor(out, src, group=self.fsdp_group)
-                full.copy_(out.movedim(0, b.dim))
+            return [blk.detach() if b.dim is None
+                    else self._all_gather(blk, b.dim, None)
+                    for b, blk in zip(self.blocks, blocks)]
 
     def broadcast_from_rank0(self, fulls: Sequence[torch.Tensor]) -> None:
         """Every rank starts from rank 0's parameters; a tensor slice
@@ -315,8 +379,11 @@ class MeshLayout:
 
     def reduce_grads(self, grads: Sequence[torch.Tensor]
                      ) -> List[torch.Tensor]:
-        """Whole gradients of this rank's weighted loss → the gang's
-        summed gradient, each as this rank's block."""
+        """The gradients of this rank's weighted loss w.r.t. its blocks →
+        the gang's summed gradient of each block: a split block's, already
+        reduce-scattered over fsdp by its gather's backward, all-reduced
+        over its other replicas (data × context); a whole one's over the
+        replica group in one flat buffer."""
         import torch.distributed as dist
 
         out: List[torch.Tensor] = list(grads)
@@ -324,16 +391,11 @@ class MeshLayout:
         for i, (b, g) in enumerate(zip(self.blocks, grads)):
             if b.dim is None:
                 continue
-            src = g.movedim(b.dim, 0).contiguous()
-            part = torch.empty((src.shape[0] // int(self.fsdp_group.size()),
-                                *src.shape[1:]),
-                               dtype=src.dtype, device=src.device)
-            dist.reduce_scatter_tensor(part, src, group=self.fsdp_group)
-            # the block's other replicas: data × context
             for group in (self.data_group, self.context_group):
                 if int(group.size()) > 1:
-                    dist.all_reduce(part, group=group)
-            out[i] = part.movedim(0, b.dim).contiguous()
+                    g = g.contiguous()
+                    dist.all_reduce(g, group=group)
+            out[i] = g
         if whole and self.world > self.tp:
             flat = torch.cat([grads[i].reshape(-1) for i in whole])
             dist.all_reduce(flat, group=self.replica_group)
@@ -380,6 +442,50 @@ class MeshLayout:
         if self.world > self.tp:
             dist.all_reduce(vals, group=self.replica_group)
         return dict(zip(keys, vals.unbind(0)))
+
+
+class _Gather(torch.autograd.Function):
+    """A block → its whole tensor over fsdp (cast first, so the gather
+    moves the compute dtype); the backward reduce-scatters the whole
+    gradient, in the block's dtype (fp32), into the block's."""
+
+    @staticmethod
+    def forward(ctx, block, layout, dim, dtype):  # noqa: ANN001
+        ctx.layout, ctx.dim, ctx.block_dtype = layout, dim, block.dtype
+        return layout._all_gather(block, dim, dtype)
+
+    @staticmethod
+    def backward(ctx, grad):  # noqa: ANN001
+        return (ctx.layout._reduce_scatter(grad.to(ctx.block_dtype), ctx.dim),
+                None, None, None)
+
+
+class _Regather:
+    """A saved view of a gathered weight, as a token: its block and the
+    view's geometry."""
+
+    __slots__ = ("source", "size", "stride", "offset")
+
+    def __init__(self, source: Tuple[Any, ...], t: torch.Tensor) -> None:
+        self.source = source
+        self.size, self.stride = t.size(), t.stride()
+        self.offset = t.storage_offset()
+
+
+def _pack(t: torch.Tensor) -> Any:
+    base = t if t._base is None else t._base
+    source = getattr(base, "_dtpu_regather", None)
+    if source is None:
+        return t
+    return _Regather(source, t)
+
+
+def _unpack(saved: Any) -> torch.Tensor:
+    if not isinstance(saved, _Regather):
+        return saved
+    layout, block, dim, dtype = saved.source
+    whole = layout._all_gather(block, dim, dtype)
+    return whole.as_strided(saved.size, saved.stride, saved.offset)
 
 
 def preshift(batch: Dict[str, Any]) -> Dict[str, Any]:

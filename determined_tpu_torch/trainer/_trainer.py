@@ -67,11 +67,20 @@ rollback target), and a restore is agreed by all ranks or by none
 the replica-divergence audit (``_divergence_audit``). Each rank draws
 from its own generator, seeded from (seed, rank).
 
+An elastic resize (the master shrank or grew the gang in place: a
+directive on the heartbeat's or the preemption poll's answer, folded into
+the boundary's broadcast) leaves ``fit`` at the next report boundary by
+``ElasticResizeExit``, carrying the directive and the last verified
+checkpoint; so does a step whose collective failed because a peer died,
+when the master has a directive pending (``directive_after_failure``). The
+harness rebuilds the gang, the mesh and a Trainer with
+``resume_event="resize"``, which restores that checkpoint onto its own
+layout and charges the drain→resume gap to the ledger's
+``resize_lost_s``.
+
 The step runs on CUDA unless the caller passes ``device="cpu"``. Refused
 by name: a mesh with pipeline or expert above 1 (a later part of the
-multi-device item), ``resume_event="resize"`` and a resize
-directive from the master (the elastic slice) and the orbax checkpoint
-format (it needs JAX).
+multi-device item) and the orbax checkpoint format (it needs JAX).
 """
 from __future__ import annotations
 
@@ -88,10 +97,10 @@ import torch
 
 from determined_tpu_torch import core as core_mod
 from determined_tpu_torch._device import resolve_device
+from determined_tpu_torch.common import faults
 from determined_tpu_torch.common import logship as logship_mod
 from determined_tpu_torch.common import profiling as profiling_mod
 from determined_tpu_torch.common import trace as trace_mod
-from determined_tpu_torch.core._preempt import refuse_resize
 from determined_tpu_torch.core._searcher import DummySearcherContext
 from determined_tpu_torch.models.base import Model
 from determined_tpu_torch.parallel.mesh import MeshConfig, make_mesh
@@ -109,6 +118,26 @@ logger = logging.getLogger("determined_tpu_torch.trainer")
 
 TRAINER_METADATA = "trainer_state.json"
 ORBAX_SUBDIR = "orbax"  # presence marks an orbax/ocdbt-format checkpoint
+
+
+class ElasticResizeExit(Exception):
+    """Out of ``Trainer.fit``: the master resized the gang. The harness
+    (``exec/harness.py``) catches it, re-enters the rendezvous under the
+    directive's generation, rebuilds the gang, the mesh and the Trainer
+    in the same process and resumes from `restore_from` onto the new
+    layout.
+
+    `dropped`: this rank is absent from the directive's ``rank_map``; it
+    was resized away and exits cleanly instead of re-entering."""
+
+    def __init__(self, directive: Dict[str, Any], *, dropped: bool,
+                 restore_from: Optional[str]) -> None:
+        super().__init__(
+            f"elastic resize to generation {directive.get('generation')} "
+            f"({directive.get('num_processes')} processes)")
+        self.directive = directive
+        self.dropped = dropped
+        self.restore_from = restore_from
 
 
 class Trainer:
@@ -142,15 +171,14 @@ class Trainer:
             from determined_tpu_torch.parallel.mesh import refuse_later_axes
 
             refuse_later_axes(mesh)
-        if resume_event == "resize":
-            raise NotImplementedError(
-                "resume_event='resize' (an elastic in-place resize resumed "
-                "this trainer) comes with the elastic slice"
-            )
-        if resume_event != "restart":
+        if resume_event not in ("restart", "resize"):
             raise ValueError(
                 f"resume_event {resume_event!r} (one of: restart, resize)"
             )
+        #: how the ledger classes the save→resume gap of the first
+        #: restore: "restart" (a new process) or "resize" (the harness
+        #: rebuilt this Trainer after an elastic resize)
+        self._resume_event = resume_event
         self.sentinel = _sentinel.SentinelConfig.from_config(health)
         self.trial = trial
         self.device = resolve_device(device)
@@ -175,11 +203,9 @@ class Trainer:
         named = [(n, p) for n, p in self.model.named_parameters()
                  if p.requires_grad]
         self._names = [n for n, _ in named]
-        #: the trained state: the model's parameters on one device; on a
-        #: mesh this rank's blocks of them, and the model's parameters
-        #: (``_full``) the gathered working copy.
+        #: the trained state: the model's parameters; on a mesh each holds
+        #: this rank's block of itself (``MeshLayout.shard_parameters``).
         self._params = [p for _, p in named]
-        self._full = self._params
         for p in self._params:
             if p.device != self.device:
                 raise ValueError(
@@ -187,14 +213,19 @@ class Trainer:
                     f"trainer runs on {self.device}"
                 )
         self._layout: Optional[MeshLayout] = None
+        #: how the step sees the split parameters whole (``_gathering``)
+        self._gathers_at_use = False
         rank = self.core.distributed.rank if mesh is not None else 0
         if mesh is not None:
             self._layout = MeshLayout(
                 mesh, rules, self.model.logical_axes(), named,
                 getattr(self.model, "tensor_dims", dict)())
-            self._layout.broadcast_from_rank0(self._full)
-            self._params = [self._layout.block_of(p, i)
-                            for i, p in enumerate(self._full)]
+            # every rank starts from rank 0's parameters, then keeps its
+            # blocks alone
+            self._layout.broadcast_from_rank0(self._params)
+            self._layout.shard_parameters(self._params)
+            if self._layout.split_dims:
+                self._gathers_at_use = self.model.gather_at_use(self._layout)
         self._tx = trial.build_optimizer()
         self._opt_state = self._tx.init([p.detach() for p in self._params])
         # Seeded once and passed to model.loss; the port's models draw
@@ -363,6 +394,15 @@ class Trainer:
     def steps_completed(self) -> int:
         return self._step
 
+    def full_parameters(self) -> Dict[str, torch.Tensor]:
+        """{name: the parameter as one device holds it}: on a mesh the
+        blocks gathered over fsdp (a collective of the gang; on a tensor
+        axis the rank's slices)."""
+        params = [p.detach() for p in self._params]
+        if self._layout is not None:
+            params = self._layout.gather_whole(params)
+        return dict(zip(self._names, params))
+
     @property
     def steps_skipped(self) -> int:
         """Optimizer updates the non-finite guard skipped (host view;
@@ -422,18 +462,30 @@ class Trainer:
         )
         return metrics
 
+    def _gathering(self) -> Any:
+        """The context the model runs in on a mesh: its split parameters
+        gathered at use (regathered where the backward reads them), or
+        gathered whole for the block when the model does not gather."""
+        layout = self._layout
+        if layout is None or not layout.split_dims:
+            return contextlib.nullcontext()
+        if self._gathers_at_use:
+            return layout.regather_saved()
+        return layout.gathered_into(self.model)
+
     def _mesh_step(self, batch: Dict[str, torch.Tensor],
                    poison: float) -> Dict[str, torch.Tensor]:
         """The step on a mesh (``trainer/_mesh.py``): this rank's rows
-        through the working copy, its loss weighted by its share of the
-        gang's tokens, the gradients summed into this rank's blocks, the
-        optimizer and the guard on the blocks against the global loss and
-        norm, then the working copy gathered anew."""
+        through its blocks, gathered at use, its loss weighted by its
+        share of the gang's tokens, the gradients summed into this rank's
+        blocks, the optimizer and the guard on the blocks against the
+        global loss and norm."""
         layout = self._layout
-        loss, metrics = self.model.loss(batch, self._generator)
+        with self._gathering():
+            loss, metrics = self.model.loss(batch, self._generator)
         loss = loss * poison
         weight = layout.loss_weight(metrics)
-        grads = torch.autograd.grad(loss * weight, self._full,
+        grads = torch.autograd.grad(loss * weight, self._params,
                                     materialize_grads=True)
         with torch.no_grad():
             grads = layout.reduce_grads(grads)
@@ -449,7 +501,6 @@ class Trainer:
                 self._params, new_params, self._opt_state, new_opt,
                 metrics["loss"], gnorm, self._skips,
             )
-            layout.gather(self._params, self._full)
         metrics.update(
             grad_norm=gnorm, sentinel_skipped=(~ok).to(torch.int32),
             sentinel_skips=self._skips,
@@ -558,9 +609,6 @@ class Trainer:
             else:
                 decision = status
             if decision == "ok":
-                if self._layout is not None:
-                    # the working copy, gathered once every rank restored
-                    self._layout.gather(self._params, self._full)
                 if uuid_ != storage_id:
                     logger.warning(
                         "resumed from older verified checkpoint %s (newest "
@@ -587,8 +635,10 @@ class Trainer:
         """Verify and read the whole checkpoint, then write it into the
         parameters (in place), the optimizer state and the step: a
         checkpoint that fails verification or has a drifted leaf leaves
-        the trainer untouched. A restore that is not a rollback's also
-        resumes the checkpoint's goodput ledger."""
+        the trainer untouched. On a mesh each rank reads its own blocks at
+        the layout it has now, whatever layout saved them. A restore that
+        is not a rollback's also resumes the checkpoint's goodput
+        ledger."""
         self._ckpt_writer.wait()  # never read while a save is in flight
         with self.core.checkpoint.restore_path(storage_id) as path:
             if os.path.isdir(os.path.join(path, ORBAX_SUBDIR)):
@@ -620,8 +670,11 @@ class Trainer:
         self._data_offset = data_offset
         if tl_md and not self._restoring_for_rollback:
             # load() keeps the fresh ledger for a foreign trial id and
-            # never raises on corrupt metadata.
-            self.timeline.load(tl_md, trial_id=self._trial_id())
+            # never raises on corrupt metadata; only the first resume gap
+            # is a resize's.
+            self.timeline.load(tl_md, trial_id=self._trial_id(),
+                               event=self._resume_event)
+            self._resume_event = "restart"
         self._last_ckpt_id = storage_id  # verified by the restore above
         logger.info("restored checkpoint %s at step %d", storage_id, self._step)
 
@@ -633,7 +686,8 @@ class Trainer:
         totals: Dict[str, float] = {}
         n = 0
         for batch in self.trial.build_validation_data():
-            metrics = self.model.eval_metrics(self._put_batch(batch))
+            with self._gathering():
+                metrics = self.model.eval_metrics(self._put_batch(batch))
             if self._layout is not None:
                 metrics = self._layout.reduce_metrics(
                     metrics, self._layout.loss_weight(metrics))
@@ -749,6 +803,41 @@ class Trainer:
         )
         return restored
 
+    def _exit_for_resize(self, directive: Dict[str, Any], step: int) -> None:
+        """Leave the step loop for an elastic resize: raise
+        ``ElasticResizeExit`` with the directive and the gang's last
+        verified checkpoint (the restore's source; the window since it is
+        lost, and the resumed ledger charges the drain→resume gap as
+        resize loss)."""
+        rank = self.core.distributed.rank
+        dropped = str(rank) not in (directive.get("rank_map") or {})
+        if dropped and directive.get("resync_only"):
+            # The master could not map this rank (its directive history
+            # rotated out): a clean exit would finish a trial that still
+            # counts it, so fail for a re-sync.
+            raise RuntimeError(
+                "resize directive could not map this rank (generation "
+                f"{directive.get('generation')}); erroring out for re-sync")
+        logger.warning(
+            "elastic resize at step %d: generation %s, %s process(es) (%s) "
+            "— rank %d %s", step, directive.get("generation"),
+            directive.get("num_processes"), directive.get("reason", ""),
+            rank, "was dropped; exiting" if dropped
+            else "leaves the step loop to restore on the new layout")
+        if self._ckpt_writer.in_flight and self.core.distributed.size > 1:
+            # A sharded save in flight runs collectives with peers that
+            # may be dead: closing the control plane fails them fast. The
+            # torn upload never verifies (its manifest is written last),
+            # and restore_from is the last verified checkpoint.
+            self.core.distributed.close()
+            try:
+                self._ckpt_writer.wait()
+            except BaseException as e:  # noqa: BLE001 — expected abort
+                logger.warning("in-flight checkpoint abandoned by the "
+                               "resize: %s", e)
+        raise ElasticResizeExit(directive, dropped=dropped,
+                                restore_from=self._last_ckpt_id)
+
     def _divergence_audit(self) -> None:
         """The replica-divergence audit: the checksums of every parameter
         block each rank holds, compared by the chief across every holder
@@ -799,6 +888,11 @@ class Trainer:
             searcher = DummySearcherContext(
                 self.core.distributed, length=to_batches(max_length, bpe))
         if latest_checkpoint:
+            if self._resume_event == "resize":
+                # The drill's site (DTPU_FAULT_PLAN resize.restore): a
+                # failure here fails this rank, which the master sheds as
+                # another resize.
+                faults.inject("resize.restore")
             self._restore_with_fallback(latest_checkpoint)
 
         # Fast-forward the stream past the batches consumed before this
@@ -940,11 +1034,19 @@ class Trainer:
                             cap = self.core.train.take_profile_capture()
                             if cap is not None:
                                 self._begin_capture(cap, step)
-                        # A resize directive (the beat's here, the poll's
-                        # in should_preempt) is refused by name.
-                        if beat_resize is not None:
-                            refuse_resize(beat_resize)
-                        if self.core.preempt.should_preempt():
+                        # The chief folds the beat's directive into the
+                        # preemption broadcast, so every rank reaches the
+                        # same verdict here; it is the boundary's first
+                        # collective, before any that a dead peer would
+                        # hang (a save's join, a rollback, the audit). A
+                        # resize supersedes a latched rollback: both
+                        # restore the last verified checkpoint.
+                        preempt_now = self.core.preempt.should_preempt(
+                            resize_hint=beat_resize)
+                        directive = self.core.preempt.take_resize()
+                        if directive is not None:
+                            self._exit_for_resize(directive, step)
+                        if preempt_now:
                             set_phase("checkpoint")
                             self._save_checkpoint(sync=True)
                             set_phase("step")
@@ -1006,6 +1108,16 @@ class Trainer:
                 set_phase("checkpoint")
                 self._save_checkpoint(sync=True)
                 timeline.commit()
+        except RuntimeError as e:
+            # In a gang, a collective whose peer died raises (on gloo; on
+            # NCCL it times out): the master's pending resize directive
+            # turns the failure into a resize; without one it stands.
+            fit_error = e
+            directive = (self.core.preempt.directive_after_failure(e)
+                         if self.core.distributed.size > 1 else None)
+            if directive is None:
+                raise
+            self._exit_for_resize(directive, step)
         except BaseException as e:
             fit_error = e
             raise

@@ -381,14 +381,18 @@ def test_bad_shards_are_refused(tmp_path, case, files, match):
         ckpt_io.load_pytree(str(tmp_path), {"a": torch.zeros(8)})
 
 
-def test_missing_leaf_and_reshard_are_refused(tmp_path):
-    ckpt_io.save_pytree({"a": torch.ones(2)}, str(tmp_path))
+def test_missing_leaf_is_refused_and_shardings_read_a_region(tmp_path):
+    a = torch.arange(24, dtype=torch.float32).reshape(8, 3)
+    ckpt_io.save_pytree({"a": a, "s": torch.tensor(2.5)}, str(tmp_path))
     with pytest.raises(FileNotFoundError):
-        ckpt_io.load_pytree(str(tmp_path), {"a": torch.ones(2),
+        ckpt_io.load_pytree(str(tmp_path), {"a": torch.ones(8, 3),
                                             "b": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="reshard"):
-        ckpt_io.load_pytree(str(tmp_path), {"a": torch.ones(2)},
-                            shardings={"a": None})
+    # the reference's signature: a placement per leaf, None for a whole one
+    got = ckpt_io.load_pytree(
+        str(tmp_path), {"a": torch.ones(8, 3), "s": torch.ones(())},
+        shardings={"a": ckpt_io.Placement((8, 3), ((2, 6), (0, 3))),
+                   "s": None})
+    assert torch.equal(got["a"], a[2:6]) and float(got["s"]) == 2.5
 
 
 def test_leaf_names_follow_jax_keypaths():
@@ -456,7 +460,7 @@ def test_resumed_stream_sees_the_uninterrupted_batches(tmp_path, with_skip):
 def test_preemption_saves_synchronously_and_exits(tmp_path):
     ctx = tcore._dummy_init(checkpoint_storage=str(tmp_path))
     tt = Trainer(_TTrial(), ctx, device="cpu")
-    ctx.preempt.should_preempt = lambda: tt.steps_completed >= 3
+    ctx.preempt.should_preempt = lambda **kw: tt.steps_completed >= 3
     tt.fit(max_length=Batch(6), report_period=Batch(1))
     assert tt.steps_completed == 3
     assert sorted(_by_step(str(tmp_path))) == [3]

@@ -635,6 +635,58 @@ def _shape(v):
     return type(v).__name__
 
 
+def test_stand_in_resize_answers_like_the_live_master(cluster):
+    """The elastic resize's answers: the directive on a stale beat and on
+    a stale preemption poll, and the 409 of both rendezvous routes, with
+    the live master's keys and value types."""
+    master = cluster.master
+    alloc = "honest-resize.1.0"
+    master.alloc_service.create(alloc, task_id="honest-resize",
+                                trial_id=None, num_processes=2, slots=0,
+                                rank_agents={0: "agent-0", 1: "agent-1"})
+    stand_in = chip_smoke.StandInMaster()
+    stand_in.rendezvous_size = 2
+    try:
+        for r in range(2):
+            master.alloc_service.rendezvous_arrive(alloc, r, f"10.0.0.{r}",
+                                                   generation=0)
+        live = master.alloc_service.resize(alloc, lost_ranks=[1],
+                                           reason="reclaimed")
+        stand = stand_in.resize(alloc, [1], "reclaimed")
+        assert stand == live
+        calls = [
+            ("POST", f"/api/v1/allocations/{alloc}/progress",
+             {"rank": 0, "step": 3, "generation": 0}),
+            ("GET", f"/api/v1/allocations/{alloc}/signals/preemption",
+             {"timeout_seconds": 5, "generation": 0}),
+            ("POST", f"/api/v1/allocations/{alloc}/rendezvous",
+             {"rank": 0, "addr": "127.0.0.1:1:2", "generation": 0}),
+            ("GET", f"/api/v1/allocations/{alloc}/rendezvous",
+             {"timeout_seconds": 5, "generation": 0}),
+        ]
+        for method, path, body in calls:
+            answers = []
+            for url in (cluster.api.url, stand_in.url):
+                s = tsession.Session(url, max_retries=0)
+                t0 = time.time()
+                try:
+                    answers.append((200, s.get(path, params=body)
+                                    if method == "GET"
+                                    else s.post(path, json_body=body)))
+                except tsession.HTTPError as e:
+                    answers.append((e.response.status_code,
+                                    e.response.json()))
+                assert time.time() - t0 < 4, (url, path)  # no long-poll
+            (live_code, live_body), (stand_code, stand_body) = answers
+            assert stand_code == live_code, (path, answers)
+            assert _shape(stand_body) == _shape(live_body), (path, answers)
+            assert stand_body["resize"] == live, path
+        assert live_code == 409 and stand_body["generation"] == 1
+    finally:
+        stand_in.stop()
+        master.alloc_service.complete(alloc, exit_code=0, reason="")
+
+
 def test_stand_in_master_answers_like_the_live_master(cluster, tmp_path,
                                                       trial_module):
     master = cluster.master
@@ -953,24 +1005,60 @@ def test_replica_capture_uploads_and_reports(tmp_path):
     assert "not ported" in stand_in.captures["cap-2"]["error"]
 
 
-def test_resize_directives_are_refused_by_name(tmp_path, trial_module):
+def test_a_resize_directive_leaves_fit_at_the_boundary(tmp_path,
+                                                       trial_module):
+    """A directive, from the beat or from the preemption poll, leaves
+    ``fit`` at the report boundary by ``ElasticResizeExit`` with the last
+    verified checkpoint; a rank it dropped is marked so, and one it could
+    not map fails."""
     sys.path.insert(0, trial_module)
     import tiny_trials
 
-    from determined_tpu_torch.core._preempt import refuse_resize
-    from determined_tpu_torch.trainer import Batch, Trainer
+    from determined_tpu_torch.core._preempt import PreemptContext
+    from determined_tpu_torch.trainer import Batch, ElasticResizeExit, Trainer
+
+    stand_in = chip_smoke.StandInMaster()
+    stand_in.rendezvous_size = 2
+    hp = {"model": "gpt-tiny", "batch_size": 2, "seq_len": 32}
+
+    def trainer_with(beat, alloc):
+        ctx = tcore._dummy_init(checkpoint_storage=str(tmp_path))
+        ctx.train.heartbeat_step = beat
+        ctx.preempt = PreemptContext(tsession.Session(stand_in.url), alloc,
+                                     ctx.distributed)
+        return ctx, Trainer(tiny_trials.PortTinyTrial(hp), ctx, device="cpu")
 
     try:
-        ctx = tcore._dummy_init(checkpoint_storage=str(tmp_path))
-        ctx.train.heartbeat_step = lambda step: (
-            {"generation": 1, "rank_map": {"0": 0}} if step else None)
-        trainer = Trainer(tiny_trials.PortTinyTrial(
-            {"model": "gpt-tiny", "batch_size": 2, "seq_len": 32}), ctx,
-            device="cpu")
-        with pytest.raises(NotImplementedError, match="item 5"):
-            trainer.fit(max_length=Batch(3), report_period=Batch(1))
+        directive = {"generation": 1, "num_processes": 1,
+                     "rank_map": {"0": 0}, "reason": "reclaimed"}
+        ctx, trainer = trainer_with(
+            lambda step: directive if step >= 3 else None, "beat.1.0")
+        with pytest.raises(ElasticResizeExit) as exit_:
+            trainer.fit(max_length=Batch(6), report_period=Batch(1),
+                        checkpoint_period=Batch(2))
+        ctx.close()
+        assert trainer.steps_completed == 3
+        assert not exit_.value.dropped
+        assert exit_.value.directive == directive
+        with open(os.path.join(str(tmp_path), exit_.value.restore_from,
+                               "metadata.json")) as f:
+            assert json.load(f)["steps_completed"] == 2
+        # the watcher's long-poll answers early with the master's directive
+        ctx, trainer = trainer_with(lambda step: None, "poll.1.0")
+        dropped = stand_in.resize("poll.1.0", [0], "reclaimed")
+        stand_in.wait_for(lambda: ctx.preempt._watcher.resize is not None,
+                          10, "the watcher's directive")
+        with pytest.raises(ElasticResizeExit) as exit_:
+            trainer.fit(max_length=Batch(6), report_period=Batch(1))
+        ctx.close()
+        assert exit_.value.dropped and exit_.value.directive == dropped
         assert trainer.steps_completed == 1
+        ctx, trainer = trainer_with(
+            lambda step: {"generation": 3, "rank_map": {},
+                          "resync_only": True}, "gap.1.0")
+        with pytest.raises(RuntimeError, match="could not map this rank"):
+            trainer.fit(max_length=Batch(2), report_period=Batch(1))
+        ctx.close()
     finally:
+        stand_in.stop()
         sys.path.remove(trial_module)
-    with pytest.raises(NotImplementedError, match="elastic.*item 5"):
-        refuse_resize({"generation": 2})

@@ -159,8 +159,8 @@ def worker(rank: int, store: str, out: str) -> None:
         return seen
 
     def gathered(trainer):
-        return {n: p.detach().numpy().copy()
-                for n, p in trainer.model.named_parameters()}
+        return {n: p.numpy().copy()
+                for n, p in trainer.full_parameters().items()}
 
     for name, ((d, f, c), fields, kind) in LAYOUTS.items():
         mesh = make_mesh(MeshConfig(data=d, fsdp=f, context=c), device="cpu")

@@ -123,8 +123,32 @@ def test_the_generation_fence_remaps_or_drops_the_rank(monkeypatch):
     with pytest.raises(SystemExit) as exit_:
         prep_and_run.rendezvous("http://m", "a", 1, 2)
     assert exit_.value.code == 0
-    with pytest.raises(NotImplementedError, match="elastic.*item 5"):
-        prep_and_run.apply_resize("http://m", {"generation": 2})
+
+    # apply_resize: the harness's re-entry after an elastic resize
+    rounds.clear()
+    monkeypatch.setattr(prep_and_run, "_rendezvous_round", round_)
+    rounds.append("primed")  # no fence this time
+    monkeypatch.setenv("DTPU_ALLOC_RANK", "2")
+    monkeypatch.setenv("DTPU_ALLOCATION_ID", "a")
+    directive = {"generation": 4, "num_processes": 2,
+                 "rank_map": {"0": 0, "2": 1}}
+    assert prep_and_run.apply_resize("http://m", directive) is True
+    assert rounds[1:] == [(1, 2, 4)]
+    assert (os.environ["DTPU_ALLOC_RANK"],
+            os.environ["DTPU_ALLOC_NUM_PROCS"]) == ("1", "2")
+    monkeypatch.setenv("DTPU_ALLOC_RANK", "1")
+    assert prep_and_run.apply_resize("http://m", directive) is False
+    with pytest.raises(RuntimeError, match="could not map rank 1"):
+        prep_and_run.apply_resize("http://m", dict(
+            directive, rank_map={}, resync_only=True))
+    from determined_tpu_torch.common import faults
+
+    monkeypatch.setenv("DTPU_ALLOC_RANK", "0")
+    with faults.plan_active(faults.FaultPlan(
+            {"resize.rendezvous": faults.FaultSpec(failures=1)})):
+        with pytest.raises(faults.InjectedFault):
+            prep_and_run.apply_resize("http://m", directive)
+    assert rounds[1:] == [(1, 2, 4)]  # the failed re-entry ran no round
 
 
 def _gang_env(stand_in, tmp, trial_id, alloc, port, rank, mesh, **extra):

@@ -198,8 +198,8 @@ def worker(rank: int, store: str, out: str) -> None:
                           device="cpu", mesh=mesh)
         res[name] = fit(trainer, STEPS)
         res[f"{name}_tensor_index"] = trainer.model._tensor_index
-        for n, p in trainer.model.named_parameters():
-            arrays[f"{name}/{n}"] = p.detach().numpy().copy()
+        for n, p in trainer.full_parameters().items():
+            arrays[f"{name}/{n}"] = p.numpy().copy()
 
     # -- Ulysses over context=2 × tensor=2 ------------------------------------
     mesh = make_mesh(MeshConfig(data=1, context=2, tensor=2), device="cpu")

@@ -339,11 +339,36 @@ def _mesh_of(**sizes):
     (dict(mesh=_mesh_of(tensor=2, pipeline=2)), "pipeline=2.*item 4, part 3"),
     (dict(mesh=_mesh_of(pipeline=2)), "pipeline=2.*item 4, part 3"),
     (dict(mesh=_mesh_of(fsdp=2, expert=2)), "expert=2.*item 4, part 3"),
-    (dict(resume_event="resize"), "resize.*elastic slice"),
 ])
 def test_trainer_refuses_later_slices_by_name(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         Trainer(_TTrial(), tcore._dummy_init(), device="cpu", **kwargs)
+
+
+def test_resume_after_a_resize_is_charged_to_the_resize_ledger(tmp_path):
+    """``resume_event="resize"``: the first restore's save→resume gap goes
+    to ``resize_lost_s`` (not a restart), as the reference's; the
+    ``resize.restore`` site fails the restore in drills."""
+    from determined_tpu_torch.common import faults
+
+    ctx = tcore._dummy_init(checkpoint_storage=str(tmp_path))
+    first = Trainer(_TTrial(), ctx, device="cpu")
+    first.fit(max_length=Batch(2), checkpoint_period=Batch(2))
+    sid = first._last_ckpt_id
+    with pytest.raises(ValueError, match="one of: restart, resize"):
+        Trainer(_TTrial(), ctx, device="cpu", resume_event="grow")
+    with faults.plan_active(faults.FaultPlan(
+            {"resize.restore": faults.FaultSpec(failures=1)})):
+        with pytest.raises(faults.InjectedFault):
+            Trainer(_TTrial(), ctx, device="cpu", resume_event="resize").fit(
+                max_length=Batch(3), latest_checkpoint=sid)
+    resized = Trainer(_TTrial(), ctx, device="cpu", resume_event="resize")
+    resized.fit(max_length=Batch(3), latest_checkpoint=sid)
+    tl = resized.timeline
+    assert resized.steps_completed == 3
+    assert (tl.resizes, tl.restarts) == (1, 0) and tl.resize_lost_s > 0
+    # one-shot: a later restore (a rollback's, a restart's) is no resize
+    assert resized._resume_event == "restart"
 
 
 def test_trainer_stores_smaller_is_better():

@@ -319,6 +319,41 @@ script exits non-zero without the final result line:
    run's. Prints per run each rank's step ms, peak memory and state, and
    the collectives a step by group with their bytes.
 
+22. experts — the top-1 mixture of experts (``parallel/experts.py``,
+   ``models/gpt.py _moe_mlp``): GPT-2-small with an expert MLP in every
+   block in Switch-Base-8's arrangement (``EXPERT_FIELDS``: 8 experts,
+   capacity 1.25; 521 M parameters), the headline trial. ``EXPERT_STEPS``
+   steps on one device through the index dispatch, held against the same
+   run through the dense one-hot einsums (the plain version): the first
+   loss bit for bit and the first grad norm within 1e-3, the losses
+   within 1e-3, 12 + 12 mono launches a step. Then two ranks at
+   ``expert=2`` over gloo (``TENSOR_RANK``): every loss within 1e-3 of
+   the one-device run and the first ``EXPERT_NORM_STEPS`` grad norms
+   within ``GRAD_NORM_RTOL`` (later ones part as bf16 rounding flips
+   routing decisions), a rank's resident state below one
+   device's, the save at ``EXPERT_SAVE_AT`` restored bit for bit by a
+   fresh gang and onto one rank on the card, which trains on within 1e-3
+   of the gang. Then a greedy decode of ``EXPERT_TOKENS`` tokens for 4
+   prompts through ``GenerationEngine`` (``flash_fwd`` prefill, paged
+   decode): the index dispatch's streams are the dense dispatch's. Prints
+   each layer's share of dropped tokens.
+
+23. pipeline — pipeline stages (``parallel/pipeline.py``, the pipelined
+   ``GPT``): gangs on the one card over gloo (``TENSOR_RANK``), the runs
+   of ``PIPELINE_RUNS``: ``pipeline=2`` by GPipe, circular (V 2) and 1F1B
+   at M 4, ``pipeline=4`` 1F1B at M 8, ``pipeline=2 × tensor=2`` 1F1B and
+   ``pipeline=2 × context=2`` 1F1B through the ring on the Trainer's
+   pre-shifted batch. Every loss within 1e-3 relative and the first
+   ``PIPELINE_NORM_STEPS`` grad norms within ``GRAD_NORM_RTOL`` of phase
+   train's (a stage rounds its bf16 weight gradients per microbatch,
+   which the one-device run's step-3 spike magnifies), every rank alike;
+   per step
+   and rank the mono launches of the schedule (the stage's L/S layers × M,
+   the forward twice under 1F1B, i + 1 calls a layer on context rank i)
+   and the 1F1B stash's high-water mark, at most min(M, 2S − 1). Prints
+   per step and rank the step's wall time, and each rank's resident state,
+   peak memory and point-to-point MB a step.
+
 Phase 3 also holds ``flash_fwd`` at the cached-tail geometry (separate
 query and key segment ids as ``_prefill_cached`` builds them, one row all
 padding) and at the speculative gather verify's (B 8, s_q 5, s_k 1029,
@@ -330,11 +365,12 @@ full (the fused and the two-pass backward), the window hop at kv_offset
 512 with segments, and the mono pair at B 8 × 512 causal and full;
 and phase 20's shapes at 6 heads: the mono pair at B 8 × 1024, the
 packed window's ``flash_fwd`` and fused backward, the ring's mono hops
-at B 8 × 512.
+at B 8 × 512; and phase 23's microbatches: the mono pair at B 2 and 1 ×
+1024, at B 2 with 6 heads, and the ring's mono hops at B 2 × 512.
 
 The last lines are the whole run's seconds, the kernels' JSON record
 (each kernel's ``launches`` summed over the main paths that run it:
-phases 4, 6, 8, 9 and 11 to 20), the card's name and power limit, and
+phases 4, 6, 8, 9 and 11 to 23), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -352,9 +388,11 @@ CLUSTER_STEPS = 12    # the cluster phase's searcher operation
 #: writes the process's kernel launch counts, the trainer's per-step
 #: counts (with the rendezvous generation of each step) and the seconds
 #: of each checkpoint restore to ``<out.json>`` (the counts live in that
-#: process).
+#: process). SIGUSR1 dumps every thread's Python stack to its stderr
+#: (``Smoke.wait_or_dump``).
 COUNTING_BOOT = """
-import atexit, json, os, runpy, sys, time
+import atexit, faulthandler, json, os, runpy, signal, sys, time
+faulthandler.register(signal.SIGUSR1, all_threads=True)
 module, out = sys.argv[1], sys.argv[2]
 sys.argv = [module] + sys.argv[3:]
 from determined_tpu_torch.ops import _build
@@ -648,11 +686,14 @@ TENSOR_RUNS = {
 GRAD_NORM_RTOL = 1e-2
 #: ``python -c TENSOR_RANK <rank> <world> <port> <out.json> <spec.json>``:
 #: one rank of a gang on the one card, joined over gloo at
-#: 127.0.0.1:<port>, training each run of the spec: its losses, step ms,
-#: per-step launches, peak memory, resident state (``state_gb``: the
-#: working copy, the blocks that are not part of it and the AdamW moments,
-#: each storage once), the collectives a step by name and group, the
-#: audits; after a run with a sharded save, the checkpoint's files, a
+#: 127.0.0.1:<port>, training each run of the spec (phases tensor,
+#: experts and pipeline; a run's own ``params`` file of whole weights, or
+#: the spec's): its losses, step ms, per-step launches, peak memory,
+#: resident state (``state_gb``: the working copy, the blocks that are not
+#: part of it and the AdamW moments, each storage once), the collectives a
+#: step by name and group, the pipeline's point-to-point MB and 1F1B stash
+#: high-water mark per step, the experts' dropped-token share per layer,
+#: the audits; after a run with a sharded save, the checkpoint's files, a
 #: fresh trainer's bitwise restore and its losses on from the save.
 TENSOR_RANK = """
 import dataclasses, datetime, gc, json, os, sys
@@ -670,6 +711,7 @@ from determined_tpu_torch.core._distributed import DistributedContext
 from determined_tpu_torch.models import gpt
 from determined_tpu_torch.ops import _build
 from determined_tpu_torch.parallel import MeshConfig, make_mesh
+from determined_tpu_torch.parallel import pipeline as pp
 from determined_tpu_torch.parallel.ring import Ring
 from determined_tpu_torch.trainer import Batch, Trainer
 from determined_tpu_torch.trainer import _checkpoint as ckpt_io
@@ -677,7 +719,12 @@ from determined_tpu_torch.trainer.profile import (RUNGS, RepeatedBatchTrial,
                                                   packed_batch)
 with open(spec) as f:
     spec = json.load(f)
-tree = ckpt_io.nest(dict(np.load(spec["params"])))
+trees = {}
+def weights(path):
+    if path not in trees:
+        trees.clear()
+        trees[path] = ckpt_io.nest(dict(np.load(path)))
+    return trees[path]
 dctx = DistributedContext(rank=rank, size=world)
 calls, nbytes, in_step, labels = {}, {}, [False], {}
 def counting(name, real):
@@ -695,7 +742,10 @@ for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
     setattr(dist, name, counting(name, getattr(dist, name)))
 class Trial(RepeatedBatchTrial):
     def build_model(self, device, mesh=None):
-        return gpt.load_jax_params(super().build_model(device, mesh), tree)
+        model = super().build_model(device, mesh)
+        if self.params is None:  # the trial's own seeded weights
+            return model
+        return gpt.load_jax_params(model, weights(self.params))
 def shards(trainer):
     return [leaf.local.detach().cpu().clone() for _, leaf in
             ckpt_io._flatten_with_path(trainer._state_view())
@@ -706,11 +756,13 @@ for run in spec["runs"]:
         "name", "mesh", "data", "fields", "steps", "save_at"))
     mesh = make_mesh(MeshConfig(data=1, **sizes))
     labels.clear()
-    labels.update({id(mesh.get_group(a)): a for a in ("fsdp", "context",
-                                                      "tensor")})
+    labels.update({id(mesh.get_group(a)): a for a in (
+        "fsdp", "context", "tensor", "pipeline", "expert")})
     cfg = dataclasses.replace(RUNGS["headline"][1], **fields)
-    def make_trial(cfg=cfg, data=data):
+    def make_trial(cfg=cfg, data=data, params=run.get("params",
+                                                      spec["params"])):
         trial = Trial(8, 1024, config=cfg)
+        trial.params = params
         if data == "packed":
             batch = packed_batch(8, 1024, 3, cfg.vocab_size)
             def repeated(batch=batch):
@@ -727,21 +779,24 @@ for run in spec["runs"]:
                       health={"divergence_check_period": 1} if save_at
                       else None)
     labels[id(trainer._layout.replica_group)] = "replica"
-    per_step, seen, audits, saved = [], [], [], {}
+    per_step, seen, audits, saved, highs = [], [], [], {}, []
     calls.clear(); nbytes.clear()
     shifts0 = dict(Ring.stats)
+    p2p0 = pp.stats["bytes"]
     step_fn, flush, audit, save = (trainer._train_step, trainer._flush,
                                    trainer._divergence_audit,
                                    trainer._save_checkpoint)
     def counted(batch, poison=1.0):
         before = {n: k.launches for n, k in _build.KERNELS.items()}
         in_step[0] = True
+        pp.stats["stash_high_water"] = -1
         try:
             result = step_fn(batch, poison)
         finally:
             in_step[0] = False
         per_step.append({n: k.launches - before[n]
                          for n, k in _build.KERNELS.items()})
+        highs.append(pp.stats["stash_high_water"])
         return result
     def recording(pending, t_start, flush=flush, seen=seen):
         agg, reason = flush(pending, t_start)
@@ -775,6 +830,10 @@ for run in spec["runs"]:
         state_gb=gb(working) + gb(split),
         wqkv_shape=list(trainer.model.blocks["wqkv"].shape),
         rotations_per_step=(Ring.stats["shifts"] - shifts0["shifts"]) / steps,
+        p2p_mb_per_step=(pp.stats["bytes"] - p2p0) / steps / 1e6,
+        stash_high_water=highs,
+        moe_drop_share={str(i): int(d) / n for i, (d, n) in
+                        sorted(trainer.model.moe_drops.items())},
         collectives_per_step={k: v / steps for k, v in calls.items()},
         collective_mb_per_step={k: round(v / steps / 1e6, 3)
                                 for k, v in nbytes.items()})
@@ -788,6 +847,7 @@ for run in spec["runs"]:
                 ids[json.load(f)["steps_completed"]] = uuid_
         res["files"] = sorted(os.listdir(os.path.join(spec["ckpt"],
                                                       ids[save_at])))
+        res["save_id"] = ids[save_at]
         resumed = Trainer(make_trial(), core._dummy_init(
             distributed=dctx, checkpoint_storage=spec["ckpt"]), mesh=mesh)
         seen = []
@@ -811,6 +871,9 @@ dist.destroy_process_group()
 """
 ELASTIC_STEPS = 6     # phase elastic: the resized gang's searcher operation
 ELASTIC_SAVE_AT = 2   # ... its checkpoint period; rank 1 dies after it
+#: ... the seconds the survivor has from the kill to its exit (it takes
+#: 15-19 on the card: the resize, the restore and four steps)
+ELASTIC_EXIT_S = 240
 #: ``python -c ELASTIC_RANK <rank> <port> <out.json> <ckpt dir> <uuid>
 #: <step>``: one rank of a gang of two on the one card over gloo at
 #: ``MeshConfig(data=1, fsdp=2)`` restores the checkpoint `uuid` (saved
@@ -862,6 +925,53 @@ with open(out, "w") as f:
 dctx.close()
 dist.destroy_process_group()
 """
+#: phase experts: GPT-2-small's widths with a top-1 expert MLP in every
+#: block, as the reference has it, in Switch-Base-8's arrangement (Fedus,
+#: Zoph and Shazeer, "Switch Transformers", arXiv:2101.03961: 8 experts,
+#: top-1 routing, capacity 1.25, aux weight 0.01)
+EXPERT_FIELDS = {"n_experts": 8, "capacity_factor": 1.25}
+EXPERT_STEPS = 4      # the one-device runs, index and dense dispatch
+EXPERT_GANG_STEPS = 3  # expert=2: two ranks on the one card over gloo
+EXPERT_SAVE_AT = 2    # ... its sharded save, restored onto one rank
+EXPERT_TOKENS = 16    # the greedy decode's new tokens a prompt
+#: the steps whose grad norms phase experts holds against the one-device
+#: run at ``GRAD_NORM_RTOL``: bf16 rounding (dq by atomics, the gate's
+#: gradient) flips routing decisions as the router trains, and the grad
+#: norms part after the second step (index against dense dispatch on one
+#: NVIDIA H100 80GB HBM3 at 700 W, 4 steps: 6e-5, 2.8e-3, 9.7e-3, 1.9e-2
+#: relative); every loss is held at 1e-3
+EXPERT_NORM_STEPS = 2
+#: phase pipeline: name → (gang, mesh axes besides data=1, GPTConfig
+#: fields, steps); every run is held against phase train's one-device run
+PIPELINE_RUNS = {
+    "gpipe-p2": (2, {"pipeline": 2}, {"pipeline_stages": 2,
+                                      "pipeline_schedule": "gpipe",
+                                      "num_microbatches": 4}, 3),
+    "circular-p2": (2, {"pipeline": 2}, {"pipeline_stages": 2,
+                                         "pipeline_schedule": "circular",
+                                         "pipeline_virtual_stages": 2,
+                                         "num_microbatches": 4}, 3),
+    "1f1b-p2": (2, {"pipeline": 2}, {"pipeline_stages": 2,
+                                     "pipeline_schedule": "1f1b",
+                                     "num_microbatches": 4}, 3),
+    "1f1b-p4": (4, {"pipeline": 4}, {"pipeline_stages": 4,
+                                     "pipeline_schedule": "1f1b",
+                                     "num_microbatches": 8}, 3),
+    "1f1b-p2t2": (4, {"pipeline": 2, "tensor": 2},
+                  {"pipeline_stages": 2, "pipeline_schedule": "1f1b",
+                   "num_microbatches": 4}, 3),
+    "1f1b-p2c2-ring": (4, {"pipeline": 2, "context": 2},
+                       {"pipeline_stages": 2, "pipeline_schedule": "1f1b",
+                        "num_microbatches": 4}, 3),
+}
+#: the steps whose grad norms phase pipeline holds against phase train's
+#: at ``GRAD_NORM_RTOL``: a stage's bf16 weight gradients are rounded per
+#: microbatch before their fp32 sum, and step 3 is a spike of the
+#: one-device run (grad norm 15.84 after 2.97 and 1.76), which magnifies
+#: the difference (``pipeline=2 × tensor=2`` on an NVIDIA H100 80GB HBM3
+#: at 700 W: 1.2e-3, 1.1e-3, then 1.09e-2 relative); every loss is held
+#: at 1e-3
+PIPELINE_NORM_STEPS = 2
 FLASH_SOURCE = "determined_tpu_torch/ops/csrc/flash_fwd.cu"
 FLASH_REPLACES = "determined_tpu/ops/flash_attention.py:236"
 PAGED_SOURCE = "determined_tpu_torch/ops/csrc/paged_attention.cu"
@@ -944,6 +1054,14 @@ MONO_GRID = (
     ("no-queries", 2, 3, 0, 64, False, "qkv"),
     ("no-keys", 2, 3, 64, 0, False, "qkv"),
 )
+
+
+def close_rel(got, want, what, rtol=1e-3):
+    """The largest relative difference of `got` from the first values of
+    `want`, asserted below `rtol`."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    assert 0 < len(got) <= len(want) and max(rel) < rtol, (what, got, want)
+    return max(rel)
 
 
 def card_line() -> str:
@@ -3565,6 +3683,25 @@ class Smoke:
                              *args], cwd=root, env=env, stdout=f,
                             stderr=sp.STDOUT)
 
+    @staticmethod
+    def wait_or_dump(proc, timeout, log, what):
+        """`proc`'s exit code within `timeout` seconds; past it, its
+        Python stacks (SIGUSR1, ``COUNTING_BOOT``) and the tail of its
+        `log` in the AssertionError, so that a hang says where it hung."""
+        import signal
+        import subprocess as sp
+
+        try:
+            return proc.wait(timeout=timeout)
+        except sp.TimeoutExpired:
+            proc.send_signal(signal.SIGUSR1)
+            time.sleep(3.0)
+            with open(log) as f:
+                tail = f.read()[-12000:]
+            raise AssertionError(
+                f"{what} did not exit within {timeout} s; its stacks and "
+                f"log:\n{tail}") from None
+
     def cluster_phase(self):
         """The exec layer on the cluster against ``StandInMaster``: a
         gpt2-small trial preempted at step 8 and resumed to 12, then a
@@ -4276,6 +4413,56 @@ class Smoke:
                                              seconds=time.perf_counter() - t0))
         return launches
 
+    def gang_runs(self, tmp, tag, params, runs):
+        """Gangs on the one card over gloo (``TENSOR_RANK``), one a world
+        size, each rank training the runs of its world (dicts with
+        ``world``, ``name``, ``mesh``, ``data``, ``fields``, ``steps``,
+        ``save_at``, optionally ``params``: whole weights, else `params`);
+        a run's sharded save goes to ``<tmp>/ckpt<world>``. → ({run: every
+        rank's result}, {world: seconds})."""
+        import json
+        import socket
+        import tempfile
+
+        results, seconds = {}, {}
+        for world in sorted({r["world"] for r in runs}):
+            spec = os.path.join(tmp, f"{tag}-runs{world}.json")
+            with open(spec, "w") as f:
+                json.dump(dict(params=params,
+                               runs=[r for r in runs if r["world"] == world],
+                               ckpt=os.path.join(tmp, f"ckpt{world}")), f)
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            outs = [os.path.join(tmp, f"{tag}-w{world}-rank{r}.json")
+                    for r in range(world)]
+            logs = [tempfile.TemporaryFile() for _ in range(world)]
+            t1 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", TENSOR_RANK, str(r), str(world),
+                 str(port), outs[r], spec], stdout=logs[r],
+                stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+                for r in range(world)]
+            try:
+                codes = [p.wait(timeout=600) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for r, code in enumerate(codes):
+                logs[r].seek(0)
+                assert code == 0, (tag, world, r,
+                                   logs[r].read().decode()[-4000:])
+                logs[r].close()
+            for out in outs:
+                with open(out) as f:
+                    for x in json.load(f):
+                        results.setdefault(x["name"], []).append(x)
+            seconds[world] = time.perf_counter() - t1
+        return results, seconds
+
     def tensor_phase(self):
         """Training over the tensor axis: gangs on the one card over gloo
         (``TENSOR_RANK``), each run of ``TENSOR_RUNS`` held against the
@@ -4287,9 +4474,6 @@ class Smoke:
         in the reference's names, restored bit for bit by a fresh trainer
         that goes on with the uninterrupted run's losses, the audit every
         step finding nothing. → launches."""
-        import json
-        import shutil
-        import socket
         import tempfile
 
         import numpy as np
@@ -4323,44 +4507,10 @@ class Smoke:
                      "packed-window-t2": self.packed_window_grad_norms,
                      "headline-c2t2-ring": self.train_grad_norms,
                      "headline-c2t2-ulysses": self.train_grad_norms}
-        results, seconds = {}, {}
-        for world in (2, 4):
-            runs = [dict(name=name, mesh=r[1], data=r[2], fields=r[3],
-                         steps=r[4], save_at=r[5])
-                    for name, r in TENSOR_RUNS.items() if r[0] == world]
-            spec = os.path.join(tmp, f"runs{world}.json")
-            with open(spec, "w") as f:
-                json.dump(dict(params=params, runs=runs,
-                               ckpt=os.path.join(tmp, f"ckpt{world}")), f)
-            with socket.socket() as sock:
-                sock.bind(("127.0.0.1", 0))
-                port = sock.getsockname()[1]
-            outs = [os.path.join(tmp, f"w{world}-rank{r}.json")
-                    for r in range(world)]
-            logs = [tempfile.TemporaryFile() for _ in range(world)]
-            t1 = time.perf_counter()
-            procs = [subprocess.Popen(
-                [sys.executable, "-c", TENSOR_RANK, str(r), str(world),
-                 str(port), outs[r], spec], stdout=logs[r],
-                stderr=subprocess.STDOUT,
-                cwd=os.path.dirname(os.path.abspath(__file__)))
-                for r in range(world)]
-            try:
-                codes = [p.wait(timeout=600) for p in procs]
-            finally:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                        p.wait()
-            for r, code in enumerate(codes):
-                logs[r].seek(0)
-                assert code == 0, (world, r, logs[r].read().decode()[-4000:])
-                logs[r].close()
-            for out in outs:
-                with open(out) as f:
-                    for x in json.load(f):
-                        results.setdefault(x["name"], []).append(x)
-            seconds[world] = time.perf_counter() - t1
+        results, seconds = self.gang_runs(tmp, "tensor", params, [
+            dict(name=name, world=r[0], mesh=r[1], data=r[2], fields=r[3],
+                 steps=r[4], save_at=r[5])
+            for name, r in TENSOR_RUNS.items()])
         n = 12  # GPT-2-small's layers
         launches = {}
         for name, (world, sizes, data, fields, steps, save_at, kernels,
@@ -4445,12 +4595,14 @@ class Smoke:
         0}). The survivor's failed collective asks the master, leaves
         ``fit`` by ``ElasticResizeExit``, re-enters the rendezvous, refits
         the mesh to one rank over NCCL, restores step 2 onto it and trains
-        to step 6, exit 0: its losses from step 3 on within 1e-3 of one
-        device restored from the same checkpoint, the ledger's resize and
-        no restart. Then restore only, one step after each, against the
-        one-device continuation within 1e-3: phase tensor's ``tensor=2``
-        save onto one rank over NCCL, and its ``context=2 x tensor=2``
-        save onto ``fsdp=2`` (``ELASTIC_RANK``). → launches."""
+        to step 6, exit 0 within ``ELASTIC_EXIT_S`` of the kill (past it,
+        its stacks and log fail the phase): its losses from step 3 on
+        within 1e-3 of one device restored from the same checkpoint, the
+        ledger's resize and no restart. Then restore only, one step after
+        each, against the one-device continuation within 1e-3: phase
+        tensor's ``tensor=2`` save onto one rank over NCCL, and its
+        ``context=2 x tensor=2`` save onto ``fsdp=2`` (``ELASTIC_RANK``).
+        → launches."""
         import datetime
         import secrets
         import shutil
@@ -4541,7 +4693,8 @@ class Smoke:
             t_kill = time.perf_counter()
             procs[1].kill()
             directive = master.resize(alloc, [1], "rank 1 SIGKILLed")
-            rc = procs[0].wait(timeout=600)
+            rc = self.wait_or_dump(procs[0], ELASTIC_EXIT_S, logs[0],
+                                   "the resized survivor")
             t_exit = time.perf_counter()
         finally:
             for p in procs:
@@ -4704,6 +4857,280 @@ class Smoke:
         shutil.rmtree(self.tensor_tmp, ignore_errors=True)
         shutil.rmtree(tmp, ignore_errors=True)
         self.report("elastic", "phase", dict(
+            seconds=time.perf_counter() - t0))
+        return launches
+
+    # -- phase 22: the experts ----------------------------------------------------
+    def experts_phase(self):
+        """GPT-2-small with a top-1 expert MLP in every block
+        (``EXPERT_FIELDS``) on the headline trial: ``EXPERT_STEPS`` steps on
+        one device through the index dispatch with the kernels, held
+        against the dense dispatch (the plain version, the reference's
+        one-hot einsums) on the card: the first loss bit for bit, every loss
+        within 1e-3 relative, every grad norm within ``GRAD_NORM_RTOL``,
+        the mono pair once per layer and step; then ``expert=2`` on two
+        ranks over gloo against the one-device run, a rank's resident state
+        below one device's, its sharded save restored bit for bit by a
+        fresh gang and onto one rank, which trains on with the gang's
+        losses; then a greedy decode through ``GenerationEngine``, the
+        index dispatch's streams the dense dispatch's. Prints each layer's
+        share of dropped tokens. → launches."""
+        import shutil
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch import core
+        from determined_tpu_torch.models import gpt
+        from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.serving import (GenerationEngine,
+                                                  ServingConfig)
+        from determined_tpu_torch.trainer import Batch, Trainer
+        from determined_tpu_torch.trainer.profile import (RUNGS,
+                                                          RepeatedBatchTrial)
+
+        close = close_rel
+        t0 = time.perf_counter()
+        b, s = 8, 1024
+        cfg = dataclasses.replace(RUNGS["headline"][1], **EXPERT_FIELDS)
+        n = cfg.n_layers
+        one, launches = {}, {}
+        for dispatch in ("index", "dense"):
+            held = {}
+
+            def prepare(trainer, dispatch=dispatch, held=held):
+                trainer.model.moe_dispatch = dispatch
+                held["model"] = trainer.model
+
+            reports, per_step, run, peak_gb, _ = self.fit_counted(
+                RepeatedBatchTrial(b, s, config=cfg), EXPERT_STEPS,
+                prepare=prepare)
+            model = held.pop("model")
+            for i, step in enumerate(per_step):
+                got = {k: v for k, v in step.items() if v}
+                assert got == {"flash_fwd_mono": n, "flash_bwd_mono": n}, (
+                    dispatch, i, step)
+            one[dispatch] = dict(
+                losses=[m["loss"] for m in reports],
+                grad_norms=[m["grad_norm"] for m in reports],
+                rec=self.train_record(reports, run, peak_gb, cfg, b, s,
+                                      warm=1),
+                drops={str(i): int(d) / t for i, (d, t) in
+                       sorted(model.moe_drops.items())},
+                n_params=sum(p.numel() for p in model.parameters()))
+            if dispatch == "index":
+                launches = dict(run)
+            del model
+            torch.cuda.empty_cache()
+        index, dense = one["index"], one["dense"]
+        assert index["losses"][-1] < index["losses"][0], index["losses"]
+        first_bitwise = index["losses"][0] == dense["losses"][0]
+        assert first_bitwise, (index["losses"][0], dense["losses"][0])
+        dense_err = close(index["losses"], dense["losses"], "index vs dense")
+        # the first step's gradient, from the same parameters, within
+        # rounding; later grad norms part as routing decisions flip
+        dense_norm_err = close(index["grad_norms"][:1],
+                               dense["grad_norms"][:1],
+                               "index vs dense first grad norm")
+        # params and the AdamW moments, fp32
+        state_gb = 3 * 4 * index["n_params"] / 1e9
+        self.report("experts", "gpt2-small-moe8 bf16 one device", dict(
+            index["rec"], n_params=index["n_params"], state_gb=state_gb,
+            losses=index["losses"], dense_losses=dense["losses"],
+            grad_norms=index["grad_norms"],
+            dense_grad_norms=dense["grad_norms"],
+            dense_dispatch_step_ms_median=dense["rec"]["step_ms_median"],
+            first_loss_bitwise_vs_dense=first_bitwise,
+            max_rel_loss_vs_dense=dense_err,
+            max_rel_grad_norm_vs_dense=dense_norm_err,
+            dropped_share_by_layer=index["drops"]))
+
+        # -- expert=2: two ranks on the one card -------------------------------
+        tmp = tempfile.mkdtemp(prefix="dtpu-experts-")
+        results, seconds = self.gang_runs(tmp, "experts", None, [dict(
+            name="expert2", world=2, mesh={"expert": 2}, data="tokens",
+            fields=EXPERT_FIELDS, steps=EXPERT_GANG_STEPS,
+            save_at=EXPERT_SAVE_AT)])
+        ranks = results["expert2"]
+        assert len(ranks) == 2, ranks
+        rec = dict(backend="gloo", ranks=2, expert=2,
+                   steps=EXPERT_GANG_STEPS, one_device_state_gb=state_gb)
+        for x in ranks:
+            r = x["rank"]
+            assert x["losses"] == ranks[0]["losses"], x
+            assert x["grad_norms"] == ranks[0]["grad_norms"], x
+            for i, step in enumerate(x["per_step"]):
+                got = {k: v for k, v in step.items() if v}
+                assert got == {"flash_fwd_mono": n, "flash_bwd_mono": n}, (
+                    r, i, step)
+                for k, v in step.items():
+                    launches[k] = launches.get(k, 0) + v
+            assert x["state_gb"] < state_gb, (r, x["state_gb"], state_gb)
+            assert x["resume_bitwise"], r
+            assert x["resumed_losses"] == x["losses"][EXPERT_SAVE_AT:], r
+            assert x["audits"] == list(range(1, EXPERT_GANG_STEPS + 1)), x
+            for key in ("state_gb", "peak_gb", "dropped_share_by_layer"):
+                rec[f"rank{r}_{key}"] = x["moe_drop_share" if key ==
+                                          "dropped_share_by_layer" else key]
+            rec[f"rank{r}_step_ms"] = x["step_ms"]
+        x = ranks[0]
+        files = x["files"]
+        assert "params__blocks__we_in.shard0_4_0_0.npy" in files, files
+        rec.update(
+            losses=x["losses"],
+            max_rel_loss_vs_one_device=close(
+                x["losses"], index["losses"], "expert=2 vs one device"),
+            max_rel_grad_norm_vs_one_device=close(
+                x["grad_norms"][:EXPERT_NORM_STEPS],
+                index["grad_norms"], "expert=2 grad norm vs one device",
+                GRAD_NORM_RTOL),
+            grad_norms=x["grad_norms"],
+            one_device_grad_norms=index["grad_norms"],
+            collectives_per_step=x["collectives_per_step"],
+            collective_mb_per_step=x["collective_mb_per_step"],
+            gang_seconds=seconds[2])
+        # the gang's save onto one rank
+        ctx = core._dummy_init(checkpoint_storage=os.path.join(tmp, "ckpt2"))
+        trainer = Trainer(RepeatedBatchTrial(b, s, config=cfg), ctx)
+        trainer.fit(max_length=Batch(EXPERT_GANG_STEPS),
+                    report_period=Batch(1), latest_checkpoint=x["save_id"])
+        restored = [m["loss"] for g, _, m in ctx.train._reported
+                    if g == "training"]
+        rec["restored_one_rank_losses"] = restored
+        rec["max_rel_loss_restored_vs_gang"] = close(
+            restored, x["losses"][EXPERT_SAVE_AT:], "restored onto one rank")
+        assert len(restored) == EXPERT_GANG_STEPS - EXPERT_SAVE_AT, restored
+        del trainer
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+        self.report("experts", "gpt2-small-moe8 bf16 expert=2", rec)
+
+        # -- a greedy decode, index against dense dispatch -----------------------
+        model = gpt.GPT(cfg)
+        scfg = ServingConfig.from_dict({**ENGINE_CFG,
+                                        "max_new_tokens": EXPERT_TOKENS})
+        rng = np.random.default_rng(2)
+        prompts = [list(rng.integers(1, cfg.vocab_size, size=int(k)))
+                   for k in rng.integers(64, 481, size=4)]
+        streams, engine_launches = {}, {}
+        for dispatch in ("index", "dense"):
+            model.moe_dispatch = dispatch
+            eng = GenerationEngine(model, None, scfg)
+            before = {k: v.launches for k, v in _build.KERNELS.items()}
+            eng.start()
+            try:
+                res = [r.result(timeout=600) for r in
+                       [eng.submit(p, max_new_tokens=EXPERT_TOKENS)
+                        for p in prompts]]
+            finally:
+                eng.stop()
+            assert all(r["reason"] == "length" for r in res), res
+            streams[dispatch] = [r["tokens"] for r in res]
+            engine_launches[dispatch] = {
+                k: v.launches - before[k] for k, v in _build.KERNELS.items()
+                if v.launches != before[k]}
+            if dispatch == "index":
+                # the last decode iteration's drops (capacity from its
+                # slots, padding included)
+                decode_drops = {str(i): int(d) / t for i, (d, t) in
+                                sorted(model.moe_drops.items())}
+            del eng
+        assert streams["index"] == streams["dense"], streams
+        assert engine_launches["index"].get("paged_attention", 0) > 0
+        assert engine_launches["index"].get("flash_fwd", 0) > 0
+        for k, v in engine_launches["index"].items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+        self.report("experts", "gpt2-small-moe8 bf16 greedy decode", dict(
+            prompts=len(prompts), tokens_per_stream=EXPERT_TOKENS,
+            identical_streams=True, launches=engine_launches["index"],
+            last_decode_dropped_share_by_layer=decode_drops,
+            seconds=time.perf_counter() - t0))
+        del model
+        torch.cuda.empty_cache()
+        return launches
+
+    # -- phase 23: pipeline stages ------------------------------------------------
+    def pipeline_phase(self):
+        """GPT-2-small on the headline trial through the pipeline
+        schedules, gangs on the one card over gloo (``PIPELINE_RUNS``),
+        each run held against phase train's one-device losses (1e-3) and
+        the grad norms of its first ``PIPELINE_NORM_STEPS`` steps
+        (``GRAD_NORM_RTOL``), every rank alike; per step
+        and rank the mono launches the schedule implies (the stage's L/S
+        layers × M microbatches, twice in the forward under 1F1B, which
+        recomputes each stage input's forward in its backward; on the ring
+        i + 1 flash calls a layer on context rank i), the 1F1B stash's
+        high-water mark (stage d: min(M, 2(S−1−d)+1) ≤ min(M, 2S−1)), the
+        step's wall time and the resident state. → launches."""
+        import shutil
+        import tempfile
+
+        import numpy as np
+
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="dtpu-pipeline-")
+        results, seconds = self.gang_runs(tmp, "pipeline", None, [
+            dict(name=name, world=r[0], mesh=r[1], data="tokens",
+                 fields=r[2], steps=r[3], save_at=0)
+            for name, r in PIPELINE_RUNS.items()])
+        shutil.rmtree(tmp, ignore_errors=True)
+        launches = {}
+        for name, (world, sizes, fields, steps) in PIPELINE_RUNS.items():
+            ranks = results[name]
+            assert len(ranks) == world, (name, len(ranks))
+            n_stages = sizes["pipeline"]
+            m = fields["num_microbatches"]
+            per = 12 // n_stages
+            ofob = fields["pipeline_schedule"] == "1f1b"
+            bound = min(m, 2 * n_stages - 1)
+            rec = dict(backend="gloo", ranks=world, **sizes, steps=steps,
+                       batch=8, seq=1024, microbatches=m, **fields)
+            for x in ranks:
+                r = x["rank"]
+                d, ci = x["coordinate"][0], x["coordinate"][4]
+                assert x["losses"] == ranks[0]["losses"], (name, x)
+                assert x["grad_norms"] == ranks[0]["grad_norms"], (name, x)
+                calls = ci + 1 if sizes.get("context", 1) > 1 else 1
+                want = {"flash_fwd_mono": per * m * calls * (2 if ofob
+                                                             else 1),
+                        "flash_bwd_mono": per * m * calls}
+                for i, step in enumerate(x["per_step"]):
+                    got = {k: v for k, v in step.items() if v}
+                    assert got == want, (name, r, i, step, want)
+                    for k, v in step.items():
+                        launches[k] = launches.get(k, 0) + v
+                if ofob:
+                    high = min(m, 2 * (n_stages - 1 - d) + 1)
+                    assert x["stash_high_water"] == [high] * steps, (name, x)
+                    assert high <= bound
+                else:
+                    assert x["stash_high_water"] == [-1] * steps, (name, x)
+                rec[f"rank{r}_stage"] = d
+                rec[f"rank{r}_step_ms"] = x["step_ms"]
+                rec[f"rank{r}_launches_per_step"] = want
+                rec[f"rank{r}_stash_high_water"] = x["stash_high_water"]
+                rec[f"rank{r}_state_gb"] = x["state_gb"]
+                rec[f"rank{r}_peak_gb"] = x["peak_gb"]
+                rec[f"rank{r}_p2p_mb_per_step"] = x["p2p_mb_per_step"]
+            x = ranks[0]
+            rec.update(
+                loss_first=x["losses"][0], loss_last=x["losses"][-1],
+                step_ms_median=float(np.median(x["step_ms"][1:])),
+                max_rel_loss_vs_one_device=close_rel(
+                    x["losses"], self.train_losses, f"{name} vs one device"),
+                max_rel_grad_norm_vs_one_device=close_rel(
+                    x["grad_norms"][:PIPELINE_NORM_STEPS],
+                    self.train_grad_norms, f"{name} grad norm vs one device",
+                    GRAD_NORM_RTOL),
+                grad_norms=x["grad_norms"],
+                stash_bound=bound if ofob else None,
+                collectives_per_step=x["collectives_per_step"],
+                collective_mb_per_step=x["collective_mb_per_step"])
+            self.report("pipeline", f"gpt2-small bf16 {name}", rec)
+        self.report("pipeline", "phase", dict(
+            gang2_seconds=seconds[2], gang4_seconds=seconds[4],
             seconds=time.perf_counter() - t0))
         return launches
 
@@ -4907,6 +5334,18 @@ def main() -> int:
         smoke.mono_case(f"ring-hop-{'diag' if causal else 'full'}-h6", bf16,
                         b=8, s=512, causal=causal, dlse=True, seed=9,
                         timed=True, h=6)
+    # the shapes phase pipeline gives the mono pair: a microbatch of 2 rows
+    # (M 4 of B 8), of 1 (pipeline=4, M 8), 6 heads a rank (× tensor=2)
+    # and the ring's hops at S/2 (× context=2); phase experts runs the
+    # headline shape above
+    for name, rows, heads in (("pipeline-mb2", 2, 12), ("pipeline-mb1", 1, 12),
+                              ("pipeline-mb2-h6", 2, 6)):
+        smoke.mono_case(name, bf16, b=rows, s=1024, causal=True, dlse=False,
+                        seed=3, h=heads, timed=True)
+    for causal in (True, False):
+        smoke.mono_case(f"pipeline-ring-hop-{'diag' if causal else 'full'}",
+                        bf16, b=2, s=512, causal=causal, dlse=True, seed=9,
+                        timed=True)
 
     # -- phases 4 to 10: the main paths ----------------------------------------------
     launches = smoke.engine_phase()
@@ -4922,15 +5361,17 @@ def main() -> int:
                      if n in ("flash_bwd_dq", "flash_bwd_dkv")})
     smoke.train_packed_phase()
 
-    # -- phases 11 to 21: checkpoints, the fixture, the rest of serving, the
+    # -- phases 11 to 23: checkpoints, the fixture, the rest of serving, the
     # -- rest of the training loop, the exec layer off and on the cluster, the
-    # -- mesh, the context axis, the tensor axis and the elastic resize ----------
+    # -- mesh, the context axis, the tensor axis, the elastic resize, the
+    # -- experts and the pipeline stages -----------------------------------------
     for phase in (smoke.checkpoint_phase, smoke.fixture_phase,
                   smoke.serving_http_phase, smoke.serving_parity_phase,
                   smoke.train_health_phase, smoke.exec_phase,
                   smoke.cluster_phase, smoke.mesh_phase,
                   smoke.context_phase, smoke.tensor_phase,
-                  smoke.elastic_phase):
+                  smoke.elastic_phase, smoke.experts_phase,
+                  smoke.pipeline_phase):
         for name, count in phase().items():
             launches[name] += count
 

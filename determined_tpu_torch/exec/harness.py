@@ -47,8 +47,9 @@ master before the exit (``_report_divergence``: ``POST
 /api/v1/trials/<id>/status`` with ``{"event": "divergence", "detail":
 ...}``).
 
-Refused by name: a mesh with pipeline or expert above 1 (ROADMAP queue
-1, item 4, part 3) and checkpoint storage other than ``shared_fs``.
+Refused by name: a mesh the port leaves out (an expert axis beside a
+pipeline, tensor or context axis above 1; ROADMAP queue 1, item 4) and
+checkpoint storage other than ``shared_fs``.
 
 Launch: ``DTPU_ENTRYPOINT=pkg.module:Trial DTPU_TRIAL_ID=1 ...
 python -m determined_tpu_torch.exec.harness``; under the reference's
@@ -98,8 +99,8 @@ def import_entrypoint(entrypoint: str) -> Any:
 def resolve_mesh(hparams: Dict[str, Any], cfg: Dict[str, Any],
                  device: Optional[str] = None, elastic: bool = False) -> Any:
     """The mesh from hparams or config (hparams first, so a searcher can
-    sweep layouts) over the gang ``core.init()`` joined, on any of the
-    data, fsdp, context and tensor axes: None without one. A process
+    sweep layouts) over the gang ``core.init()`` joined, on the
+    reference's six axes: None without one. A process
     alone joins a group of one (``_join_alone``).
 
     `elastic`: the gang was resized, so the configured layout may no

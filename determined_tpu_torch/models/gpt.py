@@ -35,11 +35,41 @@ forward. ``layer_loop`` "scan" and "unroll" pick the reference's XLA loop
 style and change nothing here: the port always runs a Python loop over
 the layers. ``fused_loss=True`` computes the loss through the chunked
 cross-entropy (``ops/fused_cross_entropy.py``), which never materializes
-the ``[B, S, V]`` logits. Mixture of experts and pipeline stages belong
-to a later part of the multi-device item and are refused by name.
+the ``[B, S, V]`` logits.
 
-Under a device mesh (``GPT(..., mesh=)``, the Trainer's ``data × fsdp ×
-context × tensor`` layout) the module computes on each rank's local rows
+Mixture of experts (``n_experts`` above 0): every block's MLP is the
+reference's top-1 (switch) layer (``_moe_mlp``): a router [d, E] in fp32
+softmax, each token to its top expert's [E, C, D] bucket up to the
+capacity ``C = int(capacity_factor · T / E)`` (the tokens past it
+dropped), the experts' MLPs ``we_in`` [E, d, f] / ``we_out`` [E, f, d],
+and the combine times the gate; the loss adds ``0.01 · aux / n_layers``,
+the switch load-balance term summed over the blocks. The dispatch is the
+index form of ``parallel/experts.py`` (``moe_dispatch = "dense"``: the
+reference's one-hot einsums, the plain version: the outputs bit for bit
+the same, the gradients within rounding).
+Serving runs it too, its capacity taken from each call's own tokens,
+padding included, as the reference's.
+
+Pipeline stages (``pipeline_stages`` above 1, over a mesh whose
+``pipeline`` axis has as many ranks): stage d runs layers [d·L/S,
+(d+1)·L/S) of each microbatch (``num_microbatches``, 0: 2S) through
+``parallel/pipeline.py``: ``"gpipe"`` and ``"circular"`` (V =
+``pipeline_virtual_stages`` chunks a stage, round robin) embed on stage 0
+before the pipeline and apply the head after it, on the outputs that the
+schedule replicates over the stages, the carry fp32 between stages;
+``"1f1b"`` (training; the forward-only methods take the fill-drain
+layout) embeds on stage 0, computes the head and loss on the last stage,
+and hands the schedule's finished gradients to autograd through
+``_Finished``. Every rank holds every block (the rules do not map
+"layers"); a stage's gradients are its own layers', the embedding's arise
+on stage 0 and the head's where the loss is computed, and the Trainer sums
+them over the pipeline group (``trainer/_mesh.py``). The reference's
+guards hold by the same words. Experts beside a pipeline are refused, as
+the reference refuses them; experts beside a tensor or context axis above
+1 are left out and refused by name (ROADMAP queue 1, item 4).
+
+Under a device mesh (``GPT(..., mesh=)``, the Trainer's layout over the
+reference's six axes) the module computes on each rank's local rows
 and, on a context axis above 1, its chunk of the sequence: attention goes through ``models.attention`` with the mesh
 (``"auto"``: ring attention on the context group; ``attn_impl="ulysses"``
 the all-to-all), and a rank's learned position ids are its global ones
@@ -91,6 +121,12 @@ from determined_tpu_torch.ops.flash_attention import (
 )
 from determined_tpu_torch.ops.fused_cross_entropy import fused_next_token_sums
 from determined_tpu_torch.ops.paged_attention import paged_attention
+from determined_tpu_torch.parallel import experts as moe
+from determined_tpu_torch.parallel.pipeline import (
+    circular_pipeline_apply,
+    one_f_one_b_grads,
+    pipeline_apply,
+)
 from determined_tpu_torch.parallel.tensor import (
     copy_to_tensor,
     reduce_from_tensor,
@@ -110,12 +146,10 @@ class GPTConfig:
     dtype: Any = torch.bfloat16        # compute dtype
     param_dtype: Any = torch.float32   # master params
     tie_embeddings: bool = True
-    # The reference's remaining knobs, carried for config parity. The
-    # port reads remat, remat_attention, layer_loop (only for the auto
-    # rematted attention past 16k tokens), attn_impl, flash_block_q/k,
-    # attn_window, z_loss, fused_loss and sequence_layout, and refuses
-    # MoE and pipeline stages; a later part of the multi-device item
-    # reads the rest.
+    # The reference's knobs, carried for config parity. The port reads
+    # every one but scan_unroll and flash_autotune (XLA's loop unrolling
+    # and the TPU tile probe) and layer_loop, which it reads only for the
+    # auto rematted attention past 16k tokens.
     remat: bool = True
     remat_attention: bool = False
     scan_unroll: int = 1
@@ -187,12 +221,9 @@ def _layernorm(x: torch.Tensor, scale: torch.Tensor,
     return (y * scale + bias).to(x.dtype)
 
 
-#: Block parameters the forward casts to the compute dtype, and those it
-#: keeps fp32 (layernorm scales and biases, as in the reference).
-_BLOCK_COMPUTE = ("wqkv", "bqkv", "wo", "bo", "wi", "bi", "wo_mlp", "bo_mlp")
+#: Block parameters the forward keeps fp32 (layernorm scales and biases,
+#: as in the reference); it casts every other one to the compute dtype.
 _BLOCK_FP32 = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
-_COMPUTE_PARAMS = ("tok_embed", "pos_embed", "head",
-                   *(f"blocks.{n}" for n in _BLOCK_COMPUTE))
 
 #: Matmul outputs the remat policy saves (the reference's
 #: dots_with_no_batch_dims_saveable); the rest of an MLP half — layernorm,
@@ -238,25 +269,27 @@ class GPT(Model):
                  *, seed: int = 0, mesh: Any = None) -> None:
         super().__init__()
         c = config
-        if c.n_experts:
-            raise NotImplementedError(
-                "mixture-of-experts GPT is not ported yet (the multi-device "
-                "slice's ROADMAP queue 1, item 4, part 3)"
-            )
-        if c.pipeline_stages > 1:
-            raise NotImplementedError(
-                "pipeline-parallel GPT is not ported yet (the multi-device "
-                "slice's ROADMAP queue 1, item 4, part 3)"
-            )
         #: the context axis's degree: above 1 each rank holds one chunk
         #: of the sequence
         self._context = 1
         #: the tensor axis's degree, this rank's index on it and its group
         #: (None: one rank); the first vocabulary row of this rank's slice
         self._tensor, self._tensor_index, self._tgroup = 1, 0, None
+        #: the pipeline axis's degree, this rank's stage and its group
+        self._pipeline, self._stage, self._pgroup = 1, 0, None
+        #: the expert axis's degree, this rank's index on it and its group;
+        #: the batch group (data × fsdp: None for one rank), this rank's row
+        #: block on it and its size (the experts' global capacity)
+        self._expert, self._expert_index, self._egroup = 1, 0, None
+        self._bgroup, self._dp_index, self._dp = None, 0, 1
         if mesh is not None:
             from determined_tpu_torch.parallel.mesh import (
+                _axis,
+                axis_index,
+                axes_group,
                 context_size,
+                data_parallel_index,
+                data_parallel_size,
                 refuse_later_axes,
                 tensor_index,
                 tensor_size,
@@ -268,6 +301,34 @@ class GPT(Model):
             self._tensor = tensor_size(mesh)
             self._tensor_index = tensor_index(mesh)
             self._tgroup = tensor_group(mesh)
+            self._pipeline = _axis(mesh, "pipeline")
+            self._expert = _axis(mesh, "expert")
+            if self._pipeline > 1:
+                self._stage = axis_index(mesh, "pipeline")
+                self._pgroup = mesh.get_group("pipeline")
+            if c.n_experts:
+                self._expert_index = axis_index(mesh, "expert")
+                self._egroup = moe.expert_group(mesh)
+                self._dp = data_parallel_size(mesh)
+                self._dp_index = data_parallel_index(mesh)
+                self._bgroup = axes_group(mesh, ("data", "fsdp"))
+        if c.n_experts:
+            if c.pipeline_stages > 1:
+                raise NotImplementedError(
+                    "MoE+pipeline composition not supported yet")
+            for axis, n in (("tensor", self._tensor),
+                            ("context", self._context)):
+                if n > 1:
+                    raise NotImplementedError(
+                        f"a mixture-of-experts GPT on a mesh with {axis}="
+                        f"{n}: experts over {axis} are left out (ROADMAP "
+                        "queue 1, item 4); the port runs experts over "
+                        "data, fsdp and expert")
+            if c.n_experts % self._expert:
+                raise ValueError(
+                    f"GPT n_experts={c.n_experts} is not divisible by the "
+                    f"expert axis ({self._expert}): each rank of the expert "
+                    "group holds n_experts/expert of the experts")
         t = self._tensor
         for what, n in (("n_heads", c.n_heads), ("d_ff", c.d_ff),
                         ("vocab_size", c.vocab_size)):
@@ -278,6 +339,9 @@ class GPT(Model):
                     "tensor of the split parameters")
         self._heads = c.n_heads // t
         self._vocab_start = self._tensor_index * (c.vocab_size // t)
+        #: this rank's experts: [first, first + n)
+        self._experts = c.n_experts // self._expert
+        self._expert_first = self._expert_index * self._experts
         if c.sequence_layout not in ("contiguous", "zigzag"):
             raise ValueError(f"unknown sequence_layout {c.sequence_layout!r}")
         if c.sequence_layout == "zigzag" and self._context == 1:
@@ -289,11 +353,18 @@ class GPT(Model):
         #: device); the forward computes on this rank's rows either way.
         self.mesh = mesh
         self.config = c
-        #: {parameter name: the dimension this rank holds a tensor slice
-        #: of}: the one that ``logical_axes()`` names "heads", "mlp" or
-        #: "vocab", the names the rules map to ``tensor``
-        self._tensor_dims: Dict[str, int] = {}
-        if t > 1:
+        #: the experts' dispatch: "index" (the main path) or "dense" (the
+        #: reference's one-hot einsums, the plain version)
+        self.moe_dispatch = "index"
+        #: per layer, (dropped tokens, tokens) of this rank in the last
+        #: forward through the experts (device tensors)
+        self.moe_drops: Dict[int, Tuple[torch.Tensor, int]] = {}
+        #: {parameter name: {mesh axis: the dimension this rank holds a
+        #: slice of}}: on a tensor axis the one that ``logical_axes()``
+        #: names "heads", "mlp" or "vocab", on an expert axis "expert", the
+        #: names the rules map to those axes
+        self._slice_dims: Dict[str, Dict[str, int]] = {}
+        if t > 1 or self._expert > 1:
             from determined_tpu_torch.parallel.sharding import (
                 DEFAULT_RULES,
                 flatten_axes,
@@ -301,8 +372,9 @@ class GPT(Model):
 
             for name, axes in flatten_axes(self.logical_axes()).items():
                 for dim, logical in enumerate(axes):
-                    if DEFAULT_RULES.lookup(logical) == "tensor":
-                        self._tensor_dims[name] = dim
+                    axis = DEFAULT_RULES.lookup(logical)
+                    if axis in ("tensor", "expert") and self._degree(axis) > 1:
+                        self._slice_dims.setdefault(name, {})[axis] = dim
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         pd = c.param_dtype
@@ -311,7 +383,7 @@ class GPT(Model):
 
         def keep(name, t):
             """The global init `t` of `name`, or this rank's slice of it."""
-            part = self._tensor_slice(name, t)
+            part = self._model_slice(name, t)
             return nn.Parameter(t if part is t else part.clone())
 
         def normal(name, shape, std):
@@ -332,11 +404,23 @@ class GPT(Model):
             "bo": (full, (n_l, d), 0.0),
             "ln2_scale": (full, (n_l, d), 1.0),
             "ln2_bias": (full, (n_l, d), 0.0),
-            "wi": (normal, (n_l, d, f), 0.02),
-            "bi": (full, (n_l, f), 0.0),
-            "wo_mlp": (normal, (n_l, f, d), res_std),
-            "bo_mlp": (full, (n_l, d), 0.0),
         }
+        if c.n_experts:
+            e = c.n_experts
+            blocks.update({
+                "router": (normal, (n_l, d, e), 0.02),
+                "we_in": (normal, (n_l, e, d, f), 0.02),
+                "be_in": (full, (n_l, e, f), 0.0),
+                "we_out": (normal, (n_l, e, f, d), res_std),
+                "bo_mlp": (full, (n_l, d), 0.0),
+            })
+        else:
+            blocks.update({
+                "wi": (normal, (n_l, d, f), 0.02),
+                "bi": (full, (n_l, f), 0.0),
+                "wo_mlp": (normal, (n_l, f, d), res_std),
+                "bo_mlp": (full, (n_l, d), 0.0),
+            })
         self.blocks = nn.ParameterDict({
             name: make(f"blocks.{name}", shape, arg)
             for name, (make, shape, arg) in blocks.items()})
@@ -357,27 +441,49 @@ class GPT(Model):
         ``step_flops``)."""
         return self.config.train_flops_per_token()
 
+    @property
+    def pipelined(self) -> bool:
+        """Whether the model runs pipeline stages: each stage computes its
+        own layers' gradients, and the Trainer sums them over the
+        pipeline group."""
+        return self.config.pipeline_stages > 1
+
+    def _degree(self, axis: str) -> int:
+        return {"tensor": self._tensor, "expert": self._expert}[axis]
+
+    def _index(self, axis: str) -> int:
+        return {"tensor": self._tensor_index,
+                "expert": self._expert_index}[axis]
+
     def tensor_dims(self) -> Dict[str, int]:
         """{parameter name: the dimension this module holds a tensor
         slice of}; empty unless the tensor axis is above 1."""
-        return dict(self._tensor_dims)
+        return {n: d["tensor"] for n, d in self._slice_dims.items()
+                if "tensor" in d}
 
-    def _tensor_slice(self, name: str, x: Any) -> Any:
+    def expert_dims(self) -> Dict[str, int]:
+        """{parameter name: the dimension this module holds its experts'
+        slice of}; empty unless the expert axis is above 1."""
+        return {n: d["expert"] for n, d in self._slice_dims.items()
+                if "expert" in d}
+
+    def _model_slice(self, name: str, x: Any) -> Any:
         """This rank's slice of the whole parameter `name` (a tensor or a
-        numpy array); the array itself when `name` is not split."""
-        dim = self._tensor_dims.get(name)
-        if dim is None:
-            return x
-        n = x.shape[dim] // self._tensor
-        lo = self._tensor_index * n
-        return x[(slice(None),) * dim + (slice(lo, lo + n),)]
+        numpy array): its tensor and expert slices; the array itself when
+        `name` is not split."""
+        for axis, dim in self._slice_dims.get(name, {}).items():
+            n = x.shape[dim] // self._degree(axis)
+            lo = self._index(axis) * n
+            x = x[(slice(None),) * dim + (slice(lo, lo + n),)]
+        return x
 
     def _refuse_tensor(self, what: str) -> None:
-        if self._tensor > 1:
-            raise NotImplementedError(
-                f"GPT.{what} on a mesh with tensor={self._tensor}: the "
-                "reference serves on no mesh; serve from a GPT built "
-                "without one")
+        for axis in ("tensor", "expert"):
+            if any(axis in d for d in self._slice_dims.values()):
+                raise NotImplementedError(
+                    f"GPT.{what} on a mesh with {axis}="
+                    f"{self._degree(axis)}: the reference serves on no "
+                    "mesh; serve from a GPT built without one")
         if self._fsdp_dims:
             raise NotImplementedError(
                 f"GPT.{what} on a model that holds its fsdp blocks: the "
@@ -397,11 +503,22 @@ class GPT(Model):
             "bo": ("layers", "norm"),
             "ln2_scale": ("layers", "norm"),
             "ln2_bias": ("layers", "norm"),
-            "wi": ("layers", "embed", "mlp"),
-            "bi": ("layers", "mlp"),
-            "wo_mlp": ("layers", "mlp", "embed"),
-            "bo_mlp": ("layers", "norm"),
         }
+        if self.config.n_experts:
+            blocks.update(
+                router=("layers", "embed", None),
+                we_in=("layers", "expert", "embed", "mlp"),
+                be_in=("layers", "expert", "mlp"),
+                we_out=("layers", "expert", "mlp", "embed"),
+                bo_mlp=("layers", "norm"),
+            )
+        else:
+            blocks.update(
+                wi=("layers", "embed", "mlp"),
+                bi=("layers", "mlp"),
+                wo_mlp=("layers", "mlp", "embed"),
+                bo_mlp=("layers", "norm"),
+            )
         axes: Dict[str, Any] = {
             "tok_embed": ("vocab", "embed"),
             "pos_embed": (None, "embed"),
@@ -427,10 +544,15 @@ class GPT(Model):
         self._compute.clear()
         dtype = self.config.dtype
         params = dict(self.named_parameters())
-        for name in _COMPUTE_PARAMS:
+        for name in ("tok_embed", "pos_embed", "head",
+                     *(f"blocks.{n}" for n in self._block_compute())):
             p = params.get(name)
             if p is not None and p.dtype != dtype:
                 self._compute[name] = p.detach().to(dtype)
+
+    def _block_compute(self) -> List[str]:
+        """The block parameters the forward casts to the compute dtype."""
+        return [n for n in self.blocks if n not in _BLOCK_FP32]
 
     def _cw(self, name: str) -> torch.Tensor:
         """Whole parameter `name` in the compute dtype (serving)."""
@@ -449,8 +571,9 @@ class GPT(Model):
 
     def _serving_layer(self, i: int) -> Dict[str, torch.Tensor]:
         """Layer i's weights for the serving methods (no graph)."""
-        w = {n: self._bw(n, i) for n in _BLOCK_COMPUTE}
+        w = _Weights({n: self._bw(n, i) for n in self._block_compute()})
         w.update({n: self.blocks[n][i] for n in _BLOCK_FP32})
+        w.layer = i
         return w
 
     def gather_at_use(self, layout: Any) -> bool:
@@ -465,23 +588,34 @@ class GPT(Model):
 
     def _train_layers(self) -> List[Dict[str, torch.Tensor]]:
         """Every layer's weights cast from the live parameters INSIDE the
-        graph (one cast per stacked parameter, then per-layer views): the
-        training forward's gradients reach the fp32 masters. A block
-        parameter split over fsdp is gathered at each use of its layer's
-        weight instead (``_Weights``)."""
+        graph: the training forward's gradients reach the fp32 masters."""
+        return self._layer_weights(dict(self.blocks))
+
+    def _layer_weights(self, blocks: Dict[str, torch.Tensor]
+                       ) -> List[Dict[str, torch.Tensor]]:
+        """The weights of each layer of `blocks` (stacked [k, ...] leaves
+        by name: the parameters, or a pipeline stage's views of them),
+        cast in the graph (one cast per stacked leaf, then per-layer
+        views). A block parameter split over
+        fsdp is gathered at each use of its layer's weight instead
+        (``_Weights``)."""
         c = self.config
         cols: Dict[str, Any] = {}
-        for n in _BLOCK_COMPUTE:
+        for n in self._block_compute():
             dim = self._fsdp_dims.get(f"blocks.{n}")
             if dim is None:
-                cols[n] = self.blocks[n].to(c.dtype).unbind(0)
+                cols[n] = blocks[n].to(c.dtype).unbind(0)
             else:
                 cols[n] = [functools.partial(self._fsdp.gather, layer,
                                              dim - 1, c.dtype)
-                           for layer in self.blocks[n].unbind(0)]
-        cols.update({n: self.blocks[n].unbind(0) for n in _BLOCK_FP32})
-        return [_Weights({n: cols[n][i] for n in cols})
-                for i in range(c.n_layers)]
+                           for layer in blocks[n].unbind(0)]
+        cols.update({n: blocks[n].unbind(0) for n in _BLOCK_FP32})
+        layers = []
+        for i in range(len(cols["bo"])):
+            w = _Weights({n: cols[n][i] for n in cols})
+            w.layer = i
+            layers.append(w)
+        return layers
 
     # -- pieces of a block ---------------------------------------------------
     def _qkv(self, x: torch.Tensor, w: Dict[str, torch.Tensor]):
@@ -505,8 +639,14 @@ class GPT(Model):
             w["wo"].reshape(self._heads * c.head_dim, c.d_model),
         ), self._tgroup) + w["bo"]
 
-    def _mlp_half(self, x: torch.Tensor,
-                  w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _mlp_half(self, x: torch.Tensor, w: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """→ (x + MLP(ln2(x)), the experts' aux loss; None without
+        experts)."""
+        if self.config.n_experts:
+            m, aux = self._moe_mlp(
+                _layernorm(x, w["ln2_scale"], w["ln2_bias"]), w)
+            return x + m, aux
         h = copy_to_tensor(_layernorm(x, w["ln2_scale"], w["ln2_bias"]),
                            self._tgroup)
         m = torch.matmul(h, w["wi"]) + w["bi"]
@@ -514,7 +654,34 @@ class GPT(Model):
         m = F.gelu(m, approximate="tanh")
         m = reduce_from_tensor(torch.matmul(m, w["wo_mlp"]),
                                self._tgroup) + w["bo_mlp"]
-        return x + m
+        return x + m, None
+
+    def _moe_mlp(self, h: torch.Tensor, w: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-1 (switch) MoE over ln2's output h [B, S, D] → (output,
+        load-balance aux loss): the router in fp32, this rank's experts
+        on their capacity buckets (``parallel/experts.py``), the partial
+        combines summed over the expert group."""
+        b, s, d = h.shape
+        x = h.reshape(b * s, d)
+        # routing decisions must not round in the compute dtype
+        gates = torch.softmax(torch.matmul(x, w["router"]).float(), dim=-1)
+        routing = moe.route(gates, self.config.capacity_factor,
+                            group=self._bgroup, index=self._dp_index,
+                            size=self._dp)
+        first, n = self._expert_first, self._experts
+        xe = moe.dispatch(moe.copy_to_expert(x, self._egroup), routing,
+                          first, n, self.moe_dispatch)
+        he = F.gelu(torch.matmul(xe, w["we_in"]) + w["be_in"][:, None, :],
+                    approximate="tanh")
+        ye = torch.matmul(he, w["we_out"])
+        gate = moe.copy_to_expert(routing.gate, self._egroup)
+        y = moe.combine(ye, routing, gate, first, n, self.moe_dispatch)
+        y = moe.reduce_from_expert(y, self._egroup) + w["bo_mlp"]
+        layer = getattr(w, "layer", None)
+        if layer is not None:
+            self.moe_drops[layer] = (routing.dropped.detach(), b * s)
+        return y.reshape(b, s, d), routing.aux
 
     def _embed(self, tok: torch.Tensor, pos: torch.Tensor,
                tokens: torch.Tensor,
@@ -528,9 +695,14 @@ class GPT(Model):
             return x + F.embedding(positions.long(), pos)
         return x + pos[: tokens.shape[1]]
 
-    def _head(self, x: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
-        """Logits [..., V] (on a tensor axis this rank's V/t columns)."""
-        h = _layernorm(x, self.lnf_scale, self.lnf_bias)
+    def _head(self, x: torch.Tensor, w_out: torch.Tensor,
+              lnf: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> torch.Tensor:
+        """Logits [..., V] (on a tensor axis this rank's V/t columns);
+        `lnf`: the final layernorm's (scale, bias) in place of the
+        parameters."""
+        scale, bias = lnf or (self.lnf_scale, self.lnf_bias)
+        h = _layernorm(x, scale, bias)
         return torch.matmul(copy_to_tensor(h, self._tgroup), w_out)
 
     def _serving_embed(self, tokens, positions=None):
@@ -573,6 +745,8 @@ class GPT(Model):
         """
         self._refuse_tensor("prefill_kv")
         c = self.config
+        if c.pipeline_stages > 1:
+            raise ValueError("prefill_kv does not support pipeline stages")
         s = tokens.shape[1]
         x = self._serving_embed(tokens, positions)
         bq = fit_block(s, c.flash_block_q)
@@ -588,7 +762,7 @@ class GPT(Model):
                 segment_ids=segment_ids,
             )
             x = x + self._out_proj(o, w)
-            x = self._mlp_half(x, w)
+            x, _aux = self._mlp_half(x, w)
         return self._serving_head(x), torch.stack(ks), torch.stack(vs)
 
     @torch.no_grad()
@@ -690,7 +864,7 @@ class GPT(Model):
                     block_q=bq, block_k=bk,
                 )[:, :1]
             x = x + self._out_proj(o, w)
-            x = self._mlp_half(x, w)
+            x, _aux = self._mlp_half(x, w)
         logits = self._serving_head(x)  # [B, 1, V]
         return logits[:, 0].float(), cache_k, cache_v
 
@@ -724,6 +898,9 @@ class GPT(Model):
         """
         self._refuse_tensor("prefill_kv_cached")
         c = self.config
+        if c.pipeline_stages > 1:
+            raise ValueError(
+                "prefill_kv_cached does not support pipeline stages")
         s = tokens.shape[1]
         sp = prefix_k.shape[2]
         x = self._serving_embed(tokens, positions)
@@ -745,7 +922,7 @@ class GPT(Model):
                 segment_ids=segment_ids, kv_segment_ids=kv_seg,
             )
             x = x + self._out_proj(o, w)
-            x = self._mlp_half(x, w)
+            x, _aux = self._mlp_half(x, w)
         return self._serving_head(x), torch.stack(ks), torch.stack(vs)
 
     @torch.no_grad()
@@ -856,7 +1033,7 @@ class GPT(Model):
                     block_q=bq, block_k=bk,
                 )[:, :q_n]
             x = x + self._out_proj(o, w)
-            x = self._mlp_half(x, w)
+            x, _aux = self._mlp_half(x, w)
         logits = self._serving_head(x)  # [B, Q, V]
         return logits.float(), cache_k, cache_v
 
@@ -873,50 +1050,66 @@ class GPT(Model):
         )
         return x + self._out_proj(o, w)
 
-    def _forward_trunk(self, tokens: torch.Tensor,
-                       positions: Optional[torch.Tensor] = None,
-                       segment_ids: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-        """Embed + blocks → pre-final-layernorm [B, S, D] in the compute
-        dtype, differentiable in every parameter."""
+    def _run_layers(self, x: torch.Tensor, layers: List[Dict[str, Any]],
+                    segment_ids: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """`layers` over x → (x, the experts' aux summed over the layers;
+        None without experts), rematted as the config says."""
         c = self.config
-        positions = self._local_positions(positions, tokens.shape[1])
-        x = self._embed(self._cast("tok_embed"), self._cast("pos_embed"),
-                        tokens, positions)
         remat = c.remat and torch.is_grad_enabled()
         checkpoint = functools.partial(
             torch.utils.checkpoint.checkpoint, use_reentrant=False,
             context_fn=_remat_context,
         )
-        if self._context > 1 or self._tensor > 1 or self._fsdp_dims:
-            # The recompute reissues the ring's rotations, the tensor
-            # all-reduces and the fsdp gathers: it must run the whole
-            # region on every rank, whatever this rank's graph needs.
+        if (self._context > 1 or self._tensor > 1 or self._fsdp_dims
+                or self._bgroup is not None or self._egroup is not None):
+            # The recompute reissues the ring's rotations, the tensor and
+            # expert all-reduces, the capacity's all-gather and the fsdp
+            # gathers: it must run the whole region on every rank,
+            # whatever this rank's graph needs.
             checkpoint = _no_early_stop(checkpoint)
-        for w in self._train_layers():
+        aux = None
+        for w in layers:
             if remat and remat_attention(c):
-                x = checkpoint(self._block, x, w, segment_ids)
+                x, a = checkpoint(self._block, x, w, segment_ids)
             elif remat:
-                x = checkpoint(self._mlp_half,
-                               self._attn_half(x, w, segment_ids), w)
+                x, a = checkpoint(self._mlp_half,
+                                  self._attn_half(x, w, segment_ids), w)
             else:
-                x = self._block(x, w, segment_ids)
-        return x
+                x, a = self._block(x, w, segment_ids)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
 
-    def _cast(self, name: str) -> torch.Tensor:
+    def _forward_trunk(self, tokens: torch.Tensor,
+                       positions: Optional[torch.Tensor] = None,
+                       segment_ids: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Embed + blocks → (pre-final-layernorm [B, S, D] in the compute
+        dtype, the experts' aux loss summed over the blocks), differentiable
+        in every parameter."""
+        positions = self._local_positions(positions, tokens.shape[1])
+        x = self._embed(self._cast("tok_embed"), self._cast("pos_embed"),
+                        tokens, positions)
+        return self._run_layers(x, self._train_layers(), segment_ids)
+
+    def _cast(self, name: str, live: bool = True) -> torch.Tensor:
         """Whole parameter `name` in the compute dtype, in the graph (on an
-        fsdp axis gathered from this rank's block, ``gather_at_use``)."""
+        fsdp axis gathered from this rank's block, ``gather_at_use``);
+        ``live=False``: outside it."""
         p = self.get_parameter(name)
+        if not live:
+            p = p.detach()
         if name in self._fsdp_dims:
             return self._fsdp.gather(p, self._fsdp_dims[name],
                                      self.config.dtype)
         return p.to(self.config.dtype)
 
-    def _w_out(self) -> torch.Tensor:
+    def _w_out(self, live: bool = True) -> torch.Tensor:
         """The head's weight [d, V] in the compute dtype, in the graph."""
         if self.config.tie_embeddings:
-            return self._cast("tok_embed").t()
-        return self._cast("head")
+            return self._cast("tok_embed", live).t()
+        return self._cast("head", live)
 
     def _local_positions(self, positions: Optional[torch.Tensor],
                          s_local: int) -> Optional[torch.Tensor]:
@@ -940,7 +1133,8 @@ class GPT(Model):
         return positions
 
     def _block(self, x: torch.Tensor, w: Dict[str, torch.Tensor],
-               segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
+               segment_ids: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         return self._mlp_half(self._attn_half(x, w, segment_ids), w)
 
     def forward(self, tokens: torch.Tensor,
@@ -949,8 +1143,228 @@ class GPT(Model):
         """The differentiable forward: tokens [B, S] int → logits
         [B, S, V] in the compute dtype (on a tensor axis this rank's
         [B, S, V/t] columns)."""
-        x = self._forward_trunk(tokens, positions, segment_ids)
-        return self._head(x, self._w_out())
+        return self._forward(tokens, positions, segment_ids)[0]
+
+    def _forward(self, tokens: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None,
+                 segment_ids: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """→ (logits, the experts' aux loss; None without experts)."""
+        c = self.config
+        if c.pipeline_stages > 1:
+            if segment_ids is not None:
+                raise ValueError(
+                    "segment_ids (packed sequences) are not supported with "
+                    "pipeline parallelism yet")
+            if c.sequence_layout == "zigzag":
+                if positions is None:
+                    raise ValueError(
+                        "sequence_layout='zigzag' needs a zigzag-emitting "
+                        "data pipeline (data/tokens.py zigzag_ring) "
+                        "supplying positions")
+                if self._context == 1:
+                    raise ValueError(
+                        "sequence_layout='zigzag' + pipeline parallelism "
+                        "requires a sharded context axis (ring attention in "
+                        "the stages)")
+            if self._context == 1 and positions is not None:
+                raise ValueError(
+                    "explicit positions with a context-unsharded pipeline "
+                    "would silently break the dense causal mask; drop "
+                    "'positions' (contiguous data) or shard the context "
+                    "axis (ring attention understands permuted layouts)")
+            return self._apply_pipelined(tokens, positions), None
+        x, aux = self._forward_trunk(tokens, positions, segment_ids)
+        return self._head(x, self._w_out()), aux
+
+    # -- pipeline stages ---------------------------------------------------------
+    def _check_pipeline(self) -> int:
+        """The reference's checks of a pipelined call → the microbatch
+        count."""
+        c = self.config
+        if self.mesh is None:
+            raise ValueError("pipeline parallelism needs a mesh")
+        if self._pipeline != c.pipeline_stages:
+            raise ValueError(
+                f"mesh pipeline axis {self._pipeline} != config "
+                f"pipeline_stages {c.pipeline_stages}")
+        if c.n_layers % c.pipeline_stages:
+            raise ValueError(
+                f"n_layers {c.n_layers} is not divisible by pipeline_stages "
+                f"{c.pipeline_stages}")
+        if c.pipeline_schedule not in ("gpipe", "circular", "1f1b"):
+            raise ValueError(
+                f"unknown pipeline_schedule {c.pipeline_schedule!r} "
+                "(one of: gpipe, circular, 1f1b)")
+        return c.num_microbatches or 2 * c.pipeline_stages
+
+    def _microbatch_split(self, x: torch.Tensor, m: int) -> torch.Tensor:
+        """This rank's rows [b, ...] → [m, b/m, ...]: microbatch j takes
+        rows [j·b/m, (j+1)·b/m) of every rank's block, the reference's
+        block-cyclic layout (a plain split of the global rows where the
+        ranks' blocks do not divide into it: the per-token sums are the
+        same)."""
+        b = x.shape[0]
+        if b % m:
+            raise ValueError(f"batch {b} not divisible by {m} microbatches")
+        return x.reshape(m, b // m, *x.shape[1:])
+
+    def _stage_fn(self, blocks: Dict[str, torch.Tensor],
+                  x: torch.Tensor) -> torch.Tensor:
+        """The stage of every schedule: `blocks` (a stage's [k, ...]
+        views of the block parameters) over the fp32 carry x."""
+        h, _aux = self._run_layers(x.to(self.config.dtype),
+                                   self._layer_weights(blocks), None)
+        return h.float()
+
+    def _apply_pipelined(self, tokens: torch.Tensor,
+                         positions: Optional[torch.Tensor]) -> torch.Tensor:
+        """GPipe / circular over the pipeline group: the embedding on
+        stage 0 before the pipeline, the head after it on the outputs the
+        schedule replicates over the stages (its weights live on the stage
+        that holds them, so their gradient counts once)."""
+        c = self.config
+        m = self._check_pipeline()
+        n_stages, d = c.pipeline_stages, self._stage
+        b, s = tokens.shape
+        shape = (b, s, c.d_model)
+        if d == 0:
+            x = self._embed(self._cast("tok_embed"), self._cast("pos_embed"),
+                            tokens, self._local_positions(positions, s))
+            x = x.float()
+        else:
+            x = torch.zeros((), device=self.device).expand(shape)
+        micro = self._microbatch_split(x, m)
+        if c.pipeline_schedule == "circular":
+            v = c.pipeline_virtual_stages
+            if c.n_layers % (n_stages * v):
+                raise ValueError(
+                    f"n_layers {c.n_layers} must divide stages×virtual "
+                    f"({n_stages}×{v})")
+            per = c.n_layers // (n_stages * v)
+            # device d runs global chunks d, d+S, … (round robin)
+            views = {n: p.reshape(n_stages * v, per, *p.shape[1:])[d::n_stages]
+                     for n, p in self.blocks.items()}
+            out = circular_pipeline_apply(self._stage_fn, views, micro,
+                                          group=self._pgroup)
+            holder = 0
+        else:
+            # 1F1B is a training schedule (loss); forward-only calls take
+            # the fill-drain layout, as the reference's
+            per = c.n_layers // n_stages
+            views = {n: p[d * per:(d + 1) * per]
+                     for n, p in self.blocks.items()}
+            out = pipeline_apply(self._stage_fn, views, micro,
+                                 group=self._pgroup)
+            holder = n_stages - 1
+        x = out.reshape(shape).to(c.dtype)
+        if d == holder:
+            return self._head(x, self._w_out())
+        # the head's weights are live on the holder alone
+        return self._head(x, self._w_out(live=False),
+                          (self.lnf_scale.detach(), self.lnf_bias.detach()))
+
+    def _loss_1f1b(self, tokens, targets, positions, segment_ids, mask
+                   ) -> Tuple[torch.Tensor, Metrics]:
+        """Memory-bounded pipelined training (schedule "1f1b"): stage 0
+        embeds each microbatch, the last stage computes its loss and seeds
+        its backward at once; the schedule returns finished gradients
+        (``parallel/pipeline.py one_f_one_b_grads``), which ``_Finished``
+        hands to the caller's autograd times the loss's cotangent."""
+        c = self.config
+        if segment_ids is not None:
+            raise ValueError(
+                "segment_ids (packed sequences) are not supported with "
+                "pipeline parallelism yet")
+        m = self._check_pipeline()
+        ctx = self._context
+        aligned = targets is not None
+        zigzag = c.sequence_layout == "zigzag"
+        if (ctx > 1 or zigzag) and not aligned:
+            raise ValueError(
+                "1F1B with a sharded context axis (or zigzag layout) needs "
+                "pre-shifted batches: data/tokens.py's zigzag_ring (or an "
+                "aligned {'tokens','targets','positions'} stream)")
+        if zigzag and ctx == 1:
+            raise ValueError(
+                "sequence_layout='zigzag' + pipeline needs a sharded "
+                "context axis (ring attention in the stages)")
+        if ctx == 1 and positions is not None:
+            raise ValueError(
+                "explicit positions with a context-unsharded pipeline "
+                "would silently break the dense causal mask; drop "
+                "'positions' or shard the context axis")
+        n_stages, d = c.pipeline_stages, self._stage
+        per = c.n_layers // n_stages
+        lo = d * per
+        tok3 = self._microbatch_split(tokens, m)
+        msk3 = self._microbatch_split(mask, m)
+        tgt3 = self._microbatch_split(targets, m) if aligned else None
+        pos = self._local_positions(positions, tokens.shape[1])
+        views = {n: p[lo:lo + per] for n, p in self.blocks.items()}
+        head = "tok_embed" if c.tie_embeddings else "head"
+        ep = {"tok_embed": self.tok_embed, "pos_embed": self.pos_embed}
+        lp = {"lnf_scale": self.lnf_scale, "lnf_bias": self.lnf_bias,
+              head: self.get_parameter(head)}
+
+        def cast(name, p):
+            """`p`, a (detached) block of parameter `name`, whole in the
+            compute dtype."""
+            if name in self._fsdp_dims:
+                return self._fsdp.gather(p, self._fsdp_dims[name], c.dtype)
+            return p.to(c.dtype)
+
+        def emb_fn(ep_, tok, pos_):
+            return self._embed(cast("tok_embed", ep_["tok_embed"]),
+                               cast("pos_embed", ep_["pos_embed"]), tok,
+                               pos_).float()
+
+        def loss_fn(lp_, y, tgt, msk):
+            w_out = cast(head, lp_[head])
+            if c.tie_embeddings:
+                w_out = w_out.t()
+            logits = self._head(y.to(c.dtype), w_out,
+                                lnf=(lp_["lnf_scale"], lp_["lnf_bias"]))
+            logits = logits.float()
+            if not aligned:
+                logits, tgt, msk = logits[:, :-1], tgt[:, 1:], msk[:, 1:]
+            nll, z, acc, n = self._token_sums(logits, tgt, msk)
+            return nll + c.z_loss * z, torch.stack([nll, z, acc.float(), n])
+
+        msums, s_g, e_g, l_g = one_f_one_b_grads(
+            self._stage_fn, views, emb_fn, ep, loss_fn, lp, tok3, msk3,
+            targets_mb=tgt3, positions=pos, group=self._pgroup,
+            replicate=False)
+        n = torch.clamp(msums[3], min=1.0)
+        loss = msums[0] / n + c.z_loss * msums[1] / n
+        metrics = {"loss": loss, "accuracy": msums[2] / n,
+                   "tokens": msums[3]}
+        grads = {}
+        for name, p in self.blocks.items():
+            g = torch.zeros_like(p)
+            g[lo:lo + per] = s_g[name]
+            grads[f"blocks.{name}"] = g
+        grads["pos_embed"] = e_g["pos_embed"]
+        grads["lnf_scale"], grads["lnf_bias"] = l_g["lnf_scale"], l_g["lnf_bias"]
+        grads[head] = l_g[head]
+        if c.tie_embeddings:
+            grads["tok_embed"] = e_g["tok_embed"] + l_g["tok_embed"]
+        else:
+            grads["tok_embed"] = e_g["tok_embed"]
+        named = list(self.named_parameters())
+        scaled = [grads[name] / n for name, _ in named]
+        loss = _Finished.apply(loss, scaled, *(p for _, p in named))
+        return loss, metrics
+
+    # -- loss -----------------------------------------------------------------------
+    def _token_sums(self, logits, targets, mask):
+        """(nll, z, correct, n) sums over aligned fp32 logits; on a tensor
+        axis the vocab-parallel ones."""
+        if self._tensor > 1:
+            return vocab_parallel_token_sums(
+                logits, targets, mask, self._vocab_start,
+                self.config.vocab_size, self._tgroup)
+        return _aligned_token_sums(logits, targets, mask)
 
     def loss(self, batch: Dict[str, Any],
              generator: Optional[torch.Generator] = None
@@ -974,6 +1388,9 @@ class GPT(Model):
         segment_ids, mask = get("segment_ids"), get("loss_mask")
         mask = (torch.ones(tokens.shape, dtype=torch.float32, device=dev)
                 if mask is None else mask.float())
+        if c.pipeline_stages > 1 and c.pipeline_schedule == "1f1b":
+            return self._loss_1f1b(tokens, targets, positions, segment_ids,
+                                   mask)
         if segment_ids is not None and targets is None:
             # Packed documents with the in-model shift: a prediction that
             # crosses a document boundary (the id changes) or lands on
@@ -983,26 +1400,26 @@ class GPT(Model):
                 (segment_ids[:, 1:] == segment_ids[:, :-1]).float(),
             ], dim=1)
             mask = mask * boundary * (segment_ids != 0)
-        if c.fused_loss and self._tensor == 1:
-            # The reference also requires one pipeline stage and no
-            # experts (the constructor refuses both) and no tensor axis.
+        if (c.fused_loss and self._tensor == 1 and c.pipeline_stages == 1
+                and not c.n_experts):
+            # the reference's conditions: no tensor axis, one stage, no
+            # experts (their aux loss stays on the dense path)
             return self._loss_fused(tokens, targets, positions, mask,
                                     segment_ids)
-        logits = self.forward(tokens, positions, segment_ids).float()
+        logits, aux = self._forward(tokens, positions, segment_ids)
+        logits = logits.float()
         if targets is None:
             # Classic in-model shift: position i predicts token i+1.
             logits, targets, mask = logits[:, :-1], tokens[:, 1:], mask[:, 1:]
-        if self._tensor > 1:
-            sums = vocab_parallel_token_sums(
-                logits, targets, mask, self._vocab_start, c.vocab_size,
-                self._tgroup)
-        else:
-            sums = _aligned_token_sums(logits, targets, mask)
-        nll_sum, z_sum, acc_sum, n_tok = sums
+        nll_sum, z_sum, acc_sum, n_tok = self._token_sums(logits, targets,
+                                                          mask)
         n = torch.clamp(n_tok, min=1.0)
         loss = nll_sum / n
         if c.z_loss:
             loss = loss + c.z_loss * z_sum / n
+        if c.n_experts:
+            # the switch transformer's aux weight, the mean over layers
+            loss = loss + 0.01 * aux / c.n_layers
         acc = acc_sum / n
         return loss, {"loss": loss, "accuracy": acc, "tokens": n_tok}
 
@@ -1010,7 +1427,7 @@ class GPT(Model):
         """The loss through the chunked cross-entropy: the same objective
         as the dense path, without the [B, S, V] logits."""
         c = self.config
-        x = self._forward_trunk(tokens, positions, segment_ids)
+        x, _aux = self._forward_trunk(tokens, positions, segment_ids)
         hidden = _layernorm(x, self.lnf_scale, self.lnf_bias)
         if targets is None:
             # the in-model shift: position i predicts token i+1
@@ -1022,6 +1439,22 @@ class GPT(Model):
         n = torch.clamp(n_tok, min=1.0)
         loss = obj / n
         return loss, {"loss": loss, "accuracy": acc_sum / n, "tokens": n_tok}
+
+
+class _Finished(torch.autograd.Function):
+    """The 1F1B schedule's loss: its backward hands the schedule's
+    finished gradients to the parameters, times the loss's cotangent (the
+    reference's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, loss, grads, *params):  # noqa: ANN001
+        ctx.grads = grads
+        return loss.detach().clone()
+
+    @staticmethod
+    def backward(ctx, g_loss):  # noqa: ANN001
+        grads, ctx.grads = ctx.grads, None
+        return (None, None, *(g * g_loss for g in grads))
 
 
 class _Weights(dict):
@@ -1059,13 +1492,13 @@ def load_jax_params(model: GPT, tree: Dict[str, Any], *,
                     serving_copy: bool = False) -> GPT:
     """Fill `model`'s parameters from the reference's parameter pytree
     (``models.base.load_params``: every key and shape checked before
-    anything is written); on a tensor axis above 1 the tree is whole and
-    the model takes its rank's slices. ``serving_copy`` then makes the
+    anything is written); on a tensor or expert axis above 1 the tree is
+    whole and the model takes its rank's slices. ``serving_copy`` then makes the
     compute-dtype copy (``GPT.cache_compute_weights``); without it any
     earlier copy is dropped, so the forward casts the new values per
     call."""
-    if model.tensor_dims():
-        tree = {name: model._tensor_slice(name, leaf)
+    if model._slice_dims:
+        tree = {name: model._model_slice(name, leaf)
                 for name, leaf in _flatten(tree)}
     load_params(model, tree)
     model._compute.clear()

@@ -9,10 +9,10 @@ batches' rows over ``("data", "fsdp")`` and their sequence over
 ``context`` (``trainer/_mesh.py``), where attention runs as ring
 attention (``ring.py``) or Ulysses (``ulysses.py``) on the context group.
 On a ``tensor`` axis the model holds Megatron's column and row slices,
-with the collectives of ``tensor.py``.
-
-Not ported yet, and refused by name: the pipeline schedules and experts
-(ROADMAP queue 1, item 4, part 3).
+with the collectives of ``tensor.py``; on a ``pipeline`` axis its stages
+run the reference's schedules (``pipeline.py``: GPipe, circular, 1F1B);
+on an ``expert`` axis each rank holds its experts and routes every token
+(``experts.py``).
 """
 from determined_tpu_torch.parallel.mesh import (
     AXIS_NAMES,
@@ -44,22 +44,13 @@ from determined_tpu_torch.parallel.ulysses import (
 )
 
 
-def _later(name: str, part: str):
-    def refused(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} comes with ROADMAP queue 1, item 4, {part}; the port "
-            "trains over data, fsdp, context and tensor"
-        )
-
-    refused.__name__ = name
-    return refused
-
-
-pipeline_apply = _later("pipeline_apply", "part 3 (pipeline stages)")
-circular_pipeline_apply = _later("circular_pipeline_apply",
-                                 "part 3 (pipeline stages)")
-stack_circular_stages = _later("stack_circular_stages",
-                               "part 3 (pipeline stages)")
+from determined_tpu_torch.parallel.pipeline import (
+    circular_pipeline_apply,
+    one_f_one_b_grads,
+    one_f_one_b_stash_size,
+    pipeline_apply,
+    stack_circular_stages,
+)
 
 __all__ = [
     "AXIS_NAMES",
@@ -82,4 +73,9 @@ __all__ = [
     "zigzag_indices",
     "ulysses_attention",
     "make_ulysses_attention",
+    "pipeline_apply",
+    "circular_pipeline_apply",
+    "one_f_one_b_grads",
+    "one_f_one_b_stash_size",
+    "stack_circular_stages",
 ]

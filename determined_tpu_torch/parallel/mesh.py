@@ -15,18 +15,21 @@ one device per rank, the ranks laid out row-major over the six axes as
 the reference reshapes its device list. The mesh lives on CUDA unless the
 caller passes ``device="cpu"``.
 
-The port trains over ``data``, ``fsdp``, ``context`` (the sequence
-split over the context group, attention by ring or Ulysses) and
-``tensor`` (Megatron's column and row splits, ``parallel/tensor.py``). A
-mesh with ``pipeline`` or ``expert`` above 1 is refused by name
-(``refuse_later_axes``): pipeline stages and experts are ROADMAP queue 1,
-item 4, part 3.
+The port trains over all six: ``data``, ``fsdp``, ``context`` (the
+sequence split over the context group, attention by ring or Ulysses),
+``tensor`` (Megatron's column and row splits, ``parallel/tensor.py``),
+``pipeline`` (the stages' schedules, ``parallel/pipeline.py``) and
+``expert`` (the top-1 experts, ``parallel/experts.py``). What the port
+leaves out is refused by name (``refuse_later_axes``): experts over an
+expert axis beside a pipeline, tensor or context axis above 1.
+``axes_group`` is the process group of the ranks that differ from this
+one only along some axes.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -36,10 +39,12 @@ from determined_tpu_torch._device import resolve_device
 AXIS_NAMES: Tuple[str, ...] = ("pipeline", "data", "fsdp", "expert",
                                "context", "tensor")
 
-#: The axes of later parts of the multi-device item, by the part that
-#: lifts their refusal.
-_LATER_AXES = {"pipeline": "part 3 (pipeline stages)",
-               "expert": "part 3 (experts)"}
+#: The axes the expert axis does not compose with yet (ROADMAP queue 1,
+#: item 4): experts under a pipeline are the reference's own limit; over
+#: tensor or context the reference's GSPMD splits the expert matmuls and
+#: takes the capacity in its permuted token order, which the port leaves
+#: for a later slice.
+_NOT_WITH_EXPERT = ("pipeline", "tensor", "context")
 
 
 @dataclasses.dataclass
@@ -108,21 +113,55 @@ class MeshConfig:
 
 
 def refuse_later_axes(sizes: Any, what: str = "mesh") -> None:
-    """Refuse, by name, a layout with an axis of a later part of the
-    multi-device item above 1. `sizes`: a MeshConfig, a DeviceMesh or a
-    {axis: degree} mapping."""
+    """Refuse, by name, a layout that the port leaves out: an expert axis
+    above 1 beside a pipeline, tensor or context axis above 1. `sizes`: a
+    MeshConfig, a DeviceMesh or a {axis: degree} mapping."""
     if isinstance(sizes, MeshConfig):
         sizes = dataclasses.asdict(sizes)
     elif not isinstance(sizes, dict):
         sizes = dict(zip(sizes.mesh_dim_names, tuple(sizes.shape)))
-    for axis, part in _LATER_AXES.items():
+    expert = int(sizes.get("expert", 1))
+    if expert == 1:
+        return
+    for axis in _NOT_WITH_EXPERT:
         degree = int(sizes.get(axis, 1))
         if degree != 1:
             raise NotImplementedError(
-                f"{what} with {axis}={degree}: the {axis} axis comes with "
-                f"ROADMAP queue 1, item 4, {part}; the port trains over "
-                "data, fsdp, context and tensor"
+                f"{what} with expert={expert} and {axis}={degree}: experts "
+                f"over {axis} are left out (ROADMAP queue 1, item 4); the "
+                "port runs experts over data, fsdp and expert"
             )
+
+
+def axes_group(mesh: Any, axes: Sequence[str]) -> Any:
+    """The process group of the ranks that share this rank's coordinates
+    on every axis but `axes` (ordered by global rank, which is row-major
+    over `axes`); ``dist.group.WORLD`` when that is the whole mesh; None
+    when it is this rank alone. Every rank of the mesh makes every such
+    group, in one order (``new_group``'s contract); a mesh keeps the
+    groups it made."""
+    import torch.distributed as dist
+
+    names = mesh.mesh_dim_names
+    keep = [names.index(a) for a in axes]
+    size = math.prod(int(mesh.shape[i]) for i in keep)
+    if size == 1:
+        return None
+    if size == dist.get_world_size() == math.prod(int(n) for n in mesh.shape):
+        return dist.group.WORLD
+    cache = mesh.__dict__.setdefault("_dtpu_axes_groups", {})
+    key = tuple(axes)
+    if key not in cache:
+        other = [i for i in range(len(names)) if i not in keep]
+        rows = mesh.mesh.permute(*other, *keep).reshape(-1, size)
+        me = dist.get_rank()
+        mine = None
+        for row in rows.tolist():
+            group = dist.new_group([int(r) for r in row])
+            if me in row:
+                mine = group
+        cache[key] = mine
+    return cache[key]
 
 
 def _world_size() -> int:
@@ -188,6 +227,11 @@ def batch_axes() -> Tuple[str, ...]:
 
 def _axis(mesh: Any, name: str) -> int:
     return int(mesh.shape[mesh.mesh_dim_names.index(name)])
+
+
+def axis_index(mesh: Any, name: str) -> int:
+    """This rank's coordinate on the mesh axis `name`."""
+    return int(mesh.get_coordinate()[mesh.mesh_dim_names.index(name)])
 
 
 def data_parallel_size(mesh: Any) -> int:

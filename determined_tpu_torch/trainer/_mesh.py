@@ -1,5 +1,5 @@
-"""The Trainer's state on a ``data × fsdp × context × tensor`` device
-mesh, and its collectives.
+"""The Trainer's state on a device mesh over the reference's six axes,
+and its collectives.
 
 The reference lets GSPMD shard its jitted step over the mesh. Here one
 process drives one device, and ``MeshLayout`` does by hand what the
@@ -12,10 +12,14 @@ reference's shardings imply, from the same rule table
   over the fsdp axis; on a tensor axis above 1 one that the model holds
   a slice of (``tensor_dims``: its "heads", "mlp" or "vocab" dimension,
   which the reference's rules map to ``tensor``) is split along it over
-  the tensor axis, and a parameter may be split both ways, on two
+  the tensor axis, and on an expert axis above 1 one whose "expert"
+  dimension the model holds its experts' slice of (``expert_dims``) is
+  split along it over ``expert``; a parameter may be split on two
   dimensions; every other one is whole on every rank. Every block is
-  replicated over ``data`` and ``context``, and a parameter that the
-  tensor axis does not split over it too. The model's own
+  replicated over ``data``, ``context`` and ``pipeline`` (the rules do
+  not map "layers": every stage holds every block, as the reference's),
+  and a parameter that the tensor or expert axis does not split over it
+  too. The model's own
   ``nn.Parameter`` of a split leaf holds the block alone
   (``shard_parameters``, after the first broadcast from rank 0, which
   is the only time a whole copy exists); a whole one is its own block.
@@ -50,35 +54,42 @@ reference's shardings imply, from the same rule table
   rank alone cannot see.
 - **The loss is the global token mean.** Each rank's loss is its own
   tokens' mean; ``loss_weight`` weights it by the rank's share of the
-  token count of its tensor group's replicas (``tokens``; 1/(dp·cp) for
-  a model that reports none), so that the ranks' weighted losses sum to
+  token count over data × fsdp × context (``tokens``; 1/(dp·cp) for a
+  model that reports none), so that the ranks' weighted losses sum to
   the reference's loss over the global batch, and so do their gradients
   (a rank's gradient holds what its queries sent back around the ring
-  too). The ranks of one tensor group compute the same loss over the
-  same rows (``replica_group``: the ranks that hold one tensor slice).
+  too). The ranks of one tensor, expert or pipeline group compute the
+  same loss over the same rows and count once (``token_group``).
 - **Gradients**: a parameter split over fsdp is reduce-scattered over
   fsdp (summed) in the backward of its gather and all-reduced over
-  every other replica of its block, data and context; any other is
-  all-reduced over data × fsdp × context (the gang when the tensor axis
-  has one rank) in one flat buffer. A
-  tensor slice's gradient is its own rank's, and one that the tensor
-  axis replicates is the same on every rank of the group (*f* sums
-  theirs); neither is summed over tensor. The global norm all-reduces
-  the blocks' sums of squares over the axes that split them, fsdp and
-  tensor, once for each call of ``optim.global_norm`` (the trainer's and
-  the chain's clip); a replicated block counts once.
+  every other holder of its block; any other is all-reduced over its
+  holders in one flat buffer (``_grad_groups``). The holders are the
+  ranks of every axis but tensor (the model's *f* gives every rank of
+  a tensor group the same gradient of a leaf it replicates) and but
+  the axes that split the leaf. For a pipelined model (``pipelined``:
+  each stage computes its own layers' gradients, the embedding's on
+  stage 0 and the head's where the loss is computed) the sum over the
+  pipeline axis assembles the whole gradient. The expert ranks, and the
+  stages of a model that runs no pipeline, compute the same
+  contribution: their sum is divided by their count, so every replica
+  leaves the step with the same bits (their backwards differ by
+  rounding, dq by atomics). The global norm all-reduces
+  the blocks' sums of squares over the axes that split them, fsdp,
+  tensor and expert, once for each call of ``optim.global_norm`` (the
+  trainer's and the chain's clip); a replicated block counts once.
 - **Metrics**: every scalar metric is summed over data × fsdp × context
   after the same weighting (``tokens`` unweighted), in one all-reduce, so
   every rank holds the same global loss and grad norm, and the
   non-finite guard, the spike detector, rollback-and-skip and the
   reports decide alike on every rank.
 
-A mesh is refused by name when an axis of a later part of the
-multi-device item (pipeline, expert) is above 1, or when the rules split
-a parameter over any axis but fsdp (the tensor axis splits what the
-model holds sliced, ``tensor_dims``). A collective over a
-group of one rank is skipped, so one rank on a ``data=1 × fsdp=1`` mesh
-does the one-device step's work and the layout's bookkeeping.
+A mesh is refused by name where the port leaves the composition out
+(``parallel/mesh.py refuse_later_axes``), or when the rules split a
+parameter over any axis but fsdp (the tensor and expert axes split what
+the model holds sliced, ``tensor_dims`` and ``expert_dims``). A
+collective over a group of one rank is skipped, so one rank on a
+``data=1 × fsdp=1`` mesh does the one-device step's work and the
+layout's bookkeeping.
 """
 from __future__ import annotations
 
@@ -90,6 +101,8 @@ import numpy as np
 import torch
 
 from determined_tpu_torch.parallel.mesh import (
+    _axis,
+    axes_group,
     context_index,
     context_size,
     data_parallel_index,
@@ -112,13 +125,14 @@ from determined_tpu_torch.trainer._checkpoint import Shard
 class ParamBlock:
     """Where one parameter lives: its global shape, the dimension split
     over fsdp (None: whole over fsdp), the dimension split over tensor
-    (None: whole over tensor; else the model holds that slice), this
-    rank's block (global indices) and whether it holds replica 0 of the
-    block."""
+    (None: whole over tensor; else the model holds that slice), the one
+    split over expert (likewise), this rank's block (global indices) and
+    whether it holds replica 0 of the block."""
 
     shape: Tuple[int, ...]
     dim: Optional[int]
     tdim: Optional[int]
+    edim: Optional[int]
     region: Tuple[Tuple[int, int], ...]
     replica0: bool
 
@@ -127,31 +141,32 @@ class ParamBlock:
         return tuple(lo for lo, _ in self.region)
 
 
-def _replica_group(mesh: Any) -> Optional[Any]:
-    """The group of the ranks that hold the same tensor slice as this one
-    (every axis but ``tensor``); None (the whole gang) when the tensor
-    axis has one rank. Every rank of the gang makes every such group
-    (``new_group``'s contract)."""
+#: the axes whose splits the norm all-reduces, in ``_norm_parts``' order
+_NORM_AXES = ("fsdp", "tensor", "expert")
+
+
+def _all_reduce(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """All-reduce over `group` (None: a group of one rank, skipped)."""
     import torch.distributed as dist
 
-    names = mesh.mesh_dim_names
-    t = int(mesh.shape[names.index("tensor")])
-    if t == 1:
-        return None
-    ranks = mesh.mesh.movedim(names.index("tensor"), -1).reshape(-1, t)
-    mine = int(mesh.get_coordinate()[names.index("tensor")])
-    groups = [dist.new_group([int(r) for r in ranks[:, j]]) for j in range(t)]
-    return groups[mine]
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
 
 
 class MeshLayout:
     def __init__(self, mesh: Any, rules: ShardingRules, logical_axes: Any,
                  named: Sequence[Tuple[str, torch.Tensor]],
-                 tensor_dims: Optional[Dict[str, int]] = None) -> None:
-        """`tensor_dims`: {parameter name: the dimension the model holds
-        a tensor slice of} (``GPT.tensor_dims``; none: every parameter
-        whole). The model's slices place a parameter over the tensor
-        axis; the rules place it over the others."""
+                 tensor_dims: Optional[Dict[str, int]] = None,
+                 expert_dims: Optional[Dict[str, int]] = None,
+                 pipelined: bool = False) -> None:
+        """`tensor_dims` / `expert_dims`: {parameter name: the dimension
+        the model holds a tensor / expert slice of} (``GPT.tensor_dims``,
+        ``GPT.expert_dims``; none: every parameter whole). The model's
+        slices place a parameter over the tensor and expert axes; the
+        rules place it over the others. `pipelined`: the model's stages
+        compute disjoint parts of the gradient, summed over the pipeline
+        axis."""
         import torch.distributed as dist
         from torch.distributed.tensor import Replicate
         from torch.distributed.tensor import Shard as DShard
@@ -164,21 +179,45 @@ class MeshLayout:
             )
         self.mesh = mesh
         self.fsdp_group = mesh.get_group("fsdp")
-        self.data_group = mesh.get_group("data")
-        self.context_group = mesh.get_group("context")
         self.world = int(dist.get_world_size())
         self.dp = data_parallel_size(mesh)
         self.dp_index = data_parallel_index(mesh)
         self.cp = context_size(mesh)
         self.cp_index = context_index(mesh)
         self.tp = tensor_size(mesh)
+        self.ep = _axis(mesh, "expert")
         self.tensor_group = mesh.get_group("tensor")
-        #: the ranks that hold the same tensor slice (None: the gang)
-        self.replica_group = _replica_group(mesh)
+        self.expert_group = mesh.get_group("expert")
+        pp = _axis(mesh, "pipeline")
+        #: the ranks whose tokens make up the global batch: the loss
+        #: weights and the metrics (None: this rank alone)
+        self.token_group = axes_group(mesh, ("data", "fsdp", "context"))
+        # A gradient sums over the ranks that hold its block, but for the
+        # tensor axis (the model's *f* makes it the same there). Among
+        # them, the expert ranks and, for a model that runs no pipeline
+        # stages, the pipeline ranks each compute the same contribution:
+        # the sum over them is divided by their count, which leaves every
+        # replica with the same bits (their backwards differ by rounding:
+        # dq by atomics). A block split over expert sums over the others.
+        #: by whether a block is split over fsdp and whether over expert:
+        #: its gradient's group (None: this rank alone) and divisor
+        self._grad_groups: Dict[Tuple[bool, bool], Tuple[Any, int]] = {}
+        for split in (False, True):
+            for by_expert in (False, True):
+                axes = ("pipeline", "data") + ("fsdp",) * (not split) + (
+                    ("context",) if by_expert else ("expert", "context"))
+                dup = (1 if pipelined else pp) * (1 if by_expert
+                                                  else self.ep)
+                self._grad_groups[split, by_expert] = (
+                    axes_group(mesh, axes), dup)
+        #: the group of a whole parameter's gradient (the flat buffer's)
+        self.replica_group = self._grad_groups[False, False][0]
         fsdp = int(mesh.shape[mesh.mesh_dim_names.index("fsdp")])
         ti = mesh.mesh_dim_names.index("tensor")
+        ei = mesh.mesh_dim_names.index("expert")
         axes = flatten_axes(logical_axes)
         tensor_dims = tensor_dims or {}
+        expert_dims = expert_dims or {}
         self.blocks: List[ParamBlock] = []
         for name, p in named:
             if name not in axes:
@@ -186,34 +225,39 @@ class MeshLayout:
                     f"parameter {name} has no entry in the model's "
                     "logical_axes()")
             placements = list(logical_to_sharding(axes[name], mesh, rules))
-            tdim = tensor_dims.get(name)
+            tdim, edim = tensor_dims.get(name), expert_dims.get(name)
             placements[ti] = Replicate() if tdim is None else DShard(tdim)
+            placements[ei] = Replicate() if edim is None else DShard(edim)
             dim = None
             for i, pl in enumerate(placements):
-                if not pl.is_shard() or int(mesh.shape[i]) == 1 or i == ti:
+                if (not pl.is_shard() or int(mesh.shape[i]) == 1
+                        or i in (ti, ei)):
                     continue
                 axis = mesh.mesh_dim_names[i]
                 if axis != "fsdp":
                     raise ValueError(
                         f"the sharding rules split parameter {name} over "
                         f"{axis!r}; the Trainer splits parameters over "
-                        "fsdp and, where the model holds slices, tensor"
+                        "fsdp and, where the model holds slices, tensor "
+                        "and expert"
                     )
                 dim = pl.dim
-            if dim is not None and dim == tdim:
+            if dim is not None and dim in (tdim, edim):
+                other = "tensor" if dim == tdim else "expert"
                 raise ValueError(
                     f"the sharding rules split dimension {dim} of parameter "
-                    f"{name} over both fsdp and tensor; the Trainer splits "
-                    "a dimension over one of them")
+                    f"{name} over both fsdp and {other}; the Trainer "
+                    "splits a dimension over one of them")
             if dim is not None and p.shape[dim] % fsdp:
                 raise ValueError(
                     f"parameter {name} {tuple(p.shape)}: dimension "
                     f"{dim} is not divisible by fsdp={fsdp}"
                 )
-            shape = tuple(n * self.tp if d == tdim else n
+            shape = tuple(n * self.tp if d == tdim else
+                          n * self.ep if d == edim else n
                           for d, n in enumerate(p.shape))
             self.blocks.append(ParamBlock(
-                shape, dim, tdim,
+                shape, dim, tdim, edim,
                 tuple(local_region(shape, placements, mesh)),
                 replica_index(placements, mesh) == 0,
             ))
@@ -225,13 +269,23 @@ class MeshLayout:
                                                           self.blocks)
                            if b.dim is not None}
         device = named[0][1].device if named else torch.device("cpu")
-        #: per parameter 1.0 where fsdp / tensor / both split it: the
-        #: norm's parts all-reduced over those axes.
-        self._norm_parts = torch.tensor(
-            [[float(b.dim is not None and b.tdim is None),
-              float(b.dim is None and b.tdim is not None),
-              float(b.dim is not None and b.tdim is not None)]
-             for b in self.blocks], device=device).reshape(-1, 3)
+        #: per parameter, a one-hot over the 8 sets of the axes of
+        #: ``_NORM_AXES`` that split it: the norm's parts, each
+        #: all-reduced over its axes
+        self._norm_parts = torch.zeros(len(self.blocks), 8, device=device)
+        for i, b in enumerate(self.blocks):
+            bits = (b.dim is not None, b.tdim is not None, b.edim is not None)
+            self._norm_parts[i, sum(1 << k for k, on in enumerate(bits)
+                                    if on)] = 1.0
+        #: per parameter that the model holds sliced over tensor or
+        #: expert, the group of the ranks that hold the same slice
+        self._slice_groups: Dict[Tuple[bool, bool], Any] = {}
+        for b in self.blocks:
+            key = (b.tdim is not None, b.edim is not None)
+            if key != (False, False) and key not in self._slice_groups:
+                skip = {a for a, on in zip(("tensor", "expert"), key) if on}
+                self._slice_groups[key] = axes_group(
+                    mesh, [a for a in mesh.mesh_dim_names if a not in skip])
 
     # -- placement ---------------------------------------------------------
     def shard_parameters(self, params: Sequence[torch.Tensor]) -> None:
@@ -312,18 +366,20 @@ class MeshLayout:
                     for b, blk in zip(self.blocks, blocks)]
 
     def broadcast_from_rank0(self, fulls: Sequence[torch.Tensor]) -> None:
-        """Every rank starts from rank 0's parameters; a tensor slice
-        from the first rank that holds the same slice."""
+        """Every rank starts from rank 0's parameters; a tensor or expert
+        slice from the first rank that holds the same slice."""
         import torch.distributed as dist
 
         if self.world == 1:
             return
         with torch.no_grad():
             for b, full in zip(self.blocks, fulls):
-                if b.tdim is None:
+                key = (b.tdim is not None, b.edim is not None)
+                if key == (False, False):
                     dist.broadcast(full, src=0)
-                elif self.world > self.tp:
-                    group = self.replica_group
+                    continue
+                group = self._slice_groups[key]
+                if group is not None:
                     dist.broadcast(full, src=dist.get_global_rank(group, 0),
                                    group=group)
 
@@ -372,75 +428,74 @@ class MeshLayout:
         if tokens is None:
             return 1.0 / (self.dp * self.cp)
         mine = tokens.detach().float().reshape(())
-        total = mine.clone()
-        if self.world > self.tp:
-            dist.all_reduce(total, group=self.replica_group)
+        total = _all_reduce(mine.clone(), self.token_group)
         return mine / torch.clamp(total, min=1.0)
 
     def reduce_grads(self, grads: Sequence[torch.Tensor]
                      ) -> List[torch.Tensor]:
         """The gradients of this rank's weighted loss w.r.t. its blocks →
-        the gang's summed gradient of each block: a split block's, already
-        reduce-scattered over fsdp by its gather's backward, all-reduced
-        over its other replicas (data × context); a whole one's over the
-        replica group in one flat buffer."""
-        import torch.distributed as dist
-
+        the gang's summed gradient of each block (``_grad_groups``): a
+        split block's, already reduce-scattered over fsdp by its gather's
+        backward, all-reduced over its other holders; the whole ones', in
+        one flat buffer a group."""
         out: List[torch.Tensor] = list(grads)
-        whole = [i for i, b in enumerate(self.blocks) if b.dim is None]
+        whole: Dict[bool, List[int]] = {}
         for i, (b, g) in enumerate(zip(self.blocks, grads)):
+            by_expert = b.edim is not None
             if b.dim is None:
+                whole.setdefault(by_expert, []).append(i)
                 continue
-            for group in (self.data_group, self.context_group):
-                if int(group.size()) > 1:
-                    g = g.contiguous()
-                    dist.all_reduce(g, group=group)
-            out[i] = g
-        if whole and self.world > self.tp:
-            flat = torch.cat([grads[i].reshape(-1) for i in whole])
-            dist.all_reduce(flat, group=self.replica_group)
-            for i, piece in zip(whole, flat.split(
-                    [grads[i].numel() for i in whole])):
+            group, dup = self._grad_groups[True, by_expert]
+            if group is not None:
+                g = _all_reduce(g.contiguous(), group)
+            out[i] = g / dup if dup > 1 else g
+        for by_expert, idx in whole.items():
+            group, dup = self._grad_groups[False, by_expert]
+            if group is None:
+                continue
+            flat = _all_reduce(torch.cat([grads[i].reshape(-1)
+                                          for i in idx]), group)
+            if dup > 1:
+                flat /= dup
+            for i, piece in zip(idx, flat.split([grads[i].numel()
+                                                 for i in idx])):
                 out[i] = piece.view_as(grads[i])
         return out
 
     def sum_of_squares(self, tensors: Sequence[torch.Tensor],
                        sq: torch.Tensor) -> torch.Tensor:
         """``optim.norm_reduction``'s total for per-parameter tensors:
-        the sums of the parameters split over fsdp all-reduced over fsdp,
-        of those split over tensor over tensor, of those split both ways
-        over both, plus the whole ones' (held alike by every rank)."""
-        import torch.distributed as dist
-
+        the sums of the parameters split over some of fsdp, tensor and
+        expert all-reduced over those axes, plus the whole ones' (held
+        alike by every rank)."""
         if len(tensors) != len(self.blocks):
             raise ValueError(
                 f"a global norm over {len(tensors)} tensors of a sharded "
                 f"state of {len(self.blocks)} parameters")
-        fsdp, tensor, both = (sq[:, None] * self._norm_parts).sum(dim=0)
-        if int(self.fsdp_group.size()) > 1:
-            fsdp_both = torch.stack([fsdp, both])
-            dist.all_reduce(fsdp_both, group=self.fsdp_group)
-            fsdp, both = fsdp_both
-        if self.tp > 1:
-            tensor_both = torch.stack([tensor, both])
-            dist.all_reduce(tensor_both, group=self.tensor_group)
-            tensor, both = tensor_both
-        whole = (sq * (1.0 - self._norm_parts.sum(dim=1))).sum()
-        return fsdp + tensor + both + whole
+        parts = (sq[:, None] * self._norm_parts).sum(dim=0)
+        for k, (axis, group) in enumerate(zip(
+                _NORM_AXES, (self.fsdp_group, self.tensor_group,
+                             self.expert_group))):
+            if int(group.size()) == 1:
+                continue
+            sets = [j for j in range(8) if j & (1 << k)]
+            sub = _all_reduce(parts[sets].contiguous(), group)
+            parts = parts.index_copy(0, torch.tensor(sets,
+                                                     device=parts.device),
+                                     sub)
+        return parts.sum()
 
     def reduce_metrics(self, metrics: Dict[str, torch.Tensor],
                        weight: Any) -> Dict[str, torch.Tensor]:
         """Every scalar metric summed over data × fsdp × context,
         weighted by `weight` (``tokens`` unweighted), in one all-reduce
-        (every rank of a tensor group holds the same metrics)."""
-        import torch.distributed as dist
-
+        (every rank of a tensor, expert or pipeline group holds the same
+        metrics)."""
         keys = [k for k, v in metrics.items() if v.dim() == 0]
         vals = torch.stack([
             metrics[k].detach().float() * (1.0 if k == "tokens" else weight)
             for k in keys])
-        if self.world > self.tp:
-            dist.all_reduce(vals, group=self.replica_group)
+        _all_reduce(vals, self.token_group)
         return dict(zip(keys, vals.unbind(0)))
 
 

@@ -47,16 +47,20 @@ covers the directive's ``steps``, is uploaded through the trial's storage
 manager as ``profile-capture-<id>`` and reported on ``POST
 /api/v1/profiles/captures/<id>/complete``.
 
-On a device mesh (``mesh=``, a ``DeviceMesh`` over ``data × fsdp ×
-context × tensor`` from ``parallel.make_mesh``; ``trainer/_mesh.py``; in
+On a device mesh (``mesh=``, a ``DeviceMesh`` over the reference's six
+axes from ``parallel.make_mesh``; ``trainer/_mesh.py``; in
 a gang of more than one process without one, as in the reference, the
 default ``MeshConfig()``: data over the whole gang) every rank of the
 gang runs this loop on its rows of each global batch, and on a context
 axis its chunk of the sequence (attention by ring or Ulysses): the
-parameters and the optimizer state are split over fsdp, and over tensor
+parameters and the optimizer state are split over fsdp, over tensor
 where the model holds tensor slices (``tensor_dims``, Megatron's splits
-of ``parallel/tensor.py``), by the model's ``logical_axes()`` through
-the sharding ``rules``, the loss is the global token mean, and
+of ``parallel/tensor.py``) and over expert where it holds its experts'
+(``expert_dims``, ``parallel/experts.py``), by the model's
+``logical_axes()`` through the sharding ``rules``; a pipelined model's
+stages (``parallel/pipeline.py``) compute their own parts of the
+gradient, summed over the pipeline axis; the loss is the global token
+mean, and
 every decision (the guard, the spike detector, rollback-and-skip, the
 reports, the searcher's progress, the checkpoint's ``storage_id``) is
 taken from values that are equal on every rank. Checkpoints are sharded
@@ -79,8 +83,9 @@ layout and charges the drain→resume gap to the ledger's
 ``resize_lost_s``.
 
 The step runs on CUDA unless the caller passes ``device="cpu"``. Refused
-by name: a mesh with pipeline or expert above 1 (a later part of the
-multi-device item) and the orbax checkpoint format (it needs JAX).
+by name: a mesh the port leaves out (an expert axis beside a pipeline,
+tensor or context axis above 1) and the orbax checkpoint format (it needs
+JAX).
 """
 from __future__ import annotations
 
@@ -219,7 +224,9 @@ class Trainer:
         if mesh is not None:
             self._layout = MeshLayout(
                 mesh, rules, self.model.logical_axes(), named,
-                getattr(self.model, "tensor_dims", dict)())
+                getattr(self.model, "tensor_dims", dict)(),
+                getattr(self.model, "expert_dims", dict)(),
+                bool(getattr(self.model, "pipelined", False)))
             # every rank starts from rank 0's parameters, then keeps its
             # blocks alone
             self._layout.broadcast_from_rank0(self._params)

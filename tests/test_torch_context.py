@@ -27,8 +27,8 @@ reference's virtual CPU devices each. Every join has a timeout.
   one merged manifest, replica 0 (context index 0) of each fsdp block;
   the reference's ``load_pytree`` reads every rank's blocks, and a fresh
   gang trainer resumes it bitwise with the uninterrupted run's next loss.
-- Pipeline and expert above 1 are still refused by name, beside the
-  context axis and beside the tensor axis.
+- The expert axis is still refused by name beside the context, tensor
+  and pipeline axes.
 """
 import glob
 import json
@@ -501,16 +501,20 @@ def test_gang_resumes_its_context_checkpoint_bitwise(gang):
 
 
 @pytest.mark.parametrize("axis,beside", [
-    ("pipeline", "tensor"), ("pipeline", "context"), ("expert", "context"),
+    ("expert", "tensor"), ("expert", "context"), ("expert", "pipeline"),
 ])
 def test_other_axes_are_still_refused_by_name(axis, beside):
+    """The expert axis beside a tensor, context or pipeline axis is left
+    out; pipeline stages beside the context axis train
+    (tests/test_torch_pipeline.py)."""
     from determined_tpu_torch.parallel import MeshConfig
     from determined_tpu_torch.parallel.mesh import refuse_later_axes
 
     with pytest.raises(NotImplementedError,
-                       match=f"{axis}=2.*item 4, part 3"):
+                       match=f"{axis}=2 and {beside}=2.*item 4"):
         refuse_later_axes(MeshConfig(**{axis: 2, beside: 2}))
     refuse_later_axes(MeshConfig(**{beside: 2}))
+    refuse_later_axes(MeshConfig(pipeline=2, context=2))
 
 
 if __name__ == "__main__":

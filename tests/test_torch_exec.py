@@ -301,7 +301,7 @@ def test_harness_exits_1_by_name(trial_env, monkeypatch, caplog, case, match):
     hparams = {"model": "mnist-mlp", "batch_size": 4}
     extra = {}
     if case == "mesh":
-        hparams["mesh"] = {"data": 2, "pipeline": 2}
+        hparams["mesh"] = {"data": 2, "pipeline": 2, "expert": 2}
     if case == "storage":
         extra["DTPU_CHECKPOINT_STORAGE"] = json.dumps(
             {"type": "gcs", "bucket": "b"})
@@ -317,14 +317,15 @@ def test_harness_exits_1_by_name(trial_env, monkeypatch, caplog, case, match):
 
 
 def test_resolve_mesh_refuses_a_mesh_by_name():
-    """A mesh with an axis of a later part of the multi-device item is
-    refused by name (a data × fsdp mesh over a gang:
+    """A mesh that the port leaves out (the expert axis beside a tensor or
+    pipeline axis) is refused by name (a data × fsdp mesh over a gang:
     tests/test_torch_rendezvous.py)."""
     assert tharness.resolve_mesh({}, {}) is None
     with pytest.raises(NotImplementedError, match="item 4"):
-        tharness.resolve_mesh({}, {"mesh": {"fsdp": 2, "expert": 2}})
+        tharness.resolve_mesh({}, {"mesh": {"tensor": 2, "expert": 2}})
     with pytest.raises(NotImplementedError, match="item 4"):
-        tharness.resolve_mesh({"mesh": {"data": 8, "pipeline": 2}},
+        tharness.resolve_mesh({"mesh": {"data": 8, "pipeline": 2,
+                                        "expert": 2}},
                               {"mesh": {"fsdp": 2}})
 
 

@@ -142,11 +142,24 @@ def test_serving_copy_keeps_the_numbers(pair):
 
 
 def test_refuses_configs_of_later_slices():
+    """What the port leaves out: experts beside pipeline stages (the
+    reference's own limit) and beside a tensor axis (ROADMAP item 4)."""
+    import types
+
+    from determined_tpu_torch.parallel.mesh import AXIS_NAMES
+
     _, tcfg = _configs()
-    for field, value in (("n_experts", 4), ("pipeline_stages", 2)):
-        with pytest.raises(NotImplementedError):
-            tgpt.GPT(tgpt.GPTConfig(**{**tcfg.__dict__, field: value}),
-                     device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"MoE\+pipeline composition not supported yet"):
+        tgpt.GPT(tgpt.GPTConfig(**{**tcfg.__dict__, "n_experts": 4,
+                                   "pipeline_stages": 2}), device="cpu")
+    tensor2 = types.SimpleNamespace(
+        mesh_dim_names=AXIS_NAMES, device_type="cpu",
+        shape=(1, 1, 1, 1, 1, 2), get_coordinate=lambda: (0,) * 6,
+        get_group=lambda axis: None)
+    with pytest.raises(NotImplementedError, match="experts over tensor"):
+        tgpt.GPT(tgpt.GPTConfig(**{**tcfg.__dict__, "n_experts": 4}),
+                 device="cpu", mesh=tensor2)
     # the zigzag layout needs a sharded context axis (tests/test_torch_context.py)
     with pytest.raises(ValueError, match="sharded context axis"):
         tgpt.GPT(tgpt.GPTConfig(**{**tcfg.__dict__,

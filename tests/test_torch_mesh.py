@@ -20,9 +20,9 @@ against the JAX package's, case by case, in one process.
 - On that one-rank mesh the Trainer's blocks are its parameters (no
   copy), a step runs no collective, and three steps equal the mesh-less
   trainer's bit for bit.
-- Refused by name: tensor, context, pipeline and expert above 1 (in
-  ``make_mesh``, ``GPT(mesh=)``), ring and Ulysses attention and the
-  pipeline functions.
+- Refused by name: the expert axis beside a pipeline, tensor or context
+  axis above 1 (in ``make_mesh``, ``GPT(mesh=)``); the pipeline functions
+  run on one stage.
 """
 import types
 
@@ -307,17 +307,21 @@ def test_one_rank_mesh_step_is_the_one_device_step(one_process_group,
 
 
 @pytest.mark.parametrize("axis,kw", [
-    ("pipeline", {"tensor": 2}), ("pipeline", {}), ("expert", {}),
+    ("pipeline", {"expert": 2}), ("tensor", {"expert": 2}),
+    ("context", {"expert": 2}),
 ])
 def test_later_axes_are_refused_by_name(axis, kw):
+    """What the port leaves out: the expert axis beside a pipeline,
+    tensor or context axis above 1 (each of those axes alone trains)."""
     cfg = tmesh.MeshConfig(**{axis: 2}, **kw)
+    match = f"expert=2 and {axis}=2.*item 4"
     for call in (lambda: tmesh.make_mesh(cfg, device="cpu"),
                  lambda: tmesh.make_multislice_mesh(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{axis}=2.*item 4, part 3"):
+        with pytest.raises(NotImplementedError, match=match):
             call()
-    sizes = cfg.resolve(2 * max(kw.values(), default=1)).axis_sizes()
-    with pytest.raises(NotImplementedError, match=f"{axis}=2.*item 4, part 3"):
+    tmesh.refuse_later_axes(tmesh.MeshConfig(**{axis: 2}))
+    sizes = cfg.resolve(4).axis_sizes()
+    with pytest.raises(NotImplementedError, match=match):
         tgpt.GPT(tgpt.GPTConfig(**tgpt.tiny().__dict__), device="cpu",
                  mesh=_port_mesh(sizes))
 
@@ -327,6 +331,24 @@ def test_later_axes_are_refused_by_name(axis, kw):
     ("stack_circular_stages", "part 3"),
 ])
 def test_later_parallel_functions_are_refused_by_name(name, part):
-    assert name not in tparallel.__all__
-    with pytest.raises(NotImplementedError, match=f"item 4, {part}"):
-        getattr(tparallel, name)()
+    """The pipeline functions of item 4, part 3 are no longer refused: each
+    is exported and runs on one stage (the schedules over a gang:
+    tests/test_torch_pipeline.py)."""
+    assert name in tparallel.__all__
+    w = torch.arange(8.0).reshape(2, 1, 2, 2)  # two chunks of one layer
+    x = torch.ones(3, 1, 2)
+
+    def stage(p, a):
+        return a @ p[0]
+
+    if name == "stack_circular_stages":
+        got = tparallel.stack_circular_stages(w, 1)
+        assert torch.equal(got, w[None])
+        return
+    if name == "pipeline_apply":
+        want = x @ w[0, 0]
+        got = tparallel.pipeline_apply(stage, w[0], x)
+    else:
+        want = x @ w[0, 0] @ w[1, 0]
+        got = tparallel.circular_pipeline_apply(stage, w, x)
+    assert torch.equal(got, want), part

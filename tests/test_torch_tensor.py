@@ -32,8 +32,8 @@ heads, d_ff 256, vocab 256, S 32) in fp32, from one numpy parameter tree.
   resumes it bitwise with the uninterrupted run's next loss.
 - The tensor axis's limits, refused by name: heads, d_ff or vocab not
   divisible by it, Ulysses' heads per rank not divisible by the context
-  axis, the serving methods on a tensor mesh; pipeline and expert above
-  1 still refused. The GPT-2 trial's microbatch scales by data × fsdp,
+  axis, the serving methods on a tensor mesh; the expert axis beside it
+  still refused. The GPT-2 trial's microbatch scales by data × fsdp,
   not by tensor.
 """
 import glob
@@ -629,13 +629,17 @@ def test_gpt2_trial_scales_its_microbatch_by_data_and_fsdp_not_tensor():
 
 @pytest.mark.parametrize("axis", ["pipeline", "expert"])
 def test_pipeline_and_expert_are_still_refused_with_tensor(axis):
+    """Pipeline stages beside the tensor axis train
+    (tests/test_torch_pipeline.py); the expert axis beside it is left
+    out, with pipeline stages or without."""
     from determined_tpu_torch.parallel import MeshConfig
     from determined_tpu_torch.parallel.mesh import refuse_later_axes
 
     refuse_later_axes(MeshConfig(tensor=2, context=2, fsdp=2))
+    refuse_later_axes(MeshConfig(tensor=2, pipeline=2))
     with pytest.raises(NotImplementedError,
-                       match=f"{axis}=2.*item 4, part 3"):
-        refuse_later_axes(MeshConfig(tensor=2, **{axis: 2}))
+                       match="expert=2 and (pipeline|tensor)=2.*item 4"):
+        refuse_later_axes(MeshConfig(**{"tensor": 2, "expert": 2, axis: 2}))
 
 
 if __name__ == "__main__":

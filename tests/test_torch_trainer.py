@@ -336,9 +336,11 @@ def _mesh_of(**sizes):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=_mesh_of(tensor=2, pipeline=2)), "pipeline=2.*item 4, part 3"),
-    (dict(mesh=_mesh_of(pipeline=2)), "pipeline=2.*item 4, part 3"),
-    (dict(mesh=_mesh_of(fsdp=2, expert=2)), "expert=2.*item 4, part 3"),
+    (dict(mesh=_mesh_of(tensor=2, expert=2)), "expert=2 and tensor=2.*item 4"),
+    (dict(mesh=_mesh_of(pipeline=2, expert=2)),
+     "expert=2 and pipeline=2.*item 4"),
+    (dict(mesh=_mesh_of(fsdp=2, context=2, expert=2)),
+     "expert=2 and context=2.*item 4"),
 ])
 def test_trainer_refuses_later_slices_by_name(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):

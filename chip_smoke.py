@@ -317,7 +317,16 @@ script exits non-zero without the final result line:
    the reference's names with the tensor offsets, a fresh gang's
    restore bit for bit and its losses on equal to the uninterrupted
    run's. Prints per run each rank's step ms, peak memory and state, and
-   the collectives a step by group with their bytes.
+   the collectives a step by group with their bytes. First the
+   deterministic pair (``TWO_PASS_RUNS``): the headline trial at blocks
+   512 with the fused backward's partials cap at 0 in every process, so
+   each layer runs ``flash_fwd`` and the dq and dk/dv passes (no fp32
+   atomics): 3 steps on one device twice, whose losses and grad norms
+   must repeat bit for bit, and at ``tensor=2``, held to them on every
+   step (losses 1e-3, grad norms ``GRAD_NORM_RTOL``); the mono
+   ``headline-t2`` run's grad norms are then held on its first two steps
+   (``TENSOR_NORM_STEPS``: its step 3 is the spike, where the mono
+   backward's atomics scatter the reading from call to call).
 
 22. experts — the top-1 mixture of experts (``parallel/experts.py``,
    ``models/gpt.py _moe_mlp``): GPT-2-small with an expert MLP in every
@@ -326,14 +335,22 @@ script exits non-zero without the final result line:
    steps on one device through the index dispatch, held against the same
    run through the dense one-hot einsums (the plain version): the first
    loss bit for bit and the first grad norm within 1e-3, the losses
-   within 1e-3, 12 + 12 mono launches a step. Then two ranks at
-   ``expert=2`` over gloo (``TENSOR_RANK``): every loss within 1e-3 of
-   the one-device run and the first ``EXPERT_NORM_STEPS`` grad norms
-   within ``GRAD_NORM_RTOL`` (later ones part as bf16 rounding flips
-   routing decisions), a rank's resident state below one
-   device's, the save at ``EXPERT_SAVE_AT`` restored bit for bit by a
-   fresh gang and onto one rank on the card, which trains on within 1e-3
-   of the gang. Then a greedy decode of ``EXPERT_TOKENS`` tokens for 4
+   within 1e-3, 12 + 12 mono launches a step. Then the gangs of
+   ``EXPERT_GANGS`` over gloo (``TENSOR_RANK``): two ranks at
+   ``expert=2``, four at ``expert=2 × tensor=2`` (the experts' ``mlp``
+   dimension split, 12 + 12 mono launches at 6 heads a step) and four at
+   ``expert=2 × context=2`` by the ring (i + 1 hops a layer on context
+   rank i): every loss within 1e-3 of the one-device run and the first
+   ``EXPERT_NORM_STEPS`` grad norms within ``GRAD_NORM_RTOL`` (later ones
+   part as bf16 rounding flips routing decisions; the tensor and context
+   splits change the forward's rounding, so they flip it at step 1 and
+   hold ``SPLIT_NORM_STEPS``), every rank alike, a
+   rank's resident state below one device's (below ``expert=2``'s with
+   the tensor split), the saves at ``EXPERT_SAVE_AT`` (the experts' and
+   the ``mlp`` offsets in the names) restored bit for bit by a fresh gang
+   and onto one rank on the card, which trains on within 1e-3 of the
+   gang; each layer's dropped share at step 1 printed beside the one
+   device's. Then a greedy decode of ``EXPERT_TOKENS`` tokens for 4
    prompts through ``GenerationEngine`` (``flash_fwd`` prefill, paged
    decode): the index dispatch's streams are the dense dispatch's. Prints
    each layer's share of dropped tokens.
@@ -354,6 +371,23 @@ script exits non-zero without the final result line:
    per step and rank the step's wall time, and each rank's resident state,
    peak memory and point-to-point MB a step.
 
+24. zoo — the generative pair (``models/generative.py``,
+   ``examples/generative_trials.py``): ``DiffusionTrial`` and
+   ``DCGANTrial`` through ``harness.run`` at the hyperparameters of the
+   repo's ``examples/diffusion.json`` and ``dcgan.json`` (32 × 32, 1
+   channel, batch 64, 200 timesteps, lr 2e-4), ``ZOO_STEPS`` steps on one
+   rank with shared-fs storage (cut: the examples' ``data: 8`` mesh and
+   ``gcs`` storage) and a save at ``ZOO_SAVE_AT``: finite losses, the
+   DDPM's falling; the save restored bit for bit, the run resumed from it
+   within 1e-3; 16 DDPM samples over 200 steps finite; at fixed
+   parameters and draws the card's fp32 loss within 1e-4 relative of the
+   port's CPU run, and in fp64 on both sides the loss and the whole
+   gradient (L2) (TF32 off; the fp32 gradient's difference printed: at a
+   ReLU kink fp32 rounding picks the slope). Prints the step ms and the
+   sample's
+   seconds. No port kernel runs: the convolutions are cuDNN's, as the
+   reference's are XLA's.
+
 Phase 3 also holds ``flash_fwd`` at the cached-tail geometry (separate
 query and key segment ids as ``_prefill_cached`` builds them, one row all
 padding) and at the speculative gather verify's (B 8, s_q 5, s_k 1029,
@@ -365,12 +399,14 @@ full (the fused and the two-pass backward), the window hop at kv_offset
 512 with segments, and the mono pair at B 8 × 512 causal and full;
 and phase 20's shapes at 6 heads: the mono pair at B 8 × 1024, the
 packed window's ``flash_fwd`` and fused backward, the ring's mono hops
-at B 8 × 512; and phase 23's microbatches: the mono pair at B 2 and 1 ×
+at B 8 × 512; phase 20's deterministic pair: ``flash_fwd`` and the dq
+and dk/dv passes at B 8 × 1024 causal at 12 and 6 heads (no lse
+cotangent); and phase 23's microbatches: the mono pair at B 2 and 1 ×
 1024, at B 2 with 6 heads, and the ring's mono hops at B 2 × 512.
 
 The last lines are the whole run's seconds, the kernels' JSON record
 (each kernel's ``launches`` summed over the main paths that run it:
-phases 4, 6, 8, 9 and 11 to 23), the card's name and power limit, and
+phases 4, 6, 8, 9 and 11 to 24), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -662,6 +698,14 @@ with open(out, "w") as f:
 dctx.close()
 dist.destroy_process_group()
 """
+#: phase tensor's deterministic pair: the headline trial at blocks 512
+#: (``_mono_ok`` fails: ``flash_fwd`` forward) with the fused backward's
+#: partials cap at 0 in every rank's process (``_bwd_route`` → the dq and
+#: dk/dv passes, which sum without atomics), on one device (twice: its
+#: grad norms must repeat bit for bit) and at ``tensor=2``
+#: (``TWO_PASS_RUNS``), held against the one-device one on every step
+TWO_PASS_FIELDS = {"flash_block_q": 512, "flash_block_k": 512}
+TWO_PASS_STEPS = 3
 #: phase tensor: the runs, each on ranks of the one card over gloo
 #: (GPT-2-small at full width and depth, bf16 over fp32, the headline
 #: trial's seeded weights carried in by ``load_jax_params``' numpy path):
@@ -679,11 +723,22 @@ TENSOR_RUNS = {
                            1, ("flash_fwd_mono", "flash_bwd_mono"), "ring"),
     "headline-c2t2-ulysses": (4, {"context": 2, "tensor": 2}, "tokens",
                               {"attn_impl": "ulysses"}, 2, 0, (), "none"),
+    # the deterministic pair's tensor=2 half (``TWO_PASS_RUNS``)
+    "headline-t2-two-pass": (2, {"tensor": 2}, "tokens", TWO_PASS_FIELDS,
+                             TWO_PASS_STEPS, 0, ("flash_fwd", "flash_bwd_dq",
+                                                 "flash_bwd_dkv"), "one"),
 }
+TWO_PASS_RUNS = ("headline-t2-two-pass",)
 #: phase tensor: each run's grad norms against the one-device run's,
 #: relative; a replicated leaf's gradient summed over the tensor group
 #: (t times too large) moves them past it
 GRAD_NORM_RTOL = 1e-2
+#: the steps whose grad norms the mono ``headline-t2`` run holds: its
+#: step 3 is the one-device run's spike (15.84), where the mono
+#: backward's fp32 dq atomics scatter both runs' readings from call to
+#: call (2.4e-3 to 1.07e-2 relative over seven full runs on an NVIDIA
+#: H100 80GB HBM3 at 700 W); the deterministic pair holds step 3 instead
+TENSOR_NORM_STEPS = {"headline-t2": 2}
 #: ``python -c TENSOR_RANK <rank> <world> <port> <out.json> <spec.json>``:
 #: one rank of a gang on the one card, joined over gloo at
 #: 127.0.0.1:<port>, training each run of the spec (phases tensor,
@@ -710,6 +765,7 @@ from determined_tpu_torch import core
 from determined_tpu_torch.core._distributed import DistributedContext
 from determined_tpu_torch.models import gpt
 from determined_tpu_torch.ops import _build
+from determined_tpu_torch.ops import flash_attention as tfa
 from determined_tpu_torch.parallel import MeshConfig, make_mesh
 from determined_tpu_torch.parallel import pipeline as pp
 from determined_tpu_torch.parallel.ring import Ring
@@ -751,9 +807,12 @@ def shards(trainer):
             ckpt_io._flatten_with_path(trainer._state_view())
             if isinstance(leaf, ckpt_io.Shard)]
 results = []
+cap = tfa._FUSED_BWD_PARTIALS_CAP
 for run in spec["runs"]:
     name, sizes, data, fields, steps, save_at = (run[k] for k in (
         "name", "mesh", "data", "fields", "steps", "save_at"))
+    # the two-pass backward (phase tensor's deterministic pair)
+    tfa._FUSED_BWD_PARTIALS_CAP = 0 if run.get("two_pass") else cap
     mesh = make_mesh(MeshConfig(data=1, **sizes))
     labels.clear()
     labels.update({id(mesh.get_group(a)): a for a in (
@@ -779,7 +838,7 @@ for run in spec["runs"]:
                       health={"divergence_check_period": 1} if save_at
                       else None)
     labels[id(trainer._layout.replica_group)] = "replica"
-    per_step, seen, audits, saved, highs = [], [], [], {}, []
+    per_step, seen, audits, saved, highs, drops = [], [], [], {}, [], []
     calls.clear(); nbytes.clear()
     shifts0 = dict(Ring.stats)
     p2p0 = pp.stats["bytes"]
@@ -797,6 +856,8 @@ for run in spec["runs"]:
         per_step.append({n: k.launches - before[n]
                          for n, k in _build.KERNELS.items()})
         highs.append(pp.stats["stash_high_water"])
+        drops.append({str(i): int(d) / n for i, (d, n) in
+                      sorted(trainer.model.moe_drops.items())})
         return result
     def recording(pending, t_start, flush=flush, seen=seen):
         agg, reason = flush(pending, t_start)
@@ -827,6 +888,7 @@ for run in spec["runs"]:
         step_ms=[1e3 / m["batches_per_second"] for m in seen],
         per_step=per_step, audits=audits,
         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
         state_gb=gb(working) + gb(split),
         wqkv_shape=list(trainer.model.blocks["wqkv"].shape),
         rotations_per_step=(Ring.stats["shifts"] - shifts0["shifts"]) / steps,
@@ -834,6 +896,7 @@ for run in spec["runs"]:
         stash_high_water=highs,
         moe_drop_share={str(i): int(d) / n for i, (d, n) in
                         sorted(trainer.model.moe_drops.items())},
+        moe_drop_share_by_step=drops,
         collectives_per_step={k: v / steps for k, v in calls.items()},
         collective_mb_per_step={k: round(v / steps / 1e6, 3)
                                 for k, v in nbytes.items()})
@@ -931,8 +994,8 @@ dist.destroy_process_group()
 #: top-1 routing, capacity 1.25, aux weight 0.01)
 EXPERT_FIELDS = {"n_experts": 8, "capacity_factor": 1.25}
 EXPERT_STEPS = 4      # the one-device runs, index and dense dispatch
-EXPERT_GANG_STEPS = 3  # expert=2: two ranks on the one card over gloo
-EXPERT_SAVE_AT = 2    # ... its sharded save, restored onto one rank
+EXPERT_GANG_STEPS = 3  # the gangs on the one card over gloo
+EXPERT_SAVE_AT = 2    # ... their sharded saves, restored onto one rank
 EXPERT_TOKENS = 16    # the greedy decode's new tokens a prompt
 #: the steps whose grad norms phase experts holds against the one-device
 #: run at ``GRAD_NORM_RTOL``: bf16 rounding (dq by atomics, the gate's
@@ -941,6 +1004,37 @@ EXPERT_TOKENS = 16    # the greedy decode's new tokens a prompt
 #: NVIDIA H100 80GB HBM3 at 700 W, 4 steps: 6e-5, 2.8e-3, 9.7e-3, 1.9e-2
 #: relative); every loss is held at 1e-3
 EXPERT_NORM_STEPS = 2
+#: ... and the steps phase experts holds for a gang whose split changes
+#: the forward's bf16 rounding (the tensor group's partial sums, the
+#: ring's merged hops), which flips routing decisions already at step 1:
+#: an expert that gains or loses its few tokens takes a whole Adam step
+#: of difference, and the step-2 grad norms part by 1e-2 and more, the
+#: same on the deterministic two-pass route (against one device on an
+#: NVIDIA H100 80GB HBM3 at 700 W: ``expert=2 × tensor=2`` 6e-5 then
+#: 1.13e-2 / 1.07e-2 (mono, two calls), 9.86e-3 (two-pass);
+#: ``expert=2 × context=2`` ring 3.1e-4 then 1.54e-2); every loss is held
+#: at 1e-3 and the first step's dropped share printed beside one
+#: device's
+SPLIT_NORM_STEPS = 1
+#: phase experts' gangs (``TENSOR_RANK``, the trial's own seeded
+#: weights): name → (ranks, mesh axes besides data=1, the step of a
+#: sharded save (0: none), the flash calls a layer on context rank i
+#: makes ("one": 1; "ring": i + 1), files the save must hold (the
+#: experts' offsets: E 8 over expert=2: 4; f 3072 over tensor=2: 1536),
+#: the steps whose grad norms are held)
+EXPERT_GANGS = {
+    "expert2": (2, {"expert": 2}, EXPERT_SAVE_AT, "one",
+                ("params__blocks__we_in.shard0_4_0_0.npy",),
+                EXPERT_NORM_STEPS),
+    "expert2-t2": (4, {"expert": 2, "tensor": 2}, EXPERT_SAVE_AT, "one",
+                   ("params__blocks__we_in.shard0_0_0_0.npy",
+                    "params__blocks__we_in.shard0_4_0_1536.npy",
+                    "params__blocks__be_in.shard0_4_1536.npy",
+                    "params__blocks__we_out.shard0_4_1536_0.npy",
+                    "params__blocks__router.npy"), SPLIT_NORM_STEPS),
+    "expert2-c2-ring": (4, {"expert": 2, "context": 2}, 0, "ring", (),
+                        SPLIT_NORM_STEPS),
+}
 #: phase pipeline: name → (gang, mesh axes besides data=1, GPTConfig
 #: fields, steps); every run is held against phase train's one-device run
 PIPELINE_RUNS = {
@@ -972,6 +1066,14 @@ PIPELINE_RUNS = {
 #: at 700 W: 1.2e-3, 1.1e-3, then 1.09e-2 relative); every loss is held
 #: at 1e-3
 PIPELINE_NORM_STEPS = 2
+#: phase zoo: name → (the trial of
+#: ``determined_tpu_torch/examples/generative_trials.py``, the reference's
+#: example config it takes its hyperparameters from, the searcher metric)
+ZOO_TRIALS = {"ddpm": ("DiffusionTrial", "diffusion.json", "loss"),
+              "dcgan": ("DCGANTrial", "dcgan.json", "g_loss")}
+ZOO_STEPS = 50        # each trial's searcher operation on one rank
+ZOO_SAVE_AT = 25      # ... its checkpoint period
+ZOO_SAMPLES = 16      # the DDPM's sampled images (its 200 timesteps)
 FLASH_SOURCE = "determined_tpu_torch/ops/csrc/flash_fwd.cu"
 FLASH_REPLACES = "determined_tpu/ops/flash_attention.py:236"
 PAGED_SOURCE = "determined_tpu_torch/ops/csrc/paged_attention.cu"
@@ -1991,10 +2093,12 @@ class Smoke:
         return errs
 
     def hop_case(self, name, *, b, s_q, s_k, causal, bwd, kv_offset=0,
-                 window=None, segs=None, seed=0):
+                 window=None, segs=None, seed=0, h=12, dlse=True,
+                 kind="ring-hop"):
         """One ring hop's flash call at a shape phase context gives it
-        (bf16, H 12, D 64, q/k/v strided views of a [B, S, 3, H, D]
-        projection, a nonzero lse cotangent as the merge passes back):
+        (bf16, H `h` (12), D 64, q/k/v strided views of a [B, S, 3, H, D]
+        projection, a nonzero lse cotangent as the merge passes back;
+        ``dlse=False``: none, as a plain step's attention):
         flash_fwd and the backward kernels of its route (`bwd`), each held
         against its plain version (one head at a time) and timed beside it
         and beside SDPA under the same mask; the bound from this call's
@@ -2006,13 +2110,14 @@ class Smoke:
         from determined_tpu_torch.ops import flash_attention as tfa
 
         bf16 = torch.bfloat16
-        h, d, item = 12, 64, 2
+        d, item = 64, 2
         gen = torch.Generator(device=self.dev).manual_seed(seed)
         q = self.randn((b, s_q, 3, h, d), bf16, gen)[:, :, 0]
         kv = self.randn((b, s_k, 3, h, d), bf16, gen)
         k, v = kv[:, :, 1], kv[:, :, 2]
         do = self.randn((b, s_q, h, d), bf16, gen)
-        dl = torch.randn((b, s_q, h), generator=gen, device=self.dev)
+        dl = (torch.randn((b, s_q, h), generator=gen, device=self.dev)
+              if dlse else None)
         kw = dict(causal=causal, window=window, kv_offset=kv_offset)
         if segs is not None:
             kw.update(segment_ids=torch.as_tensor(segs[0], device=self.dev),
@@ -2101,14 +2206,15 @@ class Smoke:
                 sdpa_bwd_ms=sdpa_bwd_ms, bound_ms=bound[0],
                 bound_by=bound[1], max_abs_err=err,
                 **self.rates(flops, ms, bound[0]))
-        shape = (f"B{b} s_q {s_q} s_k {s_k} H12 D64 "
+        shape = (f"B{b} s_q {s_q} s_k {s_k} H{h} D64 "
                  f"{'causal' if causal else 'full'}"
                  + (f" kv_offset {kv_offset}" if kv_offset else "")
                  + (f" window {window}" if window else "")
-                 + (" packed" if segs is not None else "") + " bf16 dlse")
+                 + (" packed" if segs is not None else "") + " bf16"
+                 + (" dlse" if dlse else ""))
         for kname, rec in recs.items():
             rec["shape"] = shape
-            self.report("kernels", f"ring-hop {name} {kname}", rec)
+            self.report("kernels", f"{kind} {name} {kname}", rec)
         del args, want, q, k, v, kv, do, qh, kh, vh, mask
         torch.cuda.empty_cache()
         return recs
@@ -4418,14 +4524,31 @@ class Smoke:
         size, each rank training the runs of its world (dicts with
         ``world``, ``name``, ``mesh``, ``data``, ``fields``, ``steps``,
         ``save_at``, optionally ``params``: whole weights, else `params`);
-        a run's sharded save goes to ``<tmp>/ckpt<world>``. → ({run: every
-        rank's result}, {world: seconds})."""
+        a run's sharded save goes to ``<tmp>/ckpt<world>``. The ranks
+        share the card with this process, which frees its cached blocks
+        first, and allocate through expandable segments (four ranks of an
+        expert model at ``context=2`` peak at ~17.7 GB each). A gang that
+        fails shows the log of every rank that failed, the ones that saw
+        a peer's connection close last. → ({run: every rank's result},
+        {world: seconds})."""
+        import gc
         import json
         import socket
         import tempfile
 
+        import torch
+
+        env = dict(os.environ,
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
         results, seconds = {}, {}
         for world in sorted({r["world"] for r in runs}):
+            gc.collect()
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info()
+            print(f"  gang {tag} world={world}: {free / 1e9:.2f} of "
+                  f"{total / 1e9:.2f} GB free on the card, this process "
+                  f"holding {torch.cuda.memory_allocated() / 1e9:.2f}",
+                  flush=True)
             spec = os.path.join(tmp, f"{tag}-runs{world}.json")
             with open(spec, "w") as f:
                 json.dump(dict(params=params,
@@ -4441,7 +4564,7 @@ class Smoke:
             procs = [subprocess.Popen(
                 [sys.executable, "-c", TENSOR_RANK, str(r), str(world),
                  str(port), outs[r], spec], stdout=logs[r],
-                stderr=subprocess.STDOUT,
+                stderr=subprocess.STDOUT, env=env,
                 cwd=os.path.dirname(os.path.abspath(__file__)))
                 for r in range(world)]
             try:
@@ -4451,11 +4574,14 @@ class Smoke:
                     if p.poll() is None:
                         p.kill()
                         p.wait()
+            tails = {}
             for r, code in enumerate(codes):
                 logs[r].seek(0)
-                assert code == 0, (tag, world, r,
-                                   logs[r].read().decode()[-4000:])
+                if code != 0:
+                    tails[r] = logs[r].read().decode()[-3000:]
                 logs[r].close()
+            assert not tails, (tag, world, sorted(
+                tails.items(), key=lambda kv: "closed by peer" in kv[1]))
             for out in outs:
                 with open(out) as f:
                     for x in json.load(f):
@@ -4473,13 +4599,18 @@ class Smoke:
         device's (phase mesh's one rank); the tensor=2 run's sharded save
         in the reference's names, restored bit for bit by a fresh trainer
         that goes on with the uninterrupted run's losses, the audit every
-        step finding nothing. → launches."""
+        step finding nothing. First the deterministic pair
+        (``TWO_PASS_RUNS``): the one-device two-pass run twice, its losses
+        and grad norms bit for bit the same, then held against by the
+        tensor=2 two-pass run on every step. → launches."""
         import tempfile
 
         import numpy as np
         import torch
 
-        from determined_tpu_torch.trainer.profile import RepeatedBatchTrial
+        from determined_tpu_torch.ops import flash_attention as tfa
+        from determined_tpu_torch.trainer.profile import (RUNGS,
+                                                          RepeatedBatchTrial)
 
         def close(losses, want, what, rtol=1e-3):
             rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
@@ -4488,6 +4619,38 @@ class Smoke:
             return max(rel)
 
         t0 = time.perf_counter()
+        n = 12  # GPT-2-small's layers
+        # the deterministic pair's one-device half, twice
+        cfg = dataclasses.replace(RUNGS["headline"][1], **TWO_PASS_FIELDS)
+        cap, pair, launches = tfa._FUSED_BWD_PARTIALS_CAP, [], {}
+        for _ in range(2):
+            tfa._FUSED_BWD_PARTIALS_CAP = 0
+            try:
+                reports, per_step, run, peak_gb, _ = self.fit_counted(
+                    RepeatedBatchTrial(8, 1024, config=cfg), TWO_PASS_STEPS)
+            finally:
+                tfa._FUSED_BWD_PARTIALS_CAP = cap
+            for i, step in enumerate(per_step):
+                got = {k: v for k, v in step.items() if v}
+                assert got == {"flash_fwd": n, "flash_bwd_dq": n,
+                               "flash_bwd_dkv": n}, (i, step)
+            for k, v in run.items():
+                launches[k] = launches.get(k, 0) + v
+            pair.append(dict(
+                losses=[m["loss"] for m in reports],
+                grad_norms=[m["grad_norm"] for m in reports],
+                rec=self.train_record(reports, run, peak_gb, cfg, 8, 1024,
+                                      warm=1)))
+        repeats = (pair[0]["grad_norms"] == pair[1]["grad_norms"]
+                   and pair[0]["losses"] == pair[1]["losses"])
+        self.report("tensor", "gpt2-small bf16 one device two-pass", dict(
+            pair[0]["rec"], losses=pair[0]["losses"],
+            grad_norms=pair[0]["grad_norms"],
+            again_losses=pair[1]["losses"],
+            again_grad_norms=pair[1]["grad_norms"],
+            repeats_bit_for_bit=repeats))
+        assert repeats, ("the two-pass one-device run does not repeat",
+                         pair)
         tmp = tempfile.mkdtemp(prefix="dtpu-tensor-")
         # the headline trial's seeded weights, whole, for load_jax_params
         model = RepeatedBatchTrial(8, 1024).build_model(self.dev)
@@ -4499,20 +4662,20 @@ class Smoke:
         refs = {"headline-t2": self.train_losses,
                 "packed-window-t2": self.packed_window_losses,
                 "headline-c2t2-ring": self.train_losses,
-                "headline-c2t2-ulysses": self.train_losses}
+                "headline-c2t2-ulysses": self.train_losses,
+                "headline-t2-two-pass": pair[0]["losses"]}
         # the grad norms too: AdamW all but hides a gradient's scale from
         # the losses, and a replicated leaf's gradient summed over the
         # tensor group comes out tensor times too large
         norm_refs = {"headline-t2": self.train_grad_norms,
                      "packed-window-t2": self.packed_window_grad_norms,
                      "headline-c2t2-ring": self.train_grad_norms,
-                     "headline-c2t2-ulysses": self.train_grad_norms}
+                     "headline-c2t2-ulysses": self.train_grad_norms,
+                     "headline-t2-two-pass": pair[0]["grad_norms"]}
         results, seconds = self.gang_runs(tmp, "tensor", params, [
             dict(name=name, world=r[0], mesh=r[1], data=r[2], fields=r[3],
-                 steps=r[4], save_at=r[5])
+                 steps=r[4], save_at=r[5], two_pass=name in TWO_PASS_RUNS)
             for name, r in TENSOR_RUNS.items()])
-        n = 12  # GPT-2-small's layers
-        launches = {}
         for name, (world, sizes, data, fields, steps, save_at, kernels,
                    calls) in TENSOR_RUNS.items():
             ranks = results[name]
@@ -4548,12 +4711,18 @@ class Smoke:
                     assert x["resumed_losses"] == (
                         x["losses"][save_at:]), (name, r)
             x = ranks[0]
+            held = TENSOR_NORM_STEPS.get(name, steps)
             rec.update(
                 loss_first=x["losses"][0], loss_last=x["losses"][-1],
                 max_rel_loss_vs_one_device=close(
                     x["losses"], refs[name], f"{name} vs one device"),
+                # every step's reading, the held ones asserted
+                rel_grad_norm_by_step=[
+                    abs(a - b) / abs(b) for a, b in zip(x["grad_norms"],
+                                                        norm_refs[name])],
+                grad_norm_steps_held=held,
                 max_rel_grad_norm_vs_one_device=close(
-                    x["grad_norms"], norm_refs[name],
+                    x["grad_norms"][:held], norm_refs[name],
                     f"{name} grad norm vs one device", GRAD_NORM_RTOL),
                 one_device_state_gb=self.mesh_state_gb,
                 rotations_per_step=x["rotations_per_step"],
@@ -4580,7 +4749,7 @@ class Smoke:
             for name, r in TENSOR_RUNS.items() if r[5]}
         self.tensor_tmp = tmp
         self.report("tensor", "phase", dict(
-            gang2_seconds=seconds[2], gang4_seconds=seconds[4],
+            **{f"gang{w}_seconds": v for w, v in seconds.items()},
             seconds=time.perf_counter() - t0))
         return launches
 
@@ -4868,13 +5037,21 @@ class Smoke:
         against the dense dispatch (the plain version, the reference's
         one-hot einsums) on the card: the first loss bit for bit, every loss
         within 1e-3 relative, every grad norm within ``GRAD_NORM_RTOL``,
-        the mono pair once per layer and step; then ``expert=2`` on two
-        ranks over gloo against the one-device run, a rank's resident state
-        below one device's, its sharded save restored bit for bit by a
-        fresh gang and onto one rank, which trains on with the gang's
-        losses; then a greedy decode through ``GenerationEngine``, the
-        index dispatch's streams the dense dispatch's. Prints each layer's
-        share of dropped tokens. → launches."""
+        the mono pair once per layer and step; then the gangs of
+        ``EXPERT_GANGS`` over gloo (``expert=2`` on two ranks, ``expert=2
+        × tensor=2`` and ``expert=2 × context=2`` by the ring on four),
+        each against the one-device run: every loss within 1e-3, the first
+        ``EXPERT_NORM_STEPS`` grad norms within ``GRAD_NORM_RTOL``
+        (``SPLIT_NORM_STEPS`` for the tensor and context splits, whose
+        rounding flips routing at step 1), every rank alike, the flash launches exact per step and rank, a rank's
+        resident state below one device's (below ``expert=2``'s with the
+        tensor split, as much with the context split, which splits no
+        parameter); a run's sharded save restored bit for bit by a fresh
+        gang (the audit every step finding nothing) and onto one rank,
+        which trains on with the gang's losses; then a greedy decode
+        through ``GenerationEngine``, the index dispatch's streams the
+        dense dispatch's. Prints each layer's share of dropped tokens
+        beside the one device's. → launches."""
         import shutil
         import tempfile
 
@@ -4897,11 +5074,21 @@ class Smoke:
         n = cfg.n_layers
         one, launches = {}, {}
         for dispatch in ("index", "dense"):
-            held = {}
+            held = {"drops": []}
 
             def prepare(trainer, dispatch=dispatch, held=held):
                 trainer.model.moe_dispatch = dispatch
                 held["model"] = trainer.model
+                step_fn = trainer._train_step
+
+                def step(batch, poison=1.0):
+                    out = step_fn(batch, poison)
+                    held["drops"].append(
+                        {str(i): int(d) / t for i, (d, t) in
+                         sorted(trainer.model.moe_drops.items())})
+                    return out
+
+                trainer._train_step = step
 
             reports, per_step, run, peak_gb, _ = self.fit_counted(
                 RepeatedBatchTrial(b, s, config=cfg), EXPERT_STEPS,
@@ -4918,6 +5105,7 @@ class Smoke:
                                       warm=1),
                 drops={str(i): int(d) / t for i, (d, t) in
                        sorted(model.moe_drops.items())},
+                drops_by_step=held["drops"],
                 n_params=sum(p.numel() for p in model.parameters()))
             if dispatch == "index":
                 launches = dict(run)
@@ -4946,65 +5134,104 @@ class Smoke:
             max_rel_grad_norm_vs_dense=dense_norm_err,
             dropped_share_by_layer=index["drops"]))
 
-        # -- expert=2: two ranks on the one card -------------------------------
+        # -- the gangs: expert=2 on two ranks, × tensor=2 and × context=2
+        # -- on four, on the one card -------------------------------------------
         tmp = tempfile.mkdtemp(prefix="dtpu-experts-")
-        results, seconds = self.gang_runs(tmp, "experts", None, [dict(
-            name="expert2", world=2, mesh={"expert": 2}, data="tokens",
-            fields=EXPERT_FIELDS, steps=EXPERT_GANG_STEPS,
-            save_at=EXPERT_SAVE_AT)])
-        ranks = results["expert2"]
-        assert len(ranks) == 2, ranks
-        rec = dict(backend="gloo", ranks=2, expert=2,
-                   steps=EXPERT_GANG_STEPS, one_device_state_gb=state_gb)
-        for x in ranks:
-            r = x["rank"]
-            assert x["losses"] == ranks[0]["losses"], x
-            assert x["grad_norms"] == ranks[0]["grad_norms"], x
-            for i, step in enumerate(x["per_step"]):
-                got = {k: v for k, v in step.items() if v}
-                assert got == {"flash_fwd_mono": n, "flash_bwd_mono": n}, (
-                    r, i, step)
-                for k, v in step.items():
-                    launches[k] = launches.get(k, 0) + v
-            assert x["state_gb"] < state_gb, (r, x["state_gb"], state_gb)
-            assert x["resume_bitwise"], r
-            assert x["resumed_losses"] == x["losses"][EXPERT_SAVE_AT:], r
-            assert x["audits"] == list(range(1, EXPERT_GANG_STEPS + 1)), x
-            for key in ("state_gb", "peak_gb", "dropped_share_by_layer"):
-                rec[f"rank{r}_{key}"] = x["moe_drop_share" if key ==
-                                          "dropped_share_by_layer" else key]
-            rec[f"rank{r}_step_ms"] = x["step_ms"]
-        x = ranks[0]
-        files = x["files"]
-        assert "params__blocks__we_in.shard0_4_0_0.npy" in files, files
-        rec.update(
-            losses=x["losses"],
-            max_rel_loss_vs_one_device=close(
-                x["losses"], index["losses"], "expert=2 vs one device"),
-            max_rel_grad_norm_vs_one_device=close(
-                x["grad_norms"][:EXPERT_NORM_STEPS],
-                index["grad_norms"], "expert=2 grad norm vs one device",
-                GRAD_NORM_RTOL),
-            grad_norms=x["grad_norms"],
-            one_device_grad_norms=index["grad_norms"],
-            collectives_per_step=x["collectives_per_step"],
-            collective_mb_per_step=x["collective_mb_per_step"],
-            gang_seconds=seconds[2])
-        # the gang's save onto one rank
-        ctx = core._dummy_init(checkpoint_storage=os.path.join(tmp, "ckpt2"))
-        trainer = Trainer(RepeatedBatchTrial(b, s, config=cfg), ctx)
-        trainer.fit(max_length=Batch(EXPERT_GANG_STEPS),
-                    report_period=Batch(1), latest_checkpoint=x["save_id"])
-        restored = [m["loss"] for g, _, m in ctx.train._reported
-                    if g == "training"]
-        rec["restored_one_rank_losses"] = restored
-        rec["max_rel_loss_restored_vs_gang"] = close(
-            restored, x["losses"][EXPERT_SAVE_AT:], "restored onto one rank")
-        assert len(restored) == EXPERT_GANG_STEPS - EXPERT_SAVE_AT, restored
-        del trainer
-        torch.cuda.empty_cache()
+        results, seconds = self.gang_runs(tmp, "experts", None, [
+            dict(name=name, world=r[0], mesh=r[1], data="tokens",
+                 fields=EXPERT_FIELDS, steps=EXPERT_GANG_STEPS,
+                 save_at=r[2])
+            for name, r in EXPERT_GANGS.items()])
+        expert2_state = None
+        for name, (world, sizes, save_at, calls, files_in, norm_steps) in \
+                EXPERT_GANGS.items():
+            ranks = results[name]
+            assert len(ranks) == world, (name, ranks)
+            rec = dict(backend="gloo", ranks=world, **sizes,
+                       steps=EXPERT_GANG_STEPS, one_device_state_gb=state_gb,
+                       one_device_step1_dropped_share_by_layer=index[
+                           "drops_by_step"][0])
+            shares = []
+            for x in ranks:
+                r = x["rank"]
+                assert x["losses"] == ranks[0]["losses"], (name, x)
+                assert x["grad_norms"] == ranks[0]["grad_norms"], (name, x)
+                ci = x["coordinate"][4]
+                per_layer = ci + 1 if calls == "ring" else 1
+                want = {"flash_fwd_mono": n * per_layer,
+                        "flash_bwd_mono": n * per_layer}
+                for i, step in enumerate(x["per_step"]):
+                    got = {k: v for k, v in step.items() if v}
+                    assert got == want, (name, r, i, step, want)
+                    for k, v in step.items():
+                        launches[k] = launches.get(k, 0) + v
+                # one device's state; a tensor split holds less than
+                # expert=2's, a context split (no parameter split) as much
+                limit = state_gb if expert2_state is None else expert2_state
+                assert (x["state_gb"] < limit if "context" not in sizes
+                        else x["state_gb"] <= limit * 1.001), (
+                    name, r, x["state_gb"], limit)
+                if save_at:
+                    assert x["resume_bitwise"], (name, r)
+                    assert x["resumed_losses"] == x["losses"][save_at:], (
+                        name, r)
+                    assert x["audits"] == list(
+                        range(1, EXPERT_GANG_STEPS + 1)), (name, x)
+                # the tokens of (data, fsdp, context): tensor and expert
+                # ranks share them
+                if x["coordinate"][3] == 0 and x["coordinate"][5] == 0:
+                    shares.append(x["moe_drop_share_by_step"][0])
+                for key in ("state_gb", "peak_gb", "reserved_gb"):
+                    rec[f"rank{r}_{key}"] = x[key]
+                rec[f"rank{r}_step_ms"] = x["step_ms"]
+                rec[f"rank{r}_launches_per_step"] = want
+            x = ranks[0]
+            if name == "expert2":
+                expert2_state = x["state_gb"]
+            for f in files_in:
+                assert f in x.get("files", []), (name, f, x.get("files"))
+            rec.update(
+                losses=x["losses"],
+                max_rel_loss_vs_one_device=close(
+                    x["losses"], index["losses"], f"{name} vs one device"),
+                # every step's reading, the held ones asserted
+                rel_grad_norm_by_step=[
+                    abs(a - b) / abs(b) for a, b in zip(x["grad_norms"],
+                                                        index["grad_norms"])],
+                grad_norm_steps_held=norm_steps,
+                max_rel_grad_norm_vs_one_device=close(
+                    x["grad_norms"][:norm_steps],
+                    index["grad_norms"], f"{name} grad norm vs one device",
+                    GRAD_NORM_RTOL),
+                grad_norms=x["grad_norms"],
+                one_device_grad_norms=index["grad_norms"],
+                step1_dropped_share_by_layer={
+                    k: sum(s[k] for s in shares) / len(shares)
+                    for k in shares[0]},
+                rotations_per_step=x["rotations_per_step"],
+                collectives_per_step=x["collectives_per_step"],
+                collective_mb_per_step=x["collective_mb_per_step"],
+                gang_seconds=seconds[world])
+            if save_at:
+                # the gang's save onto one rank
+                ctx = core._dummy_init(
+                    checkpoint_storage=os.path.join(tmp, f"ckpt{world}"))
+                trainer = Trainer(RepeatedBatchTrial(b, s, config=cfg), ctx)
+                trainer.fit(max_length=Batch(EXPERT_GANG_STEPS),
+                            report_period=Batch(1),
+                            latest_checkpoint=x["save_id"])
+                restored = [m["loss"] for g, _, m in ctx.train._reported
+                            if g == "training"]
+                assert len(restored) == EXPERT_GANG_STEPS - save_at, restored
+                rec["ckpt_files"] = len(x["files"])
+                rec["restored_one_rank_losses"] = restored
+                rec["max_rel_loss_restored_vs_gang"] = close(
+                    restored, x["losses"][save_at:],
+                    f"{name} restored onto one rank")
+                del trainer
+                torch.cuda.empty_cache()
+            self.report("experts", f"gpt2-small-moe8 bf16 {name}", rec)
         shutil.rmtree(tmp, ignore_errors=True)
-        self.report("experts", "gpt2-small-moe8 bf16 expert=2", rec)
 
         # -- a greedy decode, index against dense dispatch -----------------------
         model = gpt.GPT(cfg)
@@ -5133,6 +5360,186 @@ class Smoke:
             gang2_seconds=seconds[2], gang4_seconds=seconds[4],
             seconds=time.perf_counter() - t0))
         return launches
+
+    def zoo_phase(self):
+        """The generative pair through the exec layer on the card:
+        ``DiffusionTrial`` and ``DCGANTrial`` (``ZOO_TRIALS``) by
+        ``harness.run`` at their example configs' hyperparameters
+        (``examples/diffusion.json``, ``dcgan.json``: 32 × 32, 1 channel,
+        batch 64, 200 timesteps, lr 2e-4), ``ZOO_STEPS`` steps on one rank
+        with shared-fs storage (the examples' ``mesh`` ``data: 8`` and
+        ``gcs`` storage left out) and checkpoints at ``ZOO_SAVE_AT`` and
+        the end: finite losses, the DDPM's falling; the save restored into
+        a fresh trainer bit for bit, and the run resumed from it through
+        the harness within 1e-3 of the uninterrupted one; 16 images
+        sampled over the 200 steps, finite; the card's loss and gradients
+        at fixed parameters and draws against the port's CPU run
+        (``zoo_parity``: fp32 loss, fp64 loss and gradient, 1e-4
+        relative; TF32 off in cuDNN and matmuls, as ``main`` sets it).
+        Prints the step ms and the sample's seconds.
+        No kernel of the port runs here (the convolutions are library
+        calls, as the reference's). → launches (none)."""
+        import shutil
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch import core
+        from determined_tpu_torch.examples import generative_trials as gt
+        from determined_tpu_torch.trainer import Trainer
+
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+        t0 = time.perf_counter()
+        root = os.path.dirname(os.path.abspath(__file__))
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-zoo-")
+        try:
+            for name, (cls, example, metric) in ZOO_TRIALS.items():
+                with open(os.path.join(root, "examples", example)) as f:
+                    hp = json.load(f)["hyperparameters"]
+                store = os.path.join(tmp, name)
+                entry = f"determined_tpu_torch.examples.generative_trials:{cls}"
+                cfg = {"searcher": {"name": "single", "metric": metric,
+                                    "max_length": {"batches": ZOO_STEPS}},
+                       "min_checkpoint_period": {"batches": ZOO_SAVE_AT},
+                       "scheduling_unit": 1}
+                rc, _, launches, run_a, wall_a = self.harness_run(
+                    entry, hp, cfg, f"chip-smoke-zoo-{name}-a", store)
+                assert rc == 0, (name, rc)
+                assert not any(launches.values()), (name, launches)
+                steps = list(range(1, ZOO_STEPS + 1))
+                assert sorted(run_a) == steps, (name, sorted(run_a))
+                losses = [run_a[s]["loss"] for s in steps]
+                assert all(np.isfinite(losses)), (name, losses)
+                head, tail = (float(np.mean(losses[:10])),
+                              float(np.mean(losses[-10:])))
+                if name == "ddpm":
+                    assert tail < head, (name, head, tail)
+                ckpts = {}
+                for d in os.listdir(store):
+                    md = os.path.join(store, d, "metadata.json")
+                    if os.path.exists(md):
+                        with open(md) as f:
+                            ckpts[json.load(f)["steps_completed"]] = d
+                assert sorted(ckpts) == [ZOO_SAVE_AT, ZOO_STEPS], ckpts
+                # the save, restored into a fresh trainer bit for bit
+                trial = getattr(gt, cls)(hp)
+                trainer = Trainer(trial, core._dummy_init(
+                    checkpoint_storage=store))
+                trainer._restore_with_fallback(ckpts[ZOO_SAVE_AT])
+                saved = os.path.join(store, ckpts[ZOO_SAVE_AT])
+                bitwise = all(
+                    np.array_equal(p.detach().cpu().numpy(), np.load(
+                        os.path.join(saved, "params__"
+                                     + n.replace(".", "__") + ".npy")))
+                    for n, p in trainer.model.named_parameters())
+                assert bitwise, name
+                assert trainer.steps_completed == ZOO_SAVE_AT
+                rec = dict(
+                    trial=cls, steps=ZOO_STEPS, batch=hp["batch_size"],
+                    lr=hp["lr"], **hp["model_config"], rc=0,
+                    loss_first=losses[0], loss_last=losses[-1],
+                    loss_mean_first10=head, loss_mean_last10=tail,
+                    step_ms_median=float(np.median(
+                        [1e3 / run_a[s]["batches_per_second"]
+                         for s in steps[2:] if s != ZOO_SAVE_AT + 1])),
+                    wall_s=wall_a, restored_bitwise=True)
+                if name == "dcgan":
+                    rec.update(g_loss_last=run_a[ZOO_STEPS]["g_loss"],
+                               d_loss_last=run_a[ZOO_STEPS]["d_loss"])
+                # resumed from the save through the harness
+                rc, _, _, run_b, _ = self.harness_run(
+                    entry, hp, cfg, f"chip-smoke-zoo-{name}-b", store,
+                    DTPU_LATEST_CHECKPOINT=ckpts[ZOO_SAVE_AT])
+                assert rc == 0, (name, rc)
+                assert sorted(run_b) == steps[ZOO_SAVE_AT:], sorted(run_b)
+                rec["resumed_loss_max_rel"] = close_rel(
+                    [run_b[s]["loss"] for s in steps[ZOO_SAVE_AT:]],
+                    losses[ZOO_SAVE_AT:], f"{name} resumed")
+                if name == "ddpm":
+                    trainer._restore_with_fallback(ckpts[ZOO_STEPS])
+                    gen = torch.Generator(device=self.dev).manual_seed(0)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    images = trainer.model.sample(ZOO_SAMPLES, gen)
+                    torch.cuda.synchronize()
+                    rec["sample_s"] = time.perf_counter() - t1
+                    c = trainer.model.config
+                    assert images.shape == (ZOO_SAMPLES, c.image_size,
+                                            c.image_size, c.channels)
+                    assert bool(torch.isfinite(images).all()), name
+                    rec.update(samples=ZOO_SAMPLES, sample_steps=c.timesteps,
+                               sample_abs_mean=float(images.abs().mean()))
+                rec.update(self.zoo_parity(trainer.model, hp))
+                del trainer
+                torch.cuda.empty_cache()
+                self.report("zoo", name, rec)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        self.report("zoo", "phase", dict(seconds=time.perf_counter() - t0))
+        return {}
+
+    def zoo_parity(self, model, hp):
+        """`model`'s loss and gradients on the card against a CPU copy of
+        it, at its parameters and one set of draws made on the CPU
+        (``loss_given``): in fp32 the loss within 1e-4 relative; in fp64
+        (both sides cast) the loss and the whole gradient within 1e-4
+        relative (L2) → those, and the fp32 gradient's L2 difference and
+        its entries past 1e-4 of the gradient's largest, printed. The
+        fp32 gradients are not held: a pre-activation within fp32
+        rounding of a (leaky) ReLU's kink takes one slope on the card and
+        the other on the CPU and moves a share of the upstream gradient
+        (DCGAN: 1.9e-4 of a largest 1.14 on ``disc.c2.b`` in one call,
+        1.36e-4 relative in L2 in another, 3e-7 in most); in fp64 no
+        pre-activation comes that close."""
+        import copy
+
+        import torch
+
+        from determined_tpu_torch.examples.generative_trials import (
+            _synthetic_images,
+        )
+
+        c = model.config
+        batch = next(_synthetic_images(3, hp["batch_size"], c.image_size,
+                                       c.channels))
+        gen = torch.Generator().manual_seed(5)
+        image = torch.from_numpy(batch["image"])
+        if hasattr(model, "sample_given"):   # DDPM: t and ε
+            draws = (image, torch.randint(0, c.timesteps, (len(image),),
+                                          generator=gen),
+                     torch.randn(image.shape, generator=gen))
+        else:                                # DCGAN: z
+            draws = (image, torch.randn((len(image), c.latent_dim),
+                                        generator=gen))
+        out = {}
+        for dtype in (torch.float32, torch.float64):
+            for where, dev in (("card", model.device), ("cpu", "cpu")):
+                m = copy.deepcopy(model).to(dev, dtype)
+                loss, _ = m.loss_given(*(
+                    x.to(dev, dtype) if x.is_floating_point() else x.to(dev)
+                    for x in draws))
+                grads = torch.autograd.grad(loss, list(m.parameters()))
+                out[where, dtype] = (float(loss.detach()), torch.cat(
+                    [g.detach().double().cpu().reshape(-1) for g in grads]))
+                del m
+        rec = dict(tf32=False)
+        for dtype, tag in ((torch.float32, "fp32"), (torch.float64, "fp64")):
+            (loss_c, g_c), (loss_p, g_p) = (out["card", dtype],
+                                            out["cpu", dtype])
+            loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+            assert loss_rel <= 1e-4, (tag, loss_c, loss_p)
+            diff = g_c - g_p
+            grad_rel = float(diff.norm() / g_p.norm())
+            rec.update({f"{tag}_loss_rel": loss_rel,
+                        f"{tag}_grad_l2_rel": grad_rel,
+                        f"{tag}_entries_past_1e4": int(
+                            (diff.abs() > 1e-4 * g_p.abs().max()).sum())})
+        assert rec["fp64_grad_l2_rel"] <= 1e-4, rec
+        rec.update(card_loss=out["card", torch.float32][0],
+                   cpu_loss=out["cpu", torch.float32][0])
+        return rec
 
     def train_parity_phase(self, route="mono"):
         """One fp32 loss + gradient of GPT-2-small's width with 2 layers,
@@ -5334,6 +5741,13 @@ def main() -> int:
         smoke.mono_case(f"ring-hop-{'diag' if causal else 'full'}-h6", bf16,
                         b=8, s=512, causal=causal, dlse=True, seed=9,
                         timed=True, h=6)
+    # the shapes phase tensor's deterministic pair gives the kernels: the
+    # headline at blocks 512 (flash_fwd, and the two passes with the
+    # partials cap at 0), on one device (H 12) and a rank of tensor=2 (H 6)
+    for heads in (12, 6):
+        smoke.hop_case(f"headline-block512-h{heads}", b=8, s_q=1024,
+                       s_k=1024, causal=True, bwd=two_pass, h=heads,
+                       dlse=False, kind="train")
     # the shapes phase pipeline gives the mono pair: a microbatch of 2 rows
     # (M 4 of B 8), of 1 (pipeline=4, M 8), 6 heads a rank (× tensor=2)
     # and the ring's hops at S/2 (× context=2); phase experts runs the
@@ -5361,17 +5775,17 @@ def main() -> int:
                      if n in ("flash_bwd_dq", "flash_bwd_dkv")})
     smoke.train_packed_phase()
 
-    # -- phases 11 to 23: checkpoints, the fixture, the rest of serving, the
+    # -- phases 11 to 24: checkpoints, the fixture, the rest of serving, the
     # -- rest of the training loop, the exec layer off and on the cluster, the
     # -- mesh, the context axis, the tensor axis, the elastic resize, the
-    # -- experts and the pipeline stages -----------------------------------------
+    # -- experts, the pipeline stages and the generative zoo ---------------------
     for phase in (smoke.checkpoint_phase, smoke.fixture_phase,
                   smoke.serving_http_phase, smoke.serving_parity_phase,
                   smoke.train_health_phase, smoke.exec_phase,
                   smoke.cluster_phase, smoke.mesh_phase,
                   smoke.context_phase, smoke.tensor_phase,
                   smoke.elastic_phase, smoke.experts_phase,
-                  smoke.pipeline_phase):
+                  smoke.pipeline_phase, smoke.zoo_phase):
         for name, count in phase().items():
             launches[name] += count
 

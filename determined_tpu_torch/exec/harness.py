@@ -48,8 +48,8 @@ master before the exit (``_report_divergence``: ``POST
 ...}``).
 
 Refused by name: a mesh the port leaves out (an expert axis beside a
-pipeline, tensor or context axis above 1; ROADMAP queue 1, item 4) and
-checkpoint storage other than ``shared_fs``.
+pipeline axis above 1, as the reference) and checkpoint storage other
+than ``shared_fs``.
 
 Launch: ``DTPU_ENTRYPOINT=pkg.module:Trial DTPU_TRIAL_ID=1 ...
 python -m determined_tpu_torch.exec.harness``; under the reference's

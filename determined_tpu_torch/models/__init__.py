@@ -1,12 +1,12 @@
-"""Model zoo of the port: GPT plus the example-ladder vision models, and
-the registry (``get_model``) that configs and the built-in trials name
-models by (port of ``determined_tpu/models/__init__.py``).
+"""Model zoo of the port: GPT, the example-ladder vision models and the
+generative pair (DDPM, DCGAN), and the registry (``get_model``) that
+configs and the built-in trials name models by (port of
+``determined_tpu/models/__init__.py``).
 
-The registry knows the reference's seven names. ``ddpm`` and ``dcgan``
-(``models/generative.py``) are not ported yet and are refused by name.
-Each model draws its initial parameters from a generator seeded with
-``torch.initial_seed()``: inside ``Trainer`` that is the trial seed
-(``torch.manual_seed(seed)`` runs just before ``build_model``).
+The registry knows the reference's seven names. Each model draws its
+initial parameters from a generator seeded with ``torch.initial_seed()``:
+inside ``Trainer`` that is the trial seed (``torch.manual_seed(seed)``
+runs just before ``build_model``).
 """
 from __future__ import annotations
 
@@ -16,6 +16,12 @@ import torch
 
 from determined_tpu_torch.models import gpt as gpt_mod
 from determined_tpu_torch.models.base import Model
+from determined_tpu_torch.models.generative import (
+    DCGAN,
+    DDPM,
+    DDPMConfig,
+    GANConfig,
+)
 from determined_tpu_torch.models.gpt import (  # noqa: F401
     GPT,
     GPTConfig,
@@ -31,18 +37,13 @@ from determined_tpu_torch.models.vision import (
 Device = Optional[Union[str, torch.device]]
 
 
-def _not_ported(name: str) -> Callable[..., Model]:
-    def refuse(device: Device, seed: int, **kw: Any) -> Model:
-        raise NotImplementedError(
-            f"model {name!r} (models/generative.py) is not ported yet: it "
-            "comes with the rest of the zoo (ROADMAP queue 1, item 6)"
-        )
-    return refuse
-
-
 _REGISTRY: Dict[str, Callable[..., Model]] = {
-    "ddpm": _not_ported("ddpm"),
-    "dcgan": _not_ported("dcgan"),
+    "ddpm": lambda device, seed, **kw: DDPM(
+        DDPMConfig(**kw) if kw else DDPMConfig(), device, seed=seed
+    ),
+    "dcgan": lambda device, seed, **kw: DCGAN(
+        GANConfig(**kw) if kw else GANConfig(), device, seed=seed
+    ),
     "gpt2-small": lambda device, seed, **kw: GPT(
         gpt_mod.small() if not kw else GPTConfig(**kw), device, seed=seed
     ),
@@ -73,5 +74,7 @@ __all__ = [
     "GPTConfig",
     "MnistMLP",
     "CifarCNN",
+    "DDPM",
+    "DCGAN",
     "get_model",
 ]

@@ -48,7 +48,11 @@ index form of ``parallel/experts.py`` (``moe_dispatch = "dense"``: the
 reference's one-hot einsums, the plain version: the outputs bit for bit
 the same, the gradients within rounding).
 Serving runs it too, its capacity taken from each call's own tokens,
-padding included, as the reference's.
+padding included, as the reference's. On a mesh the experts split over
+``expert`` (E/ep a rank) and ``tensor`` (their ``mlp`` dimension: ``we_in``
+[L, E/ep, d, f/tp], ``be_in``, ``we_out`` [L, E/ep, f/tp, d]), and the
+capacity and its cumsum run over the global [B·S] tokens of data × fsdp
+× context, whatever splits the sequence (``parallel/experts.py``).
 
 Pipeline stages (``pipeline_stages`` above 1, over a mesh whose
 ``pipeline`` axis has as many ranks): stage d runs layers [d·L/S,
@@ -65,8 +69,7 @@ and hands the schedule's finished gradients to autograd through
 on stage 0 and the head's where the loss is computed, and the Trainer sums
 them over the pipeline group (``trainer/_mesh.py``). The reference's
 guards hold by the same words. Experts beside a pipeline are refused, as
-the reference refuses them; experts beside a tensor or context axis above
-1 are left out and refused by name (ROADMAP queue 1, item 4).
+the reference refuses them.
 
 Under a device mesh (``GPT(..., mesh=)``, the Trainer's layout over the
 reference's six axes) the module computes on each rank's local rows
@@ -277,19 +280,17 @@ class GPT(Model):
         self._tensor, self._tensor_index, self._tgroup = 1, 0, None
         #: the pipeline axis's degree, this rank's stage and its group
         self._pipeline, self._stage, self._pgroup = 1, 0, None
-        #: the expert axis's degree, this rank's index on it and its group;
-        #: the batch group (data × fsdp: None for one rank), this rank's row
-        #: block on it and its size (the experts' global capacity)
-        self._expert, self._expert_index, self._egroup = 1, 0, None
-        self._bgroup, self._dp_index, self._dp = None, 0, 1
+        #: the expert axis's degree and this rank's index on it; the
+        #: experts' groups (``parallel/experts.py``: the ranks that share
+        #: a token's expert work, the ranks whose tokens share one
+        #: capacity)
+        self._expert, self._expert_index = 1, 0
+        self._moe = moe.NO_GROUPS
         if mesh is not None:
             from determined_tpu_torch.parallel.mesh import (
                 _axis,
                 axis_index,
-                axes_group,
                 context_size,
-                data_parallel_index,
-                data_parallel_size,
                 refuse_later_axes,
                 tensor_index,
                 tensor_size,
@@ -308,22 +309,11 @@ class GPT(Model):
                 self._pgroup = mesh.get_group("pipeline")
             if c.n_experts:
                 self._expert_index = axis_index(mesh, "expert")
-                self._egroup = moe.expert_group(mesh)
-                self._dp = data_parallel_size(mesh)
-                self._dp_index = data_parallel_index(mesh)
-                self._bgroup = axes_group(mesh, ("data", "fsdp"))
+                self._moe = moe.groups(mesh)
         if c.n_experts:
             if c.pipeline_stages > 1:
                 raise NotImplementedError(
                     "MoE+pipeline composition not supported yet")
-            for axis, n in (("tensor", self._tensor),
-                            ("context", self._context)):
-                if n > 1:
-                    raise NotImplementedError(
-                        f"a mixture-of-experts GPT on a mesh with {axis}="
-                        f"{n}: experts over {axis} are left out (ROADMAP "
-                        "queue 1, item 4); the port runs experts over "
-                        "data, fsdp and expert")
             if c.n_experts % self._expert:
                 raise ValueError(
                     f"GPT n_experts={c.n_experts} is not divisible by the "
@@ -660,24 +650,25 @@ class GPT(Model):
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-1 (switch) MoE over ln2's output h [B, S, D] → (output,
         load-balance aux loss): the router in fp32, this rank's experts
-        on their capacity buckets (``parallel/experts.py``), the partial
-        combines summed over the expert group."""
+        (their ``mlp`` slice on a tensor axis) on their capacity buckets
+        (``parallel/experts.py``), the partial combines summed over the
+        expert × tensor group in one all-reduce."""
         b, s, d = h.shape
+        g = self._moe
         x = h.reshape(b * s, d)
         # routing decisions must not round in the compute dtype
         gates = torch.softmax(torch.matmul(x, w["router"]).float(), dim=-1)
-        routing = moe.route(gates, self.config.capacity_factor,
-                            group=self._bgroup, index=self._dp_index,
-                            size=self._dp)
+        routing = moe.route(gates, self.config.capacity_factor, rows=b,
+                            groups=g)
         first, n = self._expert_first, self._experts
-        xe = moe.dispatch(moe.copy_to_expert(x, self._egroup), routing,
+        xe = moe.dispatch(moe.copy_to_expert(x, g.compute), routing,
                           first, n, self.moe_dispatch)
         he = F.gelu(torch.matmul(xe, w["we_in"]) + w["be_in"][:, None, :],
                     approximate="tanh")
         ye = torch.matmul(he, w["we_out"])
-        gate = moe.copy_to_expert(routing.gate, self._egroup)
+        gate = moe.copy_to_expert(routing.gate, g.compute)
         y = moe.combine(ye, routing, gate, first, n, self.moe_dispatch)
-        y = moe.reduce_from_expert(y, self._egroup) + w["bo_mlp"]
+        y = moe.reduce_from_expert(y, g.compute) + w["bo_mlp"]
         layer = getattr(w, "layer", None)
         if layer is not None:
             self.moe_drops[layer] = (routing.dropped.detach(), b * s)
@@ -1062,7 +1053,7 @@ class GPT(Model):
             context_fn=_remat_context,
         )
         if (self._context > 1 or self._tensor > 1 or self._fsdp_dims
-                or self._bgroup is not None or self._egroup is not None):
+                or self._moe != moe.NO_GROUPS):
             # The recompute reissues the ring's rotations, the tensor and
             # expert all-reduces, the capacity's all-gather and the fsdp
             # gathers: it must run the whole region on every rank,

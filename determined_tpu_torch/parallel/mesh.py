@@ -19,11 +19,14 @@ The port trains over all six: ``data``, ``fsdp``, ``context`` (the
 sequence split over the context group, attention by ring or Ulysses),
 ``tensor`` (Megatron's column and row splits, ``parallel/tensor.py``),
 ``pipeline`` (the stages' schedules, ``parallel/pipeline.py``) and
-``expert`` (the top-1 experts, ``parallel/experts.py``). What the port
-leaves out is refused by name (``refuse_later_axes``): experts over an
-expert axis beside a pipeline, tensor or context axis above 1.
-``axes_group`` is the process group of the ranks that differ from this
-one only along some axes.
+``expert`` (the top-1 experts, ``parallel/experts.py``, over data ×
+fsdp × expert × context × tensor). What the port leaves out is refused by
+name (``refuse_later_axes``): an expert axis beside a pipeline axis above
+1, the reference's own limit. ``axes_group`` is the process group of the
+ranks that differ from this one only along some axes: the Trainer's
+gradient, loss and norm groups (``trainer/_mesh.py``) and the experts'
+compute and routing groups (``parallel/experts.py groups``) are such
+groups.
 """
 from __future__ import annotations
 
@@ -39,12 +42,10 @@ from determined_tpu_torch._device import resolve_device
 AXIS_NAMES: Tuple[str, ...] = ("pipeline", "data", "fsdp", "expert",
                                "context", "tensor")
 
-#: The axes the expert axis does not compose with yet (ROADMAP queue 1,
-#: item 4): experts under a pipeline are the reference's own limit; over
-#: tensor or context the reference's GSPMD splits the expert matmuls and
-#: takes the capacity in its permuted token order, which the port leaves
-#: for a later slice.
-_NOT_WITH_EXPERT = ("pipeline", "tensor", "context")
+#: The axes the expert axis does not compose with: experts under a
+#: pipeline are the reference's own limit ("MoE+pipeline composition not
+#: supported yet", ``determined_tpu/models/gpt.py:793``).
+_NOT_WITH_EXPERT = ("pipeline",)
 
 
 @dataclasses.dataclass
@@ -114,8 +115,8 @@ class MeshConfig:
 
 def refuse_later_axes(sizes: Any, what: str = "mesh") -> None:
     """Refuse, by name, a layout that the port leaves out: an expert axis
-    above 1 beside a pipeline, tensor or context axis above 1. `sizes`: a
-    MeshConfig, a DeviceMesh or a {axis: degree} mapping."""
+    above 1 beside a pipeline axis above 1. `sizes`: a MeshConfig, a
+    DeviceMesh or a {axis: degree} mapping."""
     if isinstance(sizes, MeshConfig):
         sizes = dataclasses.asdict(sizes)
     elif not isinstance(sizes, dict):
@@ -128,8 +129,9 @@ def refuse_later_axes(sizes: Any, what: str = "mesh") -> None:
         if degree != 1:
             raise NotImplementedError(
                 f"{what} with expert={expert} and {axis}={degree}: experts "
-                f"over {axis} are left out (ROADMAP queue 1, item 4); the "
-                "port runs experts over data, fsdp and expert"
+                f"over {axis} are left out (ROADMAP queue 1, item 4), as "
+                "the reference leaves them out; the port runs experts over "
+                "data, fsdp, expert, context and tensor"
             )
 
 

@@ -14,8 +14,11 @@ reference's shardings imply, from the same rule table
   which the reference's rules map to ``tensor``) is split along it over
   the tensor axis, and on an expert axis above 1 one whose "expert"
   dimension the model holds its experts' slice of (``expert_dims``) is
-  split along it over ``expert``; a parameter may be split on two
-  dimensions; every other one is whole on every rank. Every block is
+  split along it over ``expert``; a parameter may be split on three
+  dimensions at once (an expert model's ``we_in`` [L, E, d, f] on a
+  ``fsdp × expert × tensor`` mesh: E over expert, f over tensor and d
+  over fsdp as its ZeRO-3 block); every other one is whole on every
+  rank. Every block is
   replicated over ``data``, ``context`` and ``pipeline`` (the rules do
   not map "layers": every stage holds every block, as the reference's),
   and a parameter that the tensor or expert axis does not split over it
@@ -59,7 +62,9 @@ reference's shardings imply, from the same rule table
   the reference's loss over the global batch, and so do their gradients
   (a rank's gradient holds what its queries sent back around the ring
   too). The ranks of one tensor, expert or pipeline group compute the
-  same loss over the same rows and count once (``token_group``).
+  same loss over the same rows and count once (``token_group``); an
+  expert model's aux loss is global over the same group
+  (``parallel/experts.py``), so it counts once too.
 - **Gradients**: a parameter split over fsdp is reduce-scattered over
   fsdp (summed) in the backward of its gather and all-reduced over
   every other holder of its block; any other is all-reduced over its
@@ -567,6 +572,6 @@ def preshift(batch: Dict[str, Any]) -> Dict[str, Any]:
     return dict(batch, targets=targets, loss_mask=shifted)
 
 
-def rank_seed(seed: int, rank: int) -> int:
-    """Each rank's generator seed, from (seed, rank)."""
-    return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+def rank_seed(seed: int, *more: int) -> int:
+    """A generator seed from (seed, rank) or (seed, [rank,] step)."""
+    return int(np.random.SeedSequence([seed, *more]).generate_state(1)[0])

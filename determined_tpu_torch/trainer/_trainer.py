@@ -69,7 +69,8 @@ upload a collective that broadcasts one ``storage_id`` (the agreed
 rollback target), and a restore is agreed by all ranks or by none
 (``_restore_with_fallback``). ``health.divergence_check_period`` runs
 the replica-divergence audit (``_divergence_audit``). Each rank draws
-from its own generator, seeded from (seed, rank).
+from its own generator, seeded before every step from (seed, rank,
+step), as the reference's ``fold_in(base_rng, step)``.
 
 An elastic resize (the master shrank or grew the gang in place: a
 directive on the heartbeat's or the preemption poll's answer, folded into
@@ -83,8 +84,8 @@ layout and charges the drain→resume gap to the ledger's
 ``resize_lost_s``.
 
 The step runs on CUDA unless the caller passes ``device="cpu"``. Refused
-by name: a mesh the port leaves out (an expert axis beside a pipeline,
-tensor or context axis above 1) and the orbax checkpoint format (it needs
+by name: a mesh the port leaves out (an expert axis beside a pipeline
+axis above 1, as the reference) and the orbax checkpoint format (it needs
 JAX).
 """
 from __future__ import annotations
@@ -235,11 +236,13 @@ class Trainer:
                 self._gathers_at_use = self.model.gather_at_use(self._layout)
         self._tx = trial.build_optimizer()
         self._opt_state = self._tx.init([p.detach() for p in self._params])
-        # Seeded once and passed to model.loss; the port's models draw
-        # nothing from it (no dropout), so a checkpoint holds no generator
-        # state. (The reference's step RNG, fold_in(base_rng, step), is a
-        # function of the step alone; on a mesh each rank has its own
-        # generator, seeded from (seed, rank).)
+        # Passed to model.loss (the generative models draw their noise
+        # from it) and seeded anew before every step from (seed, step), on
+        # a mesh (seed, rank, step): as the reference's step RNG,
+        # fold_in(base_rng, step), the draws are a function of the step
+        # alone, so a resumed run draws what the uninterrupted one drew
+        # and a checkpoint holds no generator state.
+        self._seed_parts = (seed, rank) if mesh is not None else (seed,)
         self._generator = torch.Generator(device=self.device).manual_seed(
             rank_seed(seed, rank) if mesh is not None else seed)
         self._step = 0
@@ -445,6 +448,7 @@ class Trainer:
     def _train_step(self, batch: Dict[str, torch.Tensor],
                     poison: float = 1.0) -> Dict[str, torch.Tensor]:
         """One guarded optimizer step → the step's metrics, on the device."""
+        self._generator.manual_seed(rank_seed(*self._seed_parts, self._step))
         if self._layout is not None:
             return self._mesh_step(batch, poison)
         loss, metrics = self.model.loss(batch, self._generator)

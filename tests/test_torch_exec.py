@@ -4,10 +4,10 @@ against the JAX package's, on the CPU.
 
 - ``parse_unit`` gives the reference's units on ints, batches, epochs and
   refuses bad specs alike.
-- ``get_model`` knows the reference's seven names: five build (the GPT
-  configs are the reference's field for field), ``ddpm`` and ``dcgan``
-  are refused by name, an unknown name raises the reference's
-  ``KeyError``.
+- ``get_model`` knows the reference's seven names and builds all seven
+  (the GPT configs are the reference's field for field; ``ddpm`` and
+  ``dcgan`` as ``tests/test_torch_generative.py`` holds them), an unknown
+  name raises the reference's ``KeyError``.
 - Each built-in trial's training and validation batches, and the GPT-2
   pretrain trial's over shards and synthetic, equal the reference's bit
   for bit.
@@ -90,9 +90,8 @@ def test_parse_unit_refuses_bad_specs(spec):
 
 def test_registry_knows_the_references_names(monkeypatch):
     assert sorted(tmodels._REGISTRY) == sorted(jmodels._REGISTRY)
-    for name in ("ddpm", "dcgan"):
-        with pytest.raises(NotImplementedError, match=f"{name}.*item 6"):
-            tmodels.get_model(name, "cpu")
+    for name, cls in (("ddpm", tmodels.DDPM), ("dcgan", tmodels.DCGAN)):
+        assert isinstance(tmodels.get_model(name, "cpu"), cls)
     with pytest.raises(KeyError) as tk:
         tmodels.get_model("resnet", "cpu")
     with pytest.raises(KeyError) as jk:
@@ -317,12 +316,22 @@ def test_harness_exits_1_by_name(trial_env, monkeypatch, caplog, case, match):
 
 
 def test_resolve_mesh_refuses_a_mesh_by_name():
-    """A mesh that the port leaves out (the expert axis beside a tensor or
-    pipeline axis) is refused by name (a data × fsdp mesh over a gang:
-    tests/test_torch_rendezvous.py)."""
+    """A mesh that the port leaves out (the expert axis beside a pipeline
+    axis) is refused by name; the expert axis beside a tensor axis is
+    taken, and then needs a gang that spans it (a data × fsdp mesh over a
+    gang: tests/test_torch_rendezvous.py)."""
+    import torch.distributed as dist
+
     assert tharness.resolve_mesh({}, {}) is None
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tharness.resolve_mesh({}, {"mesh": {"tensor": 2, "expert": 2}})
+    joined = dist.is_initialized()
+    try:
+        with pytest.raises(ValueError, match="1 devices not divisible by 4"):
+            tharness.resolve_mesh({}, {"mesh": {"tensor": 2, "expert": 2}},
+                                  device="cpu")
+    finally:
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()
+            tharness._joined_alone = False
     with pytest.raises(NotImplementedError, match="item 4"):
         tharness.resolve_mesh({"mesh": {"data": 8, "pipeline": 2,
                                         "expert": 2}},

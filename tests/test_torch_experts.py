@@ -30,8 +30,10 @@ parameter tree.
   slices) against the JAX ``Trainer`` on one device (rtol 1e-5 / 1e-4).
 - A sharded save at ``fsdp=2 × expert=2``: the experts' offsets in the
   file names; restored onto one rank, it trains on with the gang's losses.
-- What is left out, refused by name: experts beside a pipeline, tensor
-  or context axis; an expert axis that does not divide the experts; the
+- The layouts beside the tensor and context axes build
+  (``tests/test_torch_experts_split.py`` trains them); what is left out
+  is refused by name: experts beside a pipeline axis (the reference's
+  own limit); an expert axis that does not divide the experts; the
   serving methods on an expert mesh.
 """
 import glob
@@ -558,25 +560,42 @@ def _fake_mesh(**sizes):
 
 
 @pytest.mark.parametrize("axis", ["tensor", "context"])
-def test_experts_beside_tensor_or_context_are_refused_by_name(axis):
+def test_experts_beside_tensor_or_context_are_refused_by_name(
+        axis, monkeypatch):
+    """Retired refusals: an expert GPT builds beside a tensor axis (its
+    experts' ``mlp`` dimension split over it) and beside a context axis
+    (its experts whole). The mesh-like has no process groups: the
+    expert × tensor group is not made."""
     import torch
 
     from determined_tpu_torch.models import gpt
+    from determined_tpu_torch.parallel import experts
 
-    with pytest.raises(NotImplementedError,
-                       match=f"{axis}=2: experts over {axis} are left out "
-                             r"\(ROADMAP queue 1, item 4\)"):
-        gpt.GPT(gpt.GPTConfig(dtype=torch.float32, **KW), device="cpu",
-                mesh=_fake_mesh(**{axis: 2}))
+    monkeypatch.setattr(experts, "_group", lambda mesh, axes: None)
+
+    model = gpt.GPT(gpt.GPTConfig(dtype=torch.float32, **KW), device="cpu",
+                    mesh=_fake_mesh(expert=2, **{axis: 2}))
+    f = 128 // 2 if axis == "tensor" else 128
+    assert model.blocks["we_in"].shape == (2, 2, 64, f)
+    assert model.blocks["be_in"].shape == (2, 2, f)
+    assert model.blocks["we_out"].shape == (2, 2, f, 64)
+    assert model.blocks["router"].shape == (2, 64, 4)
+    assert model.tensor_dims().get("blocks.we_in") == (
+        3 if axis == "tensor" else None)
 
 
 @pytest.mark.parametrize("axis", ["pipeline", "tensor", "context"])
 def test_an_expert_axis_beside_another_model_axis_is_refused(axis):
+    """Experts under a pipeline stay refused, as the reference refuses
+    them; beside a tensor or context axis they are taken."""
     from determined_tpu_torch.parallel import MeshConfig
     from determined_tpu_torch.parallel.mesh import refuse_later_axes
 
     refuse_later_axes(MeshConfig(data=2, fsdp=2, expert=2))
     refuse_later_axes(MeshConfig(**{axis: 2}))
+    if axis != "pipeline":
+        refuse_later_axes(MeshConfig(expert=2, **{axis: 2}))
+        return
     with pytest.raises(NotImplementedError,
                        match=f"expert=2 and {axis}=2: experts over {axis} "
                              r"are left out \(ROADMAP queue 1, item 4\)"):

@@ -143,7 +143,8 @@ def test_serving_copy_keeps_the_numbers(pair):
 
 def test_refuses_configs_of_later_slices():
     """What the port leaves out: experts beside pipeline stages (the
-    reference's own limit) and beside a tensor axis (ROADMAP item 4)."""
+    reference's own limit). Beside a tensor axis they build, their
+    ``mlp`` dimension split over it."""
     import types
 
     from determined_tpu_torch.parallel.mesh import AXIS_NAMES
@@ -157,9 +158,13 @@ def test_refuses_configs_of_later_slices():
         mesh_dim_names=AXIS_NAMES, device_type="cpu",
         shape=(1, 1, 1, 1, 1, 2), get_coordinate=lambda: (0,) * 6,
         get_group=lambda axis: None)
-    with pytest.raises(NotImplementedError, match="experts over tensor"):
-        tgpt.GPT(tgpt.GPTConfig(**{**tcfg.__dict__, "n_experts": 4}),
-                 device="cpu", mesh=tensor2)
+    model = tgpt.GPT(tgpt.GPTConfig(**{**tcfg.__dict__, "n_experts": 4}),
+                     device="cpu", mesh=tensor2)
+    assert model.tensor_dims() == {
+        **{k: v for k, v in model.tensor_dims().items()
+           if not k.startswith("blocks.we_") and k != "blocks.be_in"},
+        "blocks.we_in": 3, "blocks.be_in": 2, "blocks.we_out": 2}
+    assert model.blocks["we_in"].shape[-1] == tcfg.d_ff // 2
     # the zigzag layout needs a sharded context axis (tests/test_torch_context.py)
     with pytest.raises(ValueError, match="sharded context axis"):
         tgpt.GPT(tgpt.GPTConfig(**{**tcfg.__dict__,

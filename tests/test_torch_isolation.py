@@ -7,9 +7,10 @@ core, storage and common packages (the master session, the trace,
 profiling and log shippers, TLS and the context directory too), the
 TensorBoard writer, the profiler agent, the exec layer (harness,
 built-in trials, the launch chain and proxy registration), the data
-layer (the native loader's binding too), the vision models, the GPT-2
-pretrain example and the multi-device layer (the mesh and sharding rules,
-ring and Ulysses attention, the tensor axis's collectives, the gang's
+layer (the native loader's binding too), the vision and generative
+models, the GPT-2 pretrain and generative examples and the multi-device
+layer (the mesh and sharding rules, ring and Ulysses attention, the
+tensor axis's collectives, the experts' routing and groups, the gang's
 distributed context, the trainer's mesh layout), and finds none of them
 loaded."""
 import ast
@@ -78,14 +79,17 @@ def test_port_never_imports_jax(source):
             "determined_tpu_torch.common.context_dir, "
             "determined_tpu_torch.data, determined_tpu_torch.data.native, "
             "determined_tpu_torch.models.vision, "
+            "determined_tpu_torch.models.generative, "
             "determined_tpu_torch.examples, "
             "determined_tpu_torch.examples.gpt2_trial, "
+            "determined_tpu_torch.examples.generative_trials, "
             "determined_tpu_torch.parallel, "
             "determined_tpu_torch.parallel.mesh, "
             "determined_tpu_torch.parallel.sharding, "
             "determined_tpu_torch.parallel.ring, "
             "determined_tpu_torch.parallel.ulysses, "
             "determined_tpu_torch.parallel.tensor, "
+            "determined_tpu_torch.parallel.experts, "
             "determined_tpu_torch.core._distributed, "
             "determined_tpu_torch.trainer._mesh, "
             "determined_tpu_torch._info\n"

@@ -310,20 +310,37 @@ def test_one_rank_mesh_step_is_the_one_device_step(one_process_group,
     ("pipeline", {"expert": 2}), ("tensor", {"expert": 2}),
     ("context", {"expert": 2}),
 ])
-def test_later_axes_are_refused_by_name(axis, kw):
-    """What the port leaves out: the expert axis beside a pipeline,
-    tensor or context axis above 1 (each of those axes alone trains)."""
+def test_later_axes_are_refused_by_name(axis, kw, monkeypatch):
+    """What the port leaves out: the expert axis beside a pipeline axis
+    above 1, as the reference leaves it out (each of those axes alone
+    trains). Beside a tensor or context axis the layout is taken: the
+    mesh then needs its gang, and an expert GPT builds on it."""
     cfg = tmesh.MeshConfig(**{axis: 2}, **kw)
+    refused = axis == "pipeline"
     match = f"expert=2 and {axis}=2.*item 4"
-    for call in (lambda: tmesh.make_mesh(cfg, device="cpu"),
-                 lambda: tmesh.make_multislice_mesh(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match=match):
-            call()
+    if refused:
+        for call in (lambda: tmesh.make_mesh(cfg, device="cpu"),
+                     lambda: tmesh.make_multislice_mesh(cfg, device="cpu")):
+            with pytest.raises(NotImplementedError, match=match):
+                call()
+    else:
+        tmesh.refuse_later_axes(cfg)
     tmesh.refuse_later_axes(tmesh.MeshConfig(**{axis: 2}))
     sizes = cfg.resolve(4).axis_sizes()
-    with pytest.raises(NotImplementedError, match=match):
-        tgpt.GPT(tgpt.GPTConfig(**tgpt.tiny().__dict__), device="cpu",
-                 mesh=_port_mesh(sizes))
+    mesh = types.SimpleNamespace(**vars(_port_mesh(sizes)),
+                                 get_group=lambda a: None)
+    experts = tgpt.GPTConfig(**{**tgpt.tiny().__dict__, "n_experts": 4})
+    if refused:
+        with pytest.raises(NotImplementedError, match=match):
+            tgpt.GPT(tgpt.GPTConfig(**tgpt.tiny().__dict__), device="cpu",
+                     mesh=mesh)
+        return
+    from determined_tpu_torch.parallel import experts as tmoe
+
+    # the mesh-like has no process groups to make
+    monkeypatch.setattr(tmoe, "_group", lambda mesh, axes: None)
+    model = tgpt.GPT(experts, device="cpu", mesh=mesh)
+    assert model.blocks["we_in"].shape[1] == 2  # 4 experts over expert=2
 
 
 @pytest.mark.parametrize("name,part", [

@@ -628,15 +628,31 @@ def test_gpt2_trial_scales_its_microbatch_by_data_and_fsdp_not_tensor():
 
 
 @pytest.mark.parametrize("axis", ["pipeline", "expert"])
-def test_pipeline_and_expert_are_still_refused_with_tensor(axis):
+def test_pipeline_and_expert_are_still_refused_with_tensor(axis, monkeypatch):
     """Pipeline stages beside the tensor axis train
-    (tests/test_torch_pipeline.py); the expert axis beside it is left
-    out, with pipeline stages or without."""
+    (tests/test_torch_pipeline.py), and so does the expert axis
+    (tests/test_torch_experts_split.py); the expert axis beside pipeline
+    stages is left out, as the reference leaves it out."""
+    import torch
+
+    from determined_tpu_torch.models import gpt
     from determined_tpu_torch.parallel import MeshConfig
     from determined_tpu_torch.parallel.mesh import refuse_later_axes
 
     refuse_later_axes(MeshConfig(tensor=2, context=2, fsdp=2))
     refuse_later_axes(MeshConfig(tensor=2, pipeline=2))
+    if axis == "expert":
+        from determined_tpu_torch.parallel import experts
+
+        refuse_later_axes(MeshConfig(tensor=2, expert=2))
+        # the mesh-like has no process groups to make
+        monkeypatch.setattr(experts, "_group", lambda mesh, axes: None)
+        model = gpt.GPT(gpt.GPTConfig(dtype=torch.float32, **KW,
+                                      n_experts=4), device="cpu",
+                         mesh=_fake_mesh(tensor=2, expert=2))
+        assert model.tensor_dims()["blocks.we_in"] == 3
+        assert model.expert_dims()["blocks.we_in"] == 1
+        return
     with pytest.raises(NotImplementedError,
                        match="expert=2 and (pipeline|tensor)=2.*item 4"):
         refuse_later_axes(MeshConfig(**{"tensor": 2, "expert": 2, axis: 2}))

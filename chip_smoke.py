@@ -350,7 +350,12 @@ script exits non-zero without the final result line:
    the ``mlp`` offsets in the names) restored bit for bit by a fresh gang
    and onto one rank on the card, which trains on within 1e-3 of the
    gang; each layer's dropped share at step 1 printed beside the one
-   device's. Then a greedy decode of ``EXPERT_TOKENS`` tokens for 4
+   device's. Then the fp32 twins of the two split gangs
+   (``EXPERT_FP32_TWINS``: the same gangs in fp32 at 2 layers, every
+   expert kept) against a one-device fp32 run at that depth: every loss
+   within ``FP32_LOSS_RTOL`` (1e-5) and the first ``EXPERT_NORM_STEPS``
+   grad norms within ``FP32_NORM_RTOL`` (1e-4) relative, each step's
+   dropped share printed beside the one device's. Then a greedy decode of ``EXPERT_TOKENS`` tokens for 4
    prompts through ``GenerationEngine`` (``flash_fwd`` prefill, paged
    decode): the index dispatch's streams are the dense dispatch's. Prints
    each layer's share of dropped tokens.
@@ -388,6 +393,25 @@ script exits non-zero without the final result line:
    seconds. No port kernel runs: the convolutions are cuDNN's, as the
    reference's are XLA's.
 
+25. autotune — ``ops/flash_autotune.py`` with its cache in a temp dir:
+   ``tune_flash_blocks`` at B 8 × 1024, the same packed, and B 1 × 16384
+   (H 12, D 64, causal, bf16), one probe a distinct route (forward
+   kernel, backward route), four launches of the route's kernels each;
+   each candidate's route and ms printed, the first candidate of the
+   fastest route returned; a second call launches nothing. GPT-2-small
+   with ``flash_autotune`` resolves its blocks from the cache when it is
+   built and launches the winner's route once a layer a step;
+   ``tune_paged_block_h`` returns the default and launches nothing.
+
+26. integrations — ``transformers``' presence printed first; the haiku
+   slot's trials (``HaikuVisionTrial`` conv and mlp, two DARTS
+   genotypes), and where ``transformers`` imports, ``HFTrial`` at
+   GPT-2-small (B 16 × 512, bf16) and ``HFClassifierTrial`` at BERT-base
+   (B 32 × 128): ``INTEGRATION_STEPS`` Trainer steps, finite losses (the
+   HF ones, on one repeated batch, falling), no port kernel launched;
+   each trained model's fp32 logits against the port's CPU model with
+   the same parameters within ``LOGIT_RTOL`` of the largest.
+
 Phase 3 also holds ``flash_fwd`` at the cached-tail geometry (separate
 query and key segment ids as ``_prefill_cached`` builds them, one row all
 padding) and at the speculative gather verify's (B 8, s_q 5, s_k 1029,
@@ -406,7 +430,7 @@ cotangent); and phase 23's microbatches: the mono pair at B 2 and 1 ×
 
 The last lines are the whole run's seconds, the kernels' JSON record
 (each kernel's ``launches`` summed over the main paths that run it:
-phases 4, 6, 8, 9 and 11 to 24), the card's name and power limit, and
+phases 4, 6, 8, 9 and 11 to 25), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -811,6 +835,8 @@ cap = tfa._FUSED_BWD_PARTIALS_CAP
 for run in spec["runs"]:
     name, sizes, data, fields, steps, save_at = (run[k] for k in (
         "name", "mesh", "data", "fields", "steps", "save_at"))
+    fields = {k: getattr(torch, v) if k in ("dtype", "param_dtype") else v
+              for k, v in fields.items()}
     # the two-pass backward (phase tensor's deterministic pair)
     tfa._FUSED_BWD_PARTIALS_CAP = 0 if run.get("two_pass") else cap
     mesh = make_mesh(MeshConfig(data=1, **sizes))
@@ -1035,6 +1061,18 @@ EXPERT_GANGS = {
     "expert2-c2-ring": (4, {"expert": 2, "context": 2}, 0, "ring", (),
                         SPLIT_NORM_STEPS),
 }
+#: phase experts' fp32 twins of the split gangs: the same gang and mesh
+#: at config dtype float32 (TF32 off), GPT-2-small's widths with every
+#: expert but ``n_layers`` cut to 2, held against a one-device fp32 run
+#: at the same depth on every loss (``FP32_LOSS_RTOL``) and on the first
+#: ``EXPERT_NORM_STEPS`` grad norms (``FP32_NORM_RTOL``): in fp32 the
+#: split's rounding cannot flip routing at step 1 as bf16's does, so a
+#: twin that parts is a fault of the split. name → the bf16 gang it twins
+EXPERT_FP32_FIELDS = {**EXPERT_FIELDS, "n_layers": 2, "dtype": "float32"}
+EXPERT_FP32_TWINS = {"expert2-t2-fp32": "expert2-t2",
+                     "expert2-c2-ring-fp32": "expert2-c2-ring"}
+FP32_LOSS_RTOL = 1e-5
+FP32_NORM_RTOL = 1e-4
 #: phase pipeline: name → (gang, mesh axes besides data=1, GPTConfig
 #: fields, steps); every run is held against phase train's one-device run
 PIPELINE_RUNS = {
@@ -1074,6 +1112,40 @@ ZOO_TRIALS = {"ddpm": ("DiffusionTrial", "diffusion.json", "loss"),
 ZOO_STEPS = 50        # each trial's searcher operation on one rank
 ZOO_SAVE_AT = 25      # ... its checkpoint period
 ZOO_SAMPLES = 16      # the DDPM's sampled images (its 200 timesteps)
+#: phase autotune: the shapes ``tune_flash_blocks`` probes on the card (H
+#: 12, D 64, causal, bf16): the headline batch, the same packed, and the
+#: long16k rung's
+AUTOTUNE_SHAPES = {"b8-s1024": dict(batch=8, s_q=1024),
+                   "b8-s1024-packed": dict(batch=8, s_q=1024, segments=True),
+                   "b1-s16384": dict(batch=1, s_q=16384)}
+AUTOTUNE_STEPS = 2    # the autotuned GPT-2-small's steps (step 3 spikes)
+#: the kernels of each backward route (``_bwd_route``)
+ROUTE_KERNELS = {"mono": ("flash_bwd_mono",),
+                 "fused": ("flash_bwd_blocked",),
+                 "two_pass": ("flash_bwd_dq", "flash_bwd_dkv")}
+#: phase integrations: the haiku slot's trials (the trial of
+#: ``determined_tpu_torch/integrations/haiku.py`` or the DARTS example,
+#: its hparams: the trial's defaults, the DARTS config's fixed values and
+#: the reference test's two genotypes, which take all five ops)
+HAIKU_TRIALS = {
+    "haiku-conv": ("HaikuVisionTrial", {"arch": "conv"}),
+    "haiku-mlp": ("HaikuVisionTrial", {"arch": "mlp"}),
+    "darts-conv3-skip-maxpool": ("DartsBenchmarkTrial", {
+        "op_0": "conv3", "op_1": "skip", "op_2": "maxpool"}),
+    "darts-avgpool-conv5-skip": ("DartsBenchmarkTrial", {
+        "op_0": "avgpool", "op_1": "conv5", "op_2": "skip"}),
+}
+DARTS_LR = 1e-3       # one draw of darts_benchmark.json's lr space
+#: the HF trials at their example configs' widths (``bert_finetune.json``'s
+#: lr is a search space: its upper end, 1e-4), each on the first batch of
+#: its own stream repeated, so a few steps show the loss fall (GPT-2's
+#: stream is uniform tokens, already near its floor ln 50257): name →
+#: (trial, example, lr)
+HF_TRIALS = {"hf-gpt2": ("HFTrial", "hf_gpt2.json", None),
+             "hf-bert": ("HFClassifierTrial", "bert_finetune.json", 1e-4)}
+INTEGRATION_STEPS = 8
+#: card vs CPU fp32 logits: the largest |Δ| over the largest |logit|
+LOGIT_RTOL = 1e-4
 FLASH_SOURCE = "determined_tpu_torch/ops/csrc/flash_fwd.cu"
 FLASH_REPLACES = "determined_tpu/ops/flash_attention.py:236"
 PAGED_SOURCE = "determined_tpu_torch/ops/csrc/paged_attention.cu"
@@ -2537,7 +2609,7 @@ class Smoke:
         trainer = Trainer(trial, ctx, **(trainer_kw or {}))  # the card
         if prepare is not None:
             prepare(trainer)
-        cfg = trainer.model.config
+        cfg = getattr(trainer.model, "config", None)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for k in _build.KERNELS.values():
@@ -5048,7 +5120,11 @@ class Smoke:
         tensor split, as much with the context split, which splits no
         parameter); a run's sharded save restored bit for bit by a fresh
         gang (the audit every step finding nothing) and onto one rank,
-        which trains on with the gang's losses; then a greedy decode
+        which trains on with the gang's losses; the fp32 twins of the
+        tensor and context splits (``EXPERT_FP32_TWINS``, 2 layers)
+        against a one-device fp32 run at that depth, every loss within
+        ``FP32_LOSS_RTOL`` and the first ``EXPERT_NORM_STEPS`` grad norms
+        within ``FP32_NORM_RTOL``; then a greedy decode
         through ``GenerationEngine``, the index dispatch's streams the
         dense dispatch's. Prints each layer's share of dropped tokens
         beside the one device's. → launches."""
@@ -5134,14 +5210,49 @@ class Smoke:
             max_rel_grad_norm_vs_dense=dense_norm_err,
             dropped_share_by_layer=index["drops"]))
 
+        # -- the fp32 twins' one-device run: 2 layers, every expert -------------
+        cfg32 = dataclasses.replace(cfg, **dict(EXPERT_FP32_FIELDS,
+                                                dtype=torch.float32))
+        n32 = cfg32.n_layers
+        drops32 = []
+
+        def prepare32(trainer):
+            step_fn = trainer._train_step
+
+            def step(batch, poison=1.0):
+                out = step_fn(batch, poison)
+                drops32.append({str(i): int(d) / t for i, (d, t) in
+                                sorted(trainer.model.moe_drops.items())})
+                return out
+
+            trainer._train_step = step
+
+        reports32, per_step32, run32, _, _ = self.fit_counted(
+            RepeatedBatchTrial(b, s, config=cfg32), EXPERT_GANG_STEPS,
+            prepare=prepare32)
+        for i, step in enumerate(per_step32):
+            got = {k: v for k, v in step.items() if v}
+            assert got == {"flash_fwd_mono": n32, "flash_bwd_mono": n32}, (
+                "fp32 one device", i, step)
+        for k, v in run32.items():
+            launches[k] = launches.get(k, 0) + v
+        one32 = dict(losses=[m["loss"] for m in reports32],
+                     grad_norms=[m["grad_norm"] for m in reports32])
+        torch.cuda.empty_cache()
+
         # -- the gangs: expert=2 on two ranks, × tensor=2 and × context=2
-        # -- on four, on the one card -------------------------------------------
+        # -- on four (and the fp32 twins), on the one card ----------------------
         tmp = tempfile.mkdtemp(prefix="dtpu-experts-")
         results, seconds = self.gang_runs(tmp, "experts", None, [
             dict(name=name, world=r[0], mesh=r[1], data="tokens",
                  fields=EXPERT_FIELDS, steps=EXPERT_GANG_STEPS,
                  save_at=r[2])
-            for name, r in EXPERT_GANGS.items()])
+            for name, r in EXPERT_GANGS.items()] + [
+            dict(name=twin, world=EXPERT_GANGS[of][0],
+                 mesh=EXPERT_GANGS[of][1], data="tokens",
+                 fields=EXPERT_FP32_FIELDS, steps=EXPERT_GANG_STEPS,
+                 save_at=0)
+            for twin, of in EXPERT_FP32_TWINS.items()])
         expert2_state = None
         for name, (world, sizes, save_at, calls, files_in, norm_steps) in \
                 EXPERT_GANGS.items():
@@ -5231,6 +5342,52 @@ class Smoke:
                 del trainer
                 torch.cuda.empty_cache()
             self.report("experts", f"gpt2-small-moe8 bf16 {name}", rec)
+
+        # -- the fp32 twins against the fp32 one-device run: every loss, the
+        # -- first EXPERT_NORM_STEPS grad norms --------------------------------
+        for twin, of in EXPERT_FP32_TWINS.items():
+            world, sizes, _, calls, _, _ = EXPERT_GANGS[of]
+            ranks = results[twin]
+            assert len(ranks) == world, (twin, ranks)
+            shares = []
+            for x in ranks:
+                assert x["losses"] == ranks[0]["losses"], (twin, x)
+                assert x["grad_norms"] == ranks[0]["grad_norms"], (twin, x)
+                per_layer = x["coordinate"][4] + 1 if calls == "ring" else 1
+                want = {"flash_fwd_mono": n32 * per_layer,
+                        "flash_bwd_mono": n32 * per_layer}
+                for i, step in enumerate(x["per_step"]):
+                    got = {k: v for k, v in step.items() if v}
+                    assert got == want, (twin, x["rank"], i, step, want)
+                    for k, v in step.items():
+                        launches[k] = launches.get(k, 0) + v
+                if x["coordinate"][3] == 0 and x["coordinate"][5] == 0:
+                    shares.append(x["moe_drop_share_by_step"])
+            x = ranks[0]
+            rel_loss = [abs(a - c) / abs(c)
+                        for a, c in zip(x["losses"], one32["losses"])]
+            rel_norm = [abs(a - c) / abs(c) for a, c in
+                        zip(x["grad_norms"], one32["grad_norms"])]
+            # every step's reading printed before the holds are asserted
+            self.report("experts", f"gpt2-small-moe8 fp32 2 layers {twin}",
+                        dict(
+                backend="gloo", ranks=world, **sizes, layers=n32,
+                dtype="float32", steps=EXPERT_GANG_STEPS, losses=x["losses"],
+                one_device_losses=one32["losses"], rel_loss_by_step=rel_loss,
+                grad_norms=x["grad_norms"],
+                one_device_grad_norms=one32["grad_norms"],
+                rel_grad_norm_by_step=rel_norm,
+                grad_norm_steps_held=EXPERT_NORM_STEPS,
+                dropped_share_by_step=[
+                    {k: sum(sh[i][k] for sh in shares) / len(shares)
+                     for k in shares[0][i]}
+                    for i in range(EXPERT_GANG_STEPS)],
+                one_device_dropped_share_by_step=drops32,
+                gang_seconds=seconds[world]))
+            close(x["losses"], one32["losses"], f"{twin} vs one device fp32",
+                  FP32_LOSS_RTOL)
+            close(x["grad_norms"][:EXPERT_NORM_STEPS], one32["grad_norms"],
+                  f"{twin} grad norm vs one device fp32", FP32_NORM_RTOL)
         shutil.rmtree(tmp, ignore_errors=True)
 
         # -- a greedy decode, index against dense dispatch -----------------------
@@ -5541,6 +5698,270 @@ class Smoke:
                    cpu_loss=out["cpu", torch.float32][0])
         return rec
 
+    def autotune_phase(self):
+        """``ops/flash_autotune.py`` on the card, with its cache in a temp
+        dir: ``tune_flash_blocks`` at each of ``AUTOTUNE_SHAPES``, one
+        probe a distinct route (each route timed at its first candidate,
+        four launches of its kernels), the first candidate of the fastest
+        route returned; a second call reads the cache and launches no
+        kernel. Then GPT-2-small with ``flash_autotune`` (the headline
+        trial): its build resolves its per-device blocks (S 1024, H 12)
+        from the cache, launching nothing, and each step launches the
+        winner's route once a layer; ``tune_paged_block_h`` returns the
+        default and launches nothing. Prints each candidate's route and
+        ms. → launches (the probes' and the steps')."""
+        import shutil
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch.ops import _build
+        from determined_tpu_torch.ops import flash_autotune as fat
+        from determined_tpu_torch.ops.paged_attention import (
+            default_paged_block_h,
+        )
+        from determined_tpu_torch.trainer.profile import (RUNGS,
+                                                          RepeatedBatchTrial)
+
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-autotune-")
+        cache = os.path.join(tmp, "flash_blocks.json")
+        env0 = os.environ.get("DTPU_FLASH_TUNE_CACHE")
+        os.environ["DTPU_FLASH_TUNE_CACHE"] = cache
+        probe, timed = fat._probe_ms, []
+
+        def recording(bq, bk, **kw):
+            ms = probe(bq, bk, **kw)
+            timed.append(((bq, bk), ms))
+            return ms
+
+        def counts():
+            return {n: k.launches for n, k in _build.KERNELS.items()}
+
+        def tune(**kw):
+            before = counts()
+            got = fat.tune_flash_blocks(**kw)
+            return got, {n: v - before[n] for n, v in counts().items()}
+
+        def route_launches(routes):
+            want = {}
+            for fwd, bwd in routes:
+                for k in (fwd, *ROUTE_KERNELS[bwd]):
+                    want[k] = want.get(k, 0) + (fat._PROBE_WARMUP
+                                                + fat._PROBE_STEPS)
+            return want
+
+        launches = dict.fromkeys(_build.KERNELS, 0)
+        fat._probe_ms = recording
+        try:
+            for name, shape in AUTOTUNE_SHAPES.items():
+                kw = dict(n_heads=12, head_dim=64, dtype=torch.bfloat16,
+                          causal=True, device=self.dev, **shape)
+                timed.clear()
+                best, run = tune(**kw)
+                s_q = shape["s_q"]
+                cands = fat.candidate_blocks(s_q, s_q)
+                routes = {c: fat.candidate_route(
+                    *c, s_q=s_q, s_k=s_q, n_heads=12, head_dim=64,
+                    batch=shape["batch"],
+                    segments=shape.get("segments", False)) for c in cands}
+                firsts = {}
+                for c in cands:
+                    firsts.setdefault(routes[c], c)
+                assert [c for c, _ in timed] == list(firsts.values()), (
+                    name, timed, firsts)
+                ms = {routes[c]: t for c, t in timed}
+                assert all(np.isfinite(list(ms.values()))), (name, ms)
+                assert best == firsts[min(ms, key=ms.get)], (name, best, ms)
+                got = {k: v for k, v in run.items() if v}
+                assert got == route_launches(ms), (name, got, ms)
+                for k, v in run.items():
+                    launches[k] += v
+                for c in cands:
+                    print(f"  autotune {name}: blocks {c} route "
+                          f"{'+'.join(routes[c])} ms={ms[routes[c]]:.6g}",
+                          flush=True)
+                timed.clear()
+                again, cached = tune(**kw)
+                assert again == best and not timed, (name, again, timed)
+                assert not any(cached.values()), (name, cached)
+                self.report("autotune", f"{name} H12 D64 causal bf16", dict(
+                    winner=list(best), route="+".join(routes[best]),
+                    candidates=len(cands), routes=len(ms),
+                    **{f"ms_{'+'.join(r)}": t for r, t in ms.items()},
+                    probe_launches=got, cached_call_launches=0))
+
+            # -- GPT-2-small with flash_autotune: its per-device shape
+            # -- (batch 1, the reference's arguments), probed, then cached --
+            cfg = dataclasses.replace(RUNGS["headline"][1],
+                                      flash_autotune=True)
+            timed.clear()
+            blocks, run = tune(
+                s_q=cfg.seq_len, n_heads=cfg.n_heads,
+                head_dim=cfg.head_dim, dtype=cfg.dtype, causal=True,
+                window=cfg.attn_window, want_q=cfg.flash_block_q,
+                want_k=cfg.flash_block_k, device=self.dev)
+            for k, v in run.items():
+                launches[k] += v
+            probed = {c: t for c, t in timed}
+            built = {}
+            before = counts()
+
+            def prepare(trainer):
+                built["blocks"] = trainer.model._flash_blocks()
+                built["launches"] = {n: v - before[n]
+                                     for n, v in counts().items()}
+
+            b, s = 8, cfg.seq_len
+            reports, per_step, run, _, _ = self.fit_counted(
+                RepeatedBatchTrial(b, s, config=cfg), AUTOTUNE_STEPS,
+                prepare=prepare)
+            assert built["blocks"] == blocks, (built, blocks)
+            assert not any(built["launches"].values()), built
+            fwd, bwd = fat.candidate_route(
+                *blocks, s_q=s, s_k=s, n_heads=cfg.n_heads,
+                head_dim=cfg.head_dim, batch=b)
+            want = {k: cfg.n_layers for k in (fwd, *ROUTE_KERNELS[bwd])}
+            for i, step in enumerate(per_step):
+                got = {k: v for k, v in step.items() if v}
+                assert got == want, ("autotuned step", i, step, want)
+            for k, v in run.items():
+                launches[k] += v
+            losses = [m["loss"] for m in reports]
+            assert losses[-1] < losses[0], losses
+            step_ms = [1e3 / m["batches_per_second"] for m in reports]
+
+            # -- the paged kernel's heads per step: no probe -------------------
+            before = counts()
+            block_h = fat.tune_paged_block_h(
+                n_heads=12, head_dim=64, page_size=128, num_pages=72,
+                pages_per_slot=8, batch=8, q_rows=1, dtype=torch.bfloat16)
+            assert block_h == default_paged_block_h(12, 64, 128,
+                                                    torch.bfloat16)
+            assert counts() == before
+            self.report("autotune", "gpt2-small bf16 flash_autotune", dict(
+                blocks=list(blocks), route=f"{fwd}+{bwd}",
+                probed_ms={f"{c[0]}x{c[1]}": t for c, t in probed.items()},
+                steps=len(reports), losses=losses, step_ms=step_ms,
+                launches_per_step=want, paged_block_h=block_h,
+                seconds=time.perf_counter() - t0))
+        finally:
+            fat._probe_ms = probe
+            if env0 is None:
+                os.environ.pop("DTPU_FLASH_TUNE_CACHE", None)
+            else:
+                os.environ["DTPU_FLASH_TUNE_CACHE"] = env0
+            shutil.rmtree(tmp, ignore_errors=True)
+        return launches
+
+    def integrations_phase(self):
+        """The integrations on the card: the haiku slot's trials
+        (``HAIKU_TRIALS``: ``HaikuVisionTrial`` conv and mlp at their
+        defaults, ``DartsBenchmarkTrial`` at ``darts_benchmark.json``'s
+        fixed values) and, where ``transformers`` imports, ``HFTrial`` at
+        ``hf_gpt2.json``'s GPT-2-small width (B 16 × 512, bf16) and
+        ``HFClassifierTrial`` at ``bert_finetune.json``'s BERT-base width
+        (``HF_TRIALS``, each on one batch of its stream, repeated):
+        ``INTEGRATION_STEPS`` Trainer steps each, finite losses (the HF
+        ones falling), no port kernel launched (their
+        models run outside the port's kernels, as the reference's run
+        outside Pallas); then each trained model's fp32 logits (the HF
+        ones at B 2) against the port's CPU model holding the same
+        parameters, within ``LOGIT_RTOL`` of the largest (TF32 off).
+        Whether ``transformers`` imports is printed first; without it the
+        HF half prints that it did not run. → launches (none)."""
+        import itertools
+
+        import numpy as np
+        import torch
+
+        from determined_tpu_torch.examples import darts_benchmark_trial
+        from determined_tpu_torch.integrations import haiku
+
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+        t0 = time.perf_counter()
+        try:
+            import transformers
+            hf_version = transformers.__version__
+        except ImportError:
+            hf_version = None
+        print(f"phase integrations: transformers="
+              f"{hf_version or 'missing'} | card {self.card}", flush=True)
+        root = os.path.dirname(os.path.abspath(__file__))
+        with open(os.path.join(root, "examples", "darts_benchmark.json")) as f:
+            darts_hp = {k: v for k, v in json.load(f)["hyperparameters"].items()
+                        if not isinstance(v, dict)}
+        trials = {}
+        for name, (cls, hp) in HAIKU_TRIALS.items():
+            if cls == "DartsBenchmarkTrial":
+                trials[name] = darts_benchmark_trial.DartsBenchmarkTrial(
+                    dict(darts_hp, lr=DARTS_LR, **hp))
+            else:
+                trials[name] = haiku.HaikuVisionTrial(dict(hp))
+        if hf_version is not None:
+            from determined_tpu_torch.integrations import hf
+
+            for name, (cls, example, lr) in HF_TRIALS.items():
+                with open(os.path.join(root, "examples", example)) as f:
+                    hp = json.load(f)["hyperparameters"]
+                if lr is not None:
+                    hp["lr"] = lr
+                trial = trials[name] = getattr(hf, cls)(hp)
+                first = next(iter(trial.build_training_data()))
+                trial.build_training_data = (
+                    lambda first=first: itertools.repeat(first))
+        else:
+            print("phase integrations: the HF trials did not run "
+                  "(transformers is not installed)", flush=True)
+        for name, trial in trials.items():
+            held = {}
+            reports, per_step, run, peak_gb, _ = self.fit_counted(
+                trial, INTEGRATION_STEPS,
+                prepare=lambda trainer, held=held: held.update(
+                    model=trainer.model))
+            assert not any(run.values()), (name, run)
+            losses = [m["loss"] for m in reports]
+            if name.startswith("hf-"):
+                assert losses[-1] < losses[0], (name, losses)
+            model = held.pop("model")
+            batch = next(iter(trial.build_validation_data()))
+            key = "tokens" if "tokens" in batch else "x"
+            rows = 2 if name.startswith("hf-") else len(batch[key])
+            x = torch.as_tensor(np.asarray(batch[key])[:rows])
+            if name.startswith("hf-"):
+                model.dtype = torch.float32  # the fp32 logits, no autocast
+                cpu = type(model)(
+                    trial.hparams.get("hf_model_type"),
+                    trial.hparams.get("hf_config", {}),
+                    **({"num_labels": int(trial.hparams.get("num_labels", 2))}
+                       if name == "hf-bert" else {}),
+                    dtype=torch.float32, device="cpu")
+            else:
+                cpu = trial.build_model("cpu")
+            cpu.load_state_dict({k: v.detach().cpu()
+                                 for k, v in model.state_dict().items()})
+            with torch.no_grad():
+                got = model.apply(x.to(self.dev)).float().cpu()
+                want = cpu.apply(x).float()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            self.report("integrations", name, dict(
+                steps=len(reports), losses=losses,
+                step_ms=[1e3 / m["batches_per_second"] for m in reports],
+                max_memory_allocated_gb=peak_gb,
+                n_params=sum(p.numel() for p in model.parameters()),
+                logits_rows=rows, fp32_logits_max_abs_err=err,
+                fp32_logits_max=scale))
+            assert err <= LOGIT_RTOL * scale, (name, err, scale)
+            del model, cpu
+            torch.cuda.empty_cache()
+        self.report("integrations", "all", dict(
+            trials=len(trials), transformers=hf_version or "missing",
+            seconds=time.perf_counter() - t0))
+        return {}
+
     def train_parity_phase(self, route="mono"):
         """One fp32 loss + gradient of GPT-2-small's width with 2 layers,
         batch 1 x seq 1024, on the card and on the CPU from the same
@@ -5775,17 +6196,19 @@ def main() -> int:
                      if n in ("flash_bwd_dq", "flash_bwd_dkv")})
     smoke.train_packed_phase()
 
-    # -- phases 11 to 24: checkpoints, the fixture, the rest of serving, the
+    # -- phases 11 to 26: checkpoints, the fixture, the rest of serving, the
     # -- rest of the training loop, the exec layer off and on the cluster, the
     # -- mesh, the context axis, the tensor axis, the elastic resize, the
-    # -- experts, the pipeline stages and the generative zoo ---------------------
+    # -- experts, the pipeline stages, the generative zoo, the flash autotuner
+    # -- and the integrations -----------------------------------------------------
     for phase in (smoke.checkpoint_phase, smoke.fixture_phase,
                   smoke.serving_http_phase, smoke.serving_parity_phase,
                   smoke.train_health_phase, smoke.exec_phase,
                   smoke.cluster_phase, smoke.mesh_phase,
                   smoke.context_phase, smoke.tensor_phase,
                   smoke.elastic_phase, smoke.experts_phase,
-                  smoke.pipeline_phase, smoke.zoo_phase):
+                  smoke.pipeline_phase, smoke.zoo_phase,
+                  smoke.autotune_phase, smoke.integrations_phase):
         for name, count in phase().items():
             launches[name] += count
 

@@ -150,9 +150,10 @@ class GPTConfig:
     param_dtype: Any = torch.float32   # master params
     tie_embeddings: bool = True
     # The reference's knobs, carried for config parity. The port reads
-    # every one but scan_unroll and flash_autotune (XLA's loop unrolling
-    # and the TPU tile probe) and layer_loop, which it reads only for the
-    # auto rematted attention past 16k tokens.
+    # every one but scan_unroll (XLA's loop unrolling) and layer_loop,
+    # which it reads only for the auto rematted attention past 16k tokens.
+    # flash_autotune resolves the training blocks through
+    # ops/flash_autotune.py (GPT._flash_blocks).
     remat: bool = True
     remat_attention: bool = False
     scan_unroll: int = 1
@@ -425,6 +426,36 @@ class GPT(Model):
         #: {name: fsdp dimension} of the parameters held as its blocks
         self._fsdp: Any = None
         self._fsdp_dims: Dict[str, int] = {}
+        # (block_q, block_k) of the training forward: the config's, or the
+        # autotuner's probed winner (flash_autotune), resolved here, when
+        # the model is built, because the probe launches kernels.
+        self._resolved_flash_blocks: Optional[Tuple[int, int]] = None
+        if c.flash_autotune:
+            self._flash_blocks()
+
+    def _flash_blocks(self) -> Tuple[int, int]:
+        if self._resolved_flash_blocks is None:
+            c = self.config
+            if c.flash_autotune:
+                from determined_tpu_torch.ops.flash_autotune import (
+                    tune_flash_blocks,
+                )
+
+                # The per-device kernel shapes: a context axis gives each
+                # hop the local chunk, a tensor axis n_heads/tensor heads.
+                s_local = max(c.seq_len // max(self._context, 1), 1)
+                h_local = max(c.n_heads // max(self._tensor, 1), 1)
+                self._resolved_flash_blocks = tune_flash_blocks(
+                    s_q=s_local, n_heads=h_local, head_dim=c.head_dim,
+                    dtype=c.dtype, causal=True, window=c.attn_window,
+                    want_q=c.flash_block_q, want_k=c.flash_block_k,
+                    device=self.device,
+                )
+            else:
+                self._resolved_flash_blocks = (
+                    c.flash_block_q, c.flash_block_k
+                )
+        return self._resolved_flash_blocks
 
     def train_flops_per_token(self) -> float:
         """The config's fwd+bwd FLOPs per token (the trainer's
@@ -1032,10 +1063,11 @@ class GPT(Model):
     def _attn_half(self, x: torch.Tensor, w: Dict[str, torch.Tensor],
                    segment_ids: Optional[torch.Tensor]) -> torch.Tensor:
         c = self.config
+        block_q, block_k = self._flash_blocks()
         q, k, v = self._qkv(x, w)
         o = attn_mod.attention(
             q, k, v, mesh=self.mesh, causal=True, impl=c.attn_impl,
-            block_q=c.flash_block_q, block_k=c.flash_block_k,
+            block_q=block_q, block_k=block_k,
             layout=c.sequence_layout, window=c.attn_window,
             segment_ids=segment_ids,
         )

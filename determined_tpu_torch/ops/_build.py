@@ -81,11 +81,8 @@ class CudaKernel:
         return CSRC / f"{self.name}.cu"
 
     def library_path(self) -> Path:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in [self.source, *sorted(CSRC.glob("*.cuh"))]:
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
-        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+        digest = _digest([self.source, *sorted(CSRC.glob("*.cuh"))])
+        return BUILD_DIR / f"{self.name}-{digest}.so"
 
     def _start_build(self) -> Optional[subprocess.Popen]:
         """Start nvcc for this library unless it is already built."""
@@ -206,6 +203,23 @@ def build_all() -> float:
     for k in KERNELS.values():
         k.load()
     return time.perf_counter() - t0
+
+
+def _digest(sources: Sequence[Path]) -> str:
+    """The nvcc flags and `sources` (names and bytes), hashed."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def sources_digest() -> str:
+    """A digest of every source ``nvcc`` compiles here (``csrc/*.cu`` and
+    ``*.cuh``) and of the flags: it changes whenever a library's hash
+    name does, so a cache keyed by it (``ops/flash_autotune.py``) goes
+    stale when a kernel is redesigned."""
+    return _digest(sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]))
 
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -52,6 +52,7 @@ trace, fixed at admission) and exported through ``common/trace.py``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import math
 import os
@@ -360,6 +361,24 @@ class GenerationEngine:
             env_spec, config.spec_mode)
         self._spec_draft_len = config.spec_draft_len
         self._spec_min_match = config.spec_min_match
+        # Heads per step of the paged kernel, from the autotuner (pool
+        # geometry in its key) for the one-token step and, tuned apart,
+        # for the speculative verify's draft_len + 1 rows; the CUDA
+        # kernel validates it and runs one head per cluster.
+        self._paged_block_h = self._spec_block_h = None
+        if self._decode_kernel == "paged":
+            from determined_tpu_torch.ops.flash_autotune import (
+                tune_paged_block_h,
+            )
+
+            tune = functools.partial(
+                tune_paged_block_h, n_heads=c.n_heads, head_dim=c.head_dim,
+                page_size=config.page_size, num_pages=config.num_pages,
+                pages_per_slot=config.max_pages_per_request,
+                batch=config.max_batch_size, dtype=c.dtype)
+            self._paged_block_h = self._spec_block_h = tune(q_rows=1)
+            if self._spec_mode == "ngram":
+                self._spec_block_h = tune(q_rows=self._spec_draft_len + 1)
         self._gen = torch.Generator(device=self.device).manual_seed(0)
         self._queue: deque = deque()
         self._slots: List[Optional[Request]] = [None] * config.max_batch_size
@@ -883,7 +902,7 @@ class GenerationEngine:
                 self._to_device(toks), self._to_device(lengths),
                 self._to_device(q_lens), self._to_device(active),
                 self.cache_k, self.cache_v, self._to_device(pt), q_pad=1,
-                kernel=self._decode_kernel,
+                kernel=self._decode_kernel, block_h=self._spec_block_h,
             )
             greedy = logits.argmax(dim=-1).cpu().numpy()      # [B, Q]
             nxt = self._sample(logits[:, 0], temps)
@@ -892,6 +911,7 @@ class GenerationEngine:
                 self._to_device(last), self._to_device(lengths),
                 self._to_device(active), self.cache_k, self.cache_v,
                 self._to_device(pt), q_pad=1, kernel=self._decode_kernel,
+                block_h=self._paged_block_h,
             )
             nxt = self._sample(logits, temps)  # waits for the device step
         elapsed = time.perf_counter() - t_iter

@@ -11,8 +11,10 @@ layer (the native loader's binding too), the vision and generative
 models, the GPT-2 pretrain and generative examples and the multi-device
 layer (the mesh and sharding rules, ring and Ulysses attention, the
 tensor axis's collectives, the experts' routing and groups, the gang's
-distributed context, the trainer's mesh layout), and finds none of them
-loaded."""
+distributed context, the trainer's mesh layout), the integrations (HF and
+the haiku slot), the flash autotuner and the DARTS example, and finds
+none of them loaded; nor ``transformers``, which the HF integration
+imports only when it builds a model."""
 import ast
 import subprocess
 import sys
@@ -21,7 +23,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "determined_tpu", "requests")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "haiku", "determined_tpu",
+             "requests")
 SOURCES = sorted(
     str(p.relative_to(ROOT))
     for p in [*(ROOT / "determined_tpu_torch").rglob("*.py"),
@@ -92,9 +95,14 @@ def test_port_never_imports_jax(source):
             "determined_tpu_torch.parallel.experts, "
             "determined_tpu_torch.core._distributed, "
             "determined_tpu_torch.trainer._mesh, "
+            "determined_tpu_torch.integrations, "
+            "determined_tpu_torch.integrations.hf, "
+            "determined_tpu_torch.integrations.haiku, "
+            "determined_tpu_torch.ops.flash_autotune, "
+            "determined_tpu_torch.examples.darts_benchmark_trial, "
             "determined_tpu_torch._info\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            f"{FORBIDDEN!r})\n"
+            f"{FORBIDDEN + ('transformers',)!r})\n"
             "print(','.join(bad))\n"
         )
         out = subprocess.run(
